@@ -1,0 +1,18 @@
+"""ranklib_tpu_torch — the PyTorch/CUDA port of ranklib_tpu for one NVIDIA H100.
+
+The JAX package ``ranklib_tpu`` beside this one is the reference: every
+module here sits at the same relative path as its counterpart there and is
+held to its answers by the ``tests/test_torch_*.py`` files.
+
+This package imports ``torch`` and never ``jax`` or ``ranklib_tpu``; the
+few host-side modules it needs (LETOR parsing, datasets, errors, logging)
+are carried as its own copies, and the reference's native C++ parser and
+binner are compiled by file path (``native.loader``).
+
+Ported so far: the LambdaMART/MART serving path — ``-load`` a model file,
+then ``-test`` or ``-rank`` a dense LETOR file — with the two bin-space
+forest evaluators as hand-written CUDA kernels (``ops.forest_eval``,
+``csrc/forest_eval.cu``). Training and the other rankers are later slices.
+"""
+
+__version__ = "0.1.0"

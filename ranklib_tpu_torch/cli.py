@@ -1,0 +1,169 @@
+"""RankLib-compatible command line of the port (ranklib_tpu.cli; ref:
+eval/Evaluator.java:~100-350).
+
+The argument parser is the reference's, flag for flag. The ported flows::
+
+    python -m ranklib_tpu_torch -load model.txt -test test.txt \
+        -metric2T NDCG@10 -idv idv.txt
+    python -m ranklib_tpu_torch -load model.txt -rank test.txt -score s.txt
+
+Flows and inputs not ported yet (``-train``, ``-kcv``, ``-ana``,
+``-combine``, ``-sparse``, ``-qrel``, ``-norm``) exit with a clean error
+and rc 1. Flags that only tune training are accepted and unused, as in the
+reference's load flows.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from ranklib_tpu_torch.utils.errors import RankLibError
+from ranklib_tpu_torch.utils.logging import log, set_silent
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="ranklib_tpu_torch", add_help=True, allow_abbrev=False,
+        description="Learning-to-rank engine on PyTorch/CUDA "
+                    "(RankLib-compatible CLI)")
+    # training flows
+    p.add_argument("-train", metavar="file")
+    p.add_argument("-ranker", type=int, default=4,
+                   help="0:MART 1:RankNet 2:RankBoost 3:AdaRank 4:CoorAscent "
+                        "5:LambdaRank 6:LambdaMART 7:ListNet 8:RandomForests "
+                        "9:LinearRegression (default 4)")
+    p.add_argument("-feature", metavar="file")
+    p.add_argument("-metric2t", default="ERR@10",
+                   help="train metric (default ERR@10)")
+    p.add_argument("-metric2T", default=None, help="test metric")
+    p.add_argument("-gmax", type=float, default=4.0)
+    p.add_argument("-qrel", metavar="file")
+    p.add_argument("-missingZero", action="store_true")
+    p.add_argument("-validate", metavar="file")
+    p.add_argument("-tvs", type=float, default=-1.0)
+    p.add_argument("-tts", type=float, default=-1.0,
+                   help="train-test split ratio x: first x of the training "
+                        "queries train, the rest test (overrides -tvs and "
+                        "an explicit -test file, like the reference)")
+    p.add_argument("-test", metavar="file")
+    p.add_argument("-norm", choices=["sum", "zscore", "linear"])
+    p.add_argument("-sparse", action="store_true",
+                   help="memory-lean input for wide/sparse data")
+    p.add_argument("-save", metavar="file")
+    p.add_argument("-kcv", type=int, default=-1)
+    p.add_argument("-kcvmd", metavar="dir")
+    p.add_argument("-kcvmn", metavar="name")
+    # test / rerank flows
+    p.add_argument("-load", metavar="file")
+    p.add_argument("-idv", metavar="file")
+    p.add_argument("-rank", metavar="file")
+    p.add_argument("-score", metavar="file")
+    p.add_argument("-indri", metavar="file")
+    # misc
+    p.add_argument("-silent", action="store_true")
+    p.add_argument("-thread", type=int, default=-1,
+                   help="accepted for compatibility")
+    p.add_argument("-ckpt", type=int, default=None,
+                   help="checkpoint the model every N boosting rounds "
+                        "(extension; tree rankers)")
+    p.add_argument("-resume", metavar="file",
+                   help="warm-start tree training from a saved model "
+                        "(extension; continues toward -tree total)")
+    p.add_argument("-dp", type=int, default=0,
+                   help="data-parallel devices for tree-ranker training "
+                        "(extension; 0 = single device)")
+    p.add_argument("-randomSeed", type=int, default=0)
+    p.add_argument("-eventlog", metavar="file",
+                   help="structured JSONL event log of training (extension "
+                        "over RankLib)")
+    p.add_argument("-profile", metavar="dir",
+                   help="profiler trace of training (extension)")
+    # ranker hyperparameters (None = use ranker default)
+    p.add_argument("-epoch", type=int)
+    p.add_argument("-layer", type=int)
+    p.add_argument("-node", type=int)
+    p.add_argument("-lr", type=float)
+    p.add_argument("-tree", type=int)
+    p.add_argument("-leaf", type=int)
+    p.add_argument("-shrinkage", type=float)
+    p.add_argument("-tc", type=int)
+    p.add_argument("-mls", type=int)
+    p.add_argument("-estop", type=int)
+    p.add_argument("-round", type=int)
+    p.add_argument("-noeq", action="store_true", default=None)
+    p.add_argument("-tolerance", type=float)
+    p.add_argument("-max", type=int)
+    p.add_argument("-r", type=int)
+    p.add_argument("-i", type=int)
+    p.add_argument("-reg", type=float)
+    p.add_argument("-bag", type=int)
+    p.add_argument("-srate", type=float)
+    p.add_argument("-frate", type=float)
+    p.add_argument("-rtype", type=int)
+    p.add_argument("-L2", type=float, dest="l2")
+    # analyzer mode (ref: eval/Analyzer.java)
+    p.add_argument("-ana", action="store_true")
+    p.add_argument("-all", metavar="dir")
+    p.add_argument("-base", metavar="file")
+    p.add_argument("-np", type=int, default=10000, dest="n_permutations")
+    # combiner mode (ref: learning/Combiner.java)
+    p.add_argument("-combine", metavar="dir")
+    p.add_argument("-o", metavar="file", dest="combine_out")
+    return p
+
+
+_NOTHING_TO_DO = ("Nothing to do: give -train, -load -test, -load -rank, "
+                  "-ana, or -combine")
+
+
+def _has_flow(args) -> bool:
+    """True when the arguments select one of the reference's flows."""
+    return bool(args.ana or args.combine or args.train
+                or (args.load and (args.rank or args.test)))
+
+
+def _unported(args) -> str | None:
+    """The first flow or input flag the port does not serve yet."""
+    if args.ana:
+        return "-ana"
+    if args.combine:
+        return "-combine"
+    if args.train:
+        return "-kcv" if args.kcv > 0 else "-train"
+    for flag in ("sparse", "qrel", "norm"):
+        if getattr(args, flag):
+            return f"-{flag}"
+    return None
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    set_silent(args.silent)
+    if not _has_flow(args):
+        log(f"Error: {_NOTHING_TO_DO}")
+        return 1
+    try:
+        flag = _unported(args)
+        if flag:
+            raise RankLibError(f"{flag} is not yet ported to "
+                               f"ranklib_tpu_torch (ported: -load with "
+                               f"-test or -rank on dense input)")
+        from ranklib_tpu_torch.device import choose_device
+        from ranklib_tpu_torch.evaluator import (
+            evaluate_rank, evaluate_test_only,
+        )
+
+        device = choose_device()
+        if args.rank:
+            evaluate_rank(args, device)
+        else:
+            evaluate_test_only(args, device)
+    except (RankLibError, OSError) as e:
+        log(f"Error: {e}")
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,45 @@
+"""Device choice for the CLI (the counterpart of ranklib_tpu.cli._ensure_backend).
+
+``RANKLIB_TPU_TORCH_DEVICE`` forces a device (``cpu``, ``cuda``,
+``cuda:1``); otherwise the first CUDA device when one is available, else
+the CPU. The choice is logged on one line and then passed down explicitly;
+nothing here is global state.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from ranklib_tpu_torch.utils.errors import RankLibError
+from ranklib_tpu_torch.utils.logging import log
+
+DEVICE_ENV = "RANKLIB_TPU_TORCH_DEVICE"
+
+
+def choose_device() -> torch.device:
+    forced = os.environ.get(DEVICE_ENV)
+    if forced:
+        try:
+            dev = torch.device(forced)
+        except RuntimeError as e:
+            raise RankLibError(f"{DEVICE_ENV}={forced!r}: {e}") from None
+        if dev.type not in ("cpu", "cuda"):
+            raise RankLibError(f"{DEVICE_ENV}={forced!r}: only cpu and cuda "
+                               f"devices are supported")
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RankLibError(f"{DEVICE_ENV}={forced!r} but CUDA is not "
+                               f"available")
+    else:
+        dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev.index >= torch.cuda.device_count():
+            raise RankLibError(f"no CUDA device {dev.index} "
+                               f"({torch.cuda.device_count()} available)")
+        log(f"Device: {dev} ({torch.cuda.get_device_name(dev)})")
+    else:
+        log("Device: cpu")
+    return dev

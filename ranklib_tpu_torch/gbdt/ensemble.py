@@ -1,0 +1,534 @@
+"""Flat tree ensembles: RankLib model-file format and serving
+(ranklib_tpu.gbdt.ensemble).
+
+Trees are flat slot arrays (feature/threshold/left/right/output per node);
+the model file is the reference's ``<ensemble><tree id=.. weight=..>
+<split>…`` XML (ref: learning/tree/Ensemble.java:~100, Split.java), with
+1-indexed fids. Scoring is ``Σ_t w_t · tree_t(x)`` (ref: Ensemble.eval).
+
+All host-side packing and text formatting stays in numpy, so the packs are
+bit-identical to the reference's and the file bytes match; tensors start
+at the device boundary (:meth:`TreeEnsemble.forest_pack`).
+
+Serving routes (:meth:`TreeEnsemble.eval_matrix`):
+
+* host-binned — bin on the host against the model's own threshold grid
+  (native binner), upload uint8/int16 ids, :func:`forest_eval_frombins`;
+* device-resident — :meth:`TreeEnsemble._device_eval_fn`, which bins on
+  the device inside :func:`forest_eval_bins`;
+* plain :func:`_mm_eval` — the f32-compare path, for CPU models the
+  kernels do not take (> 256 thresholds on a feature). On CUDA such models
+  need the f32 forest kernel ``forest_eval_pallas_full``, not ported yet,
+  and raise.
+"""
+
+from __future__ import annotations
+
+import xml.etree.ElementTree as ET
+
+import numpy as np
+import torch
+
+from ranklib_tpu_torch.ops.forest_eval import (
+    MAX_FEATURES, MAX_GRID, ForestPack, forest_eval_bins,
+    forest_eval_frombins,
+)
+from ranklib_tpu_torch.utils.errors import RankLibError
+
+
+class Tree:
+    """One tree in flat-slot form (host numpy). Slot 0 = root."""
+
+    __slots__ = ("feature", "threshold", "left", "right", "is_leaf", "output")
+
+    def __init__(self, feature, threshold, left, right, is_leaf, output):
+        self.feature = np.asarray(feature, np.int32)      # 0-based column
+        self.threshold = np.asarray(threshold, np.float32)
+        self.left = np.asarray(left, np.int32)
+        self.right = np.asarray(right, np.int32)
+        self.is_leaf = np.asarray(is_leaf, bool)
+        self.output = np.asarray(output, np.float32)
+
+    @property
+    def n_slots(self):
+        return len(self.feature)
+
+    def depth(self) -> int:
+        best = 0
+        stack = [(0, 0)]                  # iterative: chain trees can
+        while stack:                      # exceed the recursion limit
+            node, d = stack.pop()
+            if self.is_leaf[node]:
+                best = max(best, d)
+            else:
+                stack.append((int(self.left[node]), d + 1))
+                stack.append((int(self.right[node]), d + 1))
+        return best
+
+
+class TreeEnsemble:
+    """List of (Tree, weight); weight = learning rate for boosted models
+    (ref: Ensemble.add(tree, learningRate))."""
+
+    # Trees per chunk of the matmul pack (the reference's value, so the
+    # packs are bit-identical) and per f32 partial sum in the kernels.
+    _TREE_CHUNK = 25
+    # Docs per chunk of the plain f32 route, which materializes a
+    # [TC·M, chunk] predicate block per tree chunk.
+    _EVAL_CHUNK = 1 << 14
+    # Bytes of host-binned ids per upload in the host-binned route.
+    _SERVE_CHUNK_BYTES = 8 << 20
+
+    def __init__(self):
+        self.trees: list[Tree] = []
+        self.weights: list[float] = []
+        self._invalidate()
+
+    def _invalidate(self):
+        self._mm = None
+        self._mmb = None
+        self._walk = None
+        self._bins_meta = None
+        self._gridnp = None
+        self._dev_packs = {}
+
+    def add(self, tree: Tree, weight: float):
+        self.trees.append(tree)
+        self.weights.append(float(weight))
+        self._invalidate()
+
+    def truncate(self, n: int):
+        """Keep the first n trees (ref: LambdaMART learn() post-loop
+        truncation)."""
+        self.trees = self.trees[:n]
+        self.weights = self.weights[:n]
+        self._invalidate()
+
+    def __len__(self):
+        return len(self.trees)
+
+    # ---- packs (host numpy) ------------------------------------------------
+
+    def _pack_matmul(self, n_features: int):
+        """(fid_full, thr_full, PmQc, csQc, plenc, outwc): the reference's
+        matmul-path pack (ref ``_pack_matmul``, :157), bit-identical. Per
+        leaf, P/Q mark the internal nodes whose test must be true/false on
+        its root path; trees go in chunks of TC with block-diagonal P/Q;
+        each chunk's node rows pad to a multiple of 16 (dead rows: fid 0,
+        thr 0, zero P/Q rows)."""
+        key = ("mm", n_features)
+        if self._mm is None or self._mm[0] != key:
+            M = max(max((~t.is_leaf).sum(), 1) for t in self.trees)
+            L = max(t.is_leaf.sum() for t in self.trees)
+            TC = self._TREE_CHUNK
+            Tp = ((len(self.trees) + TC - 1) // TC) * TC
+            fid = np.zeros((Tp, M), np.int32)
+            thr = np.zeros((Tp, M), np.float32)
+            P = np.zeros((Tp, M, L), np.float32)
+            Q = np.zeros((Tp, M, L), np.float32)
+            plen = np.full((Tp, L), -1.0, np.float32)   # pads never match
+            outw = np.zeros((Tp, L), np.float32)
+            for ti, (t, w) in enumerate(zip(self.trees, self.weights)):
+                internal = np.flatnonzero(~t.is_leaf)
+                slot_of = {int(n): i for i, n in enumerate(internal)}
+                for i, n in enumerate(internal):
+                    fid[ti, i] = t.feature[n]
+                    thr[ti, i] = t.threshold[n]
+                li = 0
+                stack = [(0, [])]             # DFS collecting (leaf, path)
+                while stack:
+                    node, path = stack.pop()
+                    if t.is_leaf[node]:
+                        for m, left in path:
+                            (P if left else Q)[ti, slot_of[m], li] = 1.0
+                        plen[ti, li] = len(path)
+                        outw[ti, li] = t.output[node] * w
+                        li += 1
+                    else:
+                        stack.append((int(t.right[node]),
+                                      path + [(node, False)]))
+                        stack.append((int(t.left[node]),
+                                      path + [(node, True)]))
+            nch = Tp // TC
+            TCM = ((TC * M + 15) // 16) * 16
+            fid_full = np.zeros((nch * TCM,), np.int32)
+            thr_full = np.zeros((nch * TCM,), np.float32)
+            Pc = np.zeros((nch, TCM, TC * L), np.float32)
+            Qc = np.zeros((nch, TCM, TC * L), np.float32)
+            plenc = np.full((nch, TC * L), -1.0, np.float32)
+            outwc = np.zeros((nch, TC * L), np.float32)
+            for c in range(nch):
+                for j in range(TC):
+                    ti = c * TC + j
+                    col = c * TCM + j * M
+                    fid_full[col: col + M] = fid[ti]
+                    thr_full[col: col + M] = thr[ti]
+                    Pc[c, j * M:(j + 1) * M, j * L:(j + 1) * L] = P[ti]
+                    Qc[c, j * M:(j + 1) * M, j * L:(j + 1) * L] = Q[ti]
+                    plenc[c, j * L:(j + 1) * L] = plen[ti]
+                    outwc[c, j * L:(j + 1) * L] = outw[ti]
+            self._mm = (key, (fid_full, thr_full, Pc - Qc, Qc.sum(axis=1),
+                              plenc, outwc))
+        return self._mm[1]
+
+    def _pack_matmul_bins(self, n_features: int):
+        """(grid, fid_full, nodebin, PmQc, csQc, plenc, outwc, n_grid): the
+        bin-space pack (ref ``_pack_matmul_bins``, :224), bit-identical —
+        the matmul pack plus the model's own per-feature threshold grid and
+        each node's threshold as its index in that grid (an exact f32
+        compare; every threshold is a grid point)."""
+        key = ("mmb", n_features)
+        if self._mmb is None or self._mmb[0] != key:
+            fid_full, thr_full, PmQc, csQc, plenc, outwc = (
+                self._pack_matmul(n_features))
+            _, Bm_real = self._bins_grid_meta()
+            grid = self._model_grid_np(n_features)
+            # dead pad rows (fid 0, thr 0) get an arbitrary bin: their P−Q
+            # rows are zero
+            nodebin = (grid[np.minimum(fid_full, n_features - 1)]
+                       < thr_full[:, None]).sum(axis=1).astype(np.float32)
+            self._mmb = (key, (grid, fid_full, nodebin, PmQc, csQc, plenc,
+                               outwc), Bm_real)
+        return self._mmb[1] + (self._mmb[2],)
+
+    def _pack_walk(self, n_features: int):
+        """(nodes [S, 4] int32, values [S] f32, roots [T] int32, max_depth):
+        the traversal pack the CUDA kernels walk. Every tree's slots are
+        concatenated; a record is (feature or −1 at a leaf, node bin,
+        left, right) with absolute child slots. Node bins and leaf values
+        come from the same expressions as :meth:`_pack_matmul_bins`, so
+        kernel and plain version route and add identically. Raises when a
+        split reads a feature at or past ``n_features`` or links outside
+        its tree (the kernel would read out of bounds)."""
+        key = ("walk", n_features)
+        if self._walk is None or self._walk[0] != key:
+            grid = self._model_grid_np(n_features)
+            nodes, values, roots = [], [], []
+            base = 0
+            for t, w in zip(self.trees, self.weights):
+                n = t.n_slots
+                split = ~t.is_leaf
+                kids_ok = ((t.left >= 0) & (t.left < n) & (t.right >= 0)
+                           & (t.right < n))
+                if np.any(split & ((t.feature < 0)
+                                   | (t.feature >= n_features) | ~kids_ok)):
+                    raise RankLibError(
+                        f"tree {len(roots) + 1}: a split reads a feature "
+                        f"outside 1..{n_features} or links outside the tree")
+                fid = np.where(split, t.feature, 0)
+                nodebin = (grid[fid] < t.threshold[:, None]).sum(axis=1)
+                rec = np.zeros((n, 4), np.int32)
+                rec[:, 0] = np.where(split, t.feature, -1)
+                rec[:, 1] = np.where(split, nodebin, 0)
+                rec[:, 2] = np.where(split, t.left + base, 0)
+                rec[:, 3] = np.where(split, t.right + base, 0)
+                val = np.zeros(n, np.float32)
+                for s in np.flatnonzero(t.is_leaf):
+                    val[s] = t.output[s] * w
+                nodes.append(rec)
+                values.append(val)
+                roots.append(base)
+                base += n
+            max_depth = max(t.depth() for t in self.trees)
+            self._walk = (key, (np.concatenate(nodes), np.concatenate(values),
+                                np.asarray(roots, np.int32), max_depth))
+        return self._walk[1]
+
+    def _pack(self):
+        """[T, M] traversal arrays of :func:`_ensemble_eval` (ref
+        ``_pack``, :251): feat, thr, left, right, leaf, out, weights, depth."""
+        T = len(self.trees)
+        M = max(t.n_slots for t in self.trees)
+        depth = max(t.depth() for t in self.trees) if T else 0
+        feat = np.zeros((T, M), np.int32)
+        thr = np.zeros((T, M), np.float32)
+        lft = np.zeros((T, M), np.int32)
+        rgt = np.zeros((T, M), np.int32)
+        leaf = np.ones((T, M), bool)
+        out = np.zeros((T, M), np.float32)
+        for i, t in enumerate(self.trees):
+            m = t.n_slots
+            feat[i, :m] = t.feature
+            thr[i, :m] = t.threshold
+            lft[i, :m] = np.maximum(t.left, 0)
+            rgt[i, :m] = np.maximum(t.right, 0)
+            leaf[i, :m] = t.is_leaf
+            out[i, :m] = t.output
+        return (feat, thr, lft, rgt, leaf, out,
+                np.asarray(self.weights, np.float32), depth)
+
+    def _bins_grid_meta(self):
+        """(per-feature unique split-threshold sets, max count), cached."""
+        if self._bins_meta is None:
+            uniq = {}
+            for t in self.trees:
+                for n in np.flatnonzero(~t.is_leaf):
+                    uniq.setdefault(int(t.feature[n]), set()).add(
+                        np.float32(t.threshold[n]))
+            Bm_real = max((len(s) for s in uniq.values()), default=1)
+            self._bins_meta = (uniq, Bm_real)
+        return self._bins_meta
+
+    def _model_grid_np(self, n_features: int) -> np.ndarray:
+        """[F, Bm] model threshold grid (ref ``_model_grid_np``, :361):
+        each feature's split thresholds sorted, +inf padded to a multiple
+        of 128. Shared by the device pack and host binning."""
+        uniq, Bm_real = self._bins_grid_meta()
+        if self._gridnp is None or self._gridnp[0] != n_features:
+            Bm = ((Bm_real + 127) // 128) * 128
+            grid = np.full((n_features, Bm), np.inf, np.float32)
+            for f, s in uniq.items():
+                if f < n_features:
+                    v = np.sort(np.asarray(list(s), np.float32))
+                    grid[f, : len(v)] = v
+            self._gridnp = (n_features, grid)
+        return self._gridnp[1]
+
+    # ---- serving -----------------------------------------------------------
+
+    def _use_bins_kernel(self, n_features: int) -> bool:
+        """True when the ported kernels take this model at this width: at
+        most MAX_GRID distinct thresholds on any feature and at most
+        MAX_FEATURES features (ref ``_use_bins_kernel``, :383, without its
+        TPU VMEM estimate)."""
+        return (self._bins_grid_meta()[1] <= MAX_GRID
+                and n_features <= MAX_FEATURES)
+
+    def forest_pack(self, n_features: int, device: torch.device) -> ForestPack:
+        """The kernels' operands on ``device``, uploaded once per
+        (width, device) and dropped by add/truncate."""
+        key = (n_features, str(device))
+        if key not in self._dev_packs:
+            *mm, n_grid = self._pack_matmul_bins(n_features)
+            grid, fid_full, nodebin, PmQc, csQc, plenc, outwc = mm
+            nodes, values, roots, max_depth = self._pack_walk(n_features)
+
+            def dev(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+            self._dev_packs[key] = ForestPack(
+                n_features=n_features, n_grid=int(n_grid),
+                tree_chunk=self._TREE_CHUNK, max_depth=int(max_depth),
+                grid=dev(grid), fid_full=dev(fid_full),
+                nodebin_full=dev(nodebin), PmQc=dev(PmQc), csQc=dev(csQc),
+                plenc=dev(plenc), outwc=dev(outwc), nodes=dev(nodes),
+                values=dev(values), roots=dev(roots))
+        return self._dev_packs[key]
+
+    def _unported_route(self, n_features: int) -> RankLibError:
+        _, Bm_real = self._bins_grid_meta()
+        return RankLibError(
+            f"this model needs the f32 forest route (forest_eval_pallas_full"
+            f" in ranklib_tpu), which is not yet ported to ranklib_tpu_torch:"
+            f" the CUDA bin-space kernels take at most {MAX_GRID} distinct "
+            f"thresholds per feature and {MAX_FEATURES} features (model: "
+            f"{Bm_real} thresholds, input: {n_features} features)")
+
+    def _device_eval_fn(self, n_features: int, device: torch.device):
+        """(fn, chunk): fn maps a ``device``-resident [n, F] f32 tensor to
+        scores [n] on the device (ref ``_device_eval_fn``, :425). Route:
+        the device-binning kernel; on the CPU, plain :func:`_mm_eval` for
+        models the kernels do not take; on CUDA such models raise."""
+        if self._use_bins_kernel(n_features):
+            pack = self.forest_pack(n_features, device)
+            return (lambda X: forest_eval_bins(X, pack)), 1 << 20
+        if device.type != "cpu":
+            raise self._unported_route(n_features)
+        packed = [torch.from_numpy(a) for a in self._pack_matmul(n_features)]
+        return (lambda X: _mm_eval(X, *packed)), self._EVAL_CHUNK
+
+    def eval_matrix(self, feats: np.ndarray,
+                    device: torch.device) -> np.ndarray:
+        """feats [N, F] → scores [N] f32 = Σ_t w_t · tree_t(x), computed on
+        ``device``: the host-binned kernel route when the kernels take the
+        model, else the device-resident route's fallback (CPU only)."""
+        feats = np.asarray(feats, np.float32)
+        N, F = feats.shape
+        if not self.trees or N == 0:
+            return np.zeros(N, np.float32)
+        if self._use_bins_kernel(F):
+            return self._eval_matrix_hostbin(feats, device)
+        fn, C = self._device_eval_fn(F, device)
+        parts = [fn(torch.from_numpy(np.ascontiguousarray(feats[lo:lo + C]))
+                    .to(device)) for lo in range(0, N, C)]
+        return torch.cat(parts).cpu().numpy()
+
+    def _eval_matrix_hostbin(self, feats: np.ndarray,
+                             device: torch.device) -> np.ndarray:
+        """Host-binned serving (ref ``_eval_matrix_hostbin``, :499) as a
+        plain loop over chunks of ~_SERVE_CHUNK_BYTES of ids: bin against
+        the model grid on the host (native binner: ``#{grid < x}``, clamped
+        to n_grid, NaN → n_grid, narrowed and transposed in one pass; numpy
+        fallback), upload the uint8 ids (int16 when n_grid == 256, whose
+        ids reach 256), score with :func:`forest_eval_frombins`."""
+        from ranklib_tpu_torch.gbdt.binning import bin_features
+        from ranklib_tpu_torch.native.loader import (
+            native_bin_features_transposed,
+        )
+
+        N, F = feats.shape
+        pack = self.forest_pack(F, device)
+        grid = self._model_grid_np(F)
+        n_grid = pack.n_grid
+        dt = np.uint8 if n_grid < 256 else np.int16
+        C = max(1, self._SERVE_CHUNK_BYTES // (F * np.dtype(dt).itemsize))
+        parts = []
+        for lo in range(0, N, C):
+            chunk = feats[lo:lo + C]
+            binsT = native_bin_features_transposed(chunk, grid, n_grid, dt)
+            if binsT is None:
+                bins = bin_features(chunk, grid)
+                np.minimum(bins, n_grid, out=bins)
+                binsT = np.ascontiguousarray(bins.astype(dt).T)
+            parts.append(forest_eval_frombins(
+                torch.from_numpy(binsT).to(device), pack))
+        return torch.cat(parts).cpu().numpy()
+
+    # ---- text format ---------------------------------------------------------
+    def to_text(self) -> str:
+        lines = ["<ensemble>"]
+        for i, (t, w) in enumerate(zip(self.trees, self.weights)):
+            lines.append(f"\t<tree id=\"{i + 1}\" weight=\"{w}\">")
+            lines.extend(_node_text(t, 0, 2))
+            lines.append("\t</tree>")
+        lines.append("</ensemble>")
+        return "\n".join(lines) + "\n"
+
+    @staticmethod
+    def from_text(text: str) -> "TreeEnsemble":
+        """Parse the reference's ensemble XML (tolerates whitespace in
+        <feature>/<threshold>/<output> text, as RankLib emits)."""
+        start = text.find("<ensemble>")
+        if start < 0:
+            raise RankLibError("No <ensemble> found in model text")
+        end = text.find("</ensemble>") + len("</ensemble>")
+        try:
+            root = ET.fromstring(text[start:end])
+        except ET.ParseError as e:
+            raise RankLibError(f"Bad ensemble XML: {e}") from e
+        ens = TreeEnsemble()
+        for tree_el in root.findall("tree"):
+            weight = float(tree_el.get("weight", "1.0"))
+            split = tree_el.find("split")
+            if split is None:
+                raise RankLibError("<tree> without <split>")
+            nodes = []
+            _parse_split(split, nodes)
+            ens.add(Tree(*map(list, zip(*nodes))), weight)
+        return ens
+
+
+def _node_text(t: Tree, node: int, indent: int, pos: str | None = None):
+    """Explicit-stack DFS (chain trees can be deeper than the recursion
+    limit). Thresholds print through numpy float32 ``str``, outputs as
+    ``f"{float32:.15f}"`` — the reference's bytes."""
+    lines = []
+    stack = [("open", node, indent, pos)]
+    while stack:
+        kind, nd, ind, ps = stack.pop()
+        tab = "\t" * ind
+        if kind == "close":
+            lines.append(f"{tab}</split>")
+            continue
+        attr = f" pos=\"{ps}\"" if ps else ""
+        lines.append(f"{tab}<split{attr}>")
+        if t.is_leaf[nd]:
+            lines.append(f"{tab}\t<output> {t.output[nd]:.15f} </output>")
+            lines.append(f"{tab}</split>")
+        else:
+            lines.append(
+                f"{tab}\t<feature> {int(t.feature[nd]) + 1} </feature>")
+            lines.append(f"{tab}\t<threshold> {t.threshold[nd]} </threshold>")
+            stack.append(("close", nd, ind, None))
+            stack.append(("open", int(t.right[nd]), ind + 1, "right"))
+            stack.append(("open", int(t.left[nd]), ind + 1, "left"))
+    return lines
+
+
+def _text_of(el, tag: str) -> str:
+    child = el.find(tag)
+    if child is None or child.text is None or not child.text.strip():
+        raise RankLibError(f"<split> with <feature> but no <{tag}> value")
+    return child.text.strip()
+
+
+def _parse_split(el, nodes) -> int:
+    """<split> elements → flat node tuples (feature, threshold, left,
+    right, is_leaf, output) in pre-order (parent, left subtree, right
+    subtree); returns the root slot. Explicit work stack. A malformed
+    split (missing child, feature, threshold or output, or a value that
+    does not parse) raises RankLibError."""
+    root_idx = len(nodes)
+    stack = [el]
+    order = []
+    while stack:
+        e = stack.pop()
+        idx = len(nodes)
+        nodes.append(None)
+        order.append((e, idx))
+        if e.find("feature") is not None:
+            kids = {c.get("pos"): c for c in e.findall("split")}
+            if "left" not in kids or "right" not in kids:
+                raise RankLibError("Internal <split> missing left/right child")
+            stack.append(kids["right"])
+            stack.append(kids["left"])
+    slot_of = {id(e): idx for e, idx in order}
+    try:
+        for e, idx in order:
+            if e.find("feature") is not None:
+                kids = {c.get("pos"): c for c in e.findall("split")}
+                nodes[idx] = (int(_text_of(e, "feature")) - 1,
+                              float(_text_of(e, "threshold")),
+                              slot_of[id(kids["left"])],
+                              slot_of[id(kids["right"])], False, 0.0)
+            elif e.find("output") is not None:
+                nodes[idx] = (0, 0.0, -1, -1, True,
+                              float(_text_of(e, "output")))
+            else:
+                raise RankLibError(
+                    "<split> with neither children nor <output>")
+    except ValueError as err:
+        raise RankLibError(f"Bad number in <split>: {err}") from None
+    return root_idx
+
+
+def _mm_eval(X: torch.Tensor, fid_full, thr_full, PmQc, csQc, plenc,
+             outwc) -> torch.Tensor:
+    """Plain f32-compare scoring on the matmul pack (ref ``_mm_eval``,
+    :741): per tree chunk, gather each node's feature row of Xᵀ, compare
+    with its f32 threshold (NaN <= t is False: routed right), count path
+    agreements ``pred @ (P−Q) + colsum(Q)`` and fold the matching leaf's
+    ``w·output``. X: [N, F] f32 → [N] f32."""
+    XT = X.T
+    fid = fid_full.to(torch.int64)
+    nch, TCM, _ = PmQc.shape
+    score = torch.zeros(X.shape[0], dtype=torch.float32, device=X.device)
+    for c in range(nch):
+        rows = fid[c * TCM:(c + 1) * TCM]
+        pred = (XT.index_select(0, rows)
+                <= thr_full[c * TCM:(c + 1) * TCM, None]).to(torch.float32)
+        hits = pred.T @ PmQc[c] + csQc[c][None, :]
+        ind = (hits == plenc[c][None, :]).to(torch.float32)
+        score = score + ind @ outwc[c]
+    return score
+
+
+def _ensemble_eval(X: torch.Tensor, feat, thr, lft, rgt, leaf, out, w,
+                   depth: int) -> torch.Tensor:
+    """Plain pointer traversal (ref ``_ensemble_eval``, :784): per tree,
+    all docs descend in lockstep for ``depth`` rounds of (gather the split
+    feature, compare ``x <= t`` in f32, select child); leaves self-loop.
+    X [N, F]; tree arrays [T, M] → Σ_t w_t · out_t[leaf] [N]."""
+    N = X.shape[0]
+    per_tree = []
+    for f_, t_, l_, r_, lf_, o_ in zip(feat.long(), thr, lft.long(),
+                                       rgt.long(), leaf, out):
+        node = torch.zeros(N, dtype=torch.int64, device=X.device)
+        for _ in range(depth):
+            v = torch.gather(X, 1, f_[node][:, None])[:, 0]
+            nxt = torch.where(v <= t_[node], l_[node], r_[node])
+            node = torch.where(lf_[node], node, nxt)
+        per_tree.append(o_[node])
+    if not per_tree:
+        return torch.zeros(N, dtype=torch.float32, device=X.device)
+    return w @ torch.stack(per_tree)
