@@ -3,14 +3,21 @@ eval/Evaluator.java:~100-350).
 
 The argument parser is the reference's, flag for flag. The ported flows::
 
+    python -m ranklib_tpu_torch -train train.txt -ranker 6 \
+        -metric2t NDCG@10 [-validate vali.txt | -tvs 0.8] [-tts 0.8] \
+        [-test test.txt -metric2T ERR@10 -idv idv.txt] [-feature fids.txt] \
+        -tree 1000 -leaf 10 -shrinkage 0.1 -tc 256 -mls 1 -estop 100 \
+        -save model.txt
     python -m ranklib_tpu_torch -load model.txt -test test.txt \
         -metric2T NDCG@10 -idv idv.txt
     python -m ranklib_tpu_torch -load model.txt -rank test.txt -score s.txt
 
-Flows and inputs not ported yet (``-train``, ``-kcv``, ``-ana``,
-``-combine``, ``-sparse``, ``-qrel``, ``-norm``) exit with a clean error
-and rc 1. Flags that only tune training are accepted and unused, as in the
-reference's load flows.
+Training takes MART (``-ranker 0``) and LambdaMART (``-ranker 6``). Flows
+and flags not ported yet (``-kcv``, ``-ana``, ``-combine``, ``-sparse``,
+``-qrel``, ``-norm``; with ``-train`` also ``-resume``, ``-ckpt``,
+``-dp``, ``-eventlog`` and ``-profile``) exit with a clean error and
+rc 1 rather than being ignored. Hyperparameter flags of other rankers are
+accepted and unused, as in the reference.
 """
 
 from __future__ import annotations
@@ -113,6 +120,23 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+# (cli flag, ranker ids, attribute) — per-ranker hyperparameter routing,
+# the reference's rows for the ported rankers (MART 0, LambdaMART 6)
+_HPARAM_ROUTES = [
+    ("tree", {0, 6}, "n_trees"),
+    ("leaf", {0, 6}, "n_leaves"),
+    ("shrinkage", {0, 6}, "learning_rate"),
+    ("tc", {0, 6}, "n_threshold"),
+    ("mls", {0, 6}, "min_leaf_support"),
+    ("estop", {0, 6}, "early_stop"),
+]
+
+
+def collect_hparams(args) -> dict:
+    return {attr: getattr(args, flag) for flag, rankers, attr in _HPARAM_ROUTES
+            if getattr(args, flag) is not None and args.ranker in rankers}
+
+
 _NOTHING_TO_DO = ("Nothing to do: give -train, -load -test, -load -rank, "
                   "-ana, or -combine")
 
@@ -124,16 +148,20 @@ def _has_flow(args) -> bool:
 
 
 def _unported(args) -> str | None:
-    """The first flow or input flag the port does not serve yet."""
+    """The first flow or flag the port does not serve yet."""
     if args.ana:
         return "-ana"
     if args.combine:
         return "-combine"
-    if args.train:
-        return "-kcv" if args.kcv > 0 else "-train"
     for flag in ("sparse", "qrel", "norm"):
         if getattr(args, flag):
             return f"-{flag}"
+    if args.train:
+        if args.kcv > 0:
+            return "-kcv"
+        for flag in ("resume", "ckpt", "dp", "eventlog", "profile"):
+            if getattr(args, flag):
+                return f"-{flag}"
     return None
 
 
@@ -147,15 +175,18 @@ def main(argv=None) -> int:
         flag = _unported(args)
         if flag:
             raise RankLibError(f"{flag} is not yet ported to "
-                               f"ranklib_tpu_torch (ported: -load with "
-                               f"-test or -rank on dense input)")
+                               f"ranklib_tpu_torch (ported: -train, and "
+                               f"-load with -test or -rank, on dense input)")
         from ranklib_tpu_torch.device import choose_device
         from ranklib_tpu_torch.evaluator import (
-            evaluate_rank, evaluate_test_only,
+            evaluate_rank, evaluate_test_only, evaluate_train,
         )
 
         device = choose_device()
-        if args.rank:
+        args.hparams = collect_hparams(args)
+        if args.train:
+            evaluate_train(args, device)
+        elif args.rank:
             evaluate_rank(args, device)
         else:
             evaluate_test_only(args, device)

@@ -1,14 +1,20 @@
-"""Carry a reference ensemble's weights into the port.
+"""Carry a reference ensemble or training state into the port.
 
-Duck-typed: it reads each tree's numpy fields and imports nothing from
-``ranklib_tpu``, so tests can feed one ensemble to both packages.
+Duck-typed: it reads numpy-convertible fields and imports nothing from
+``ranklib_tpu``, so tests can feed one model or one mid-training state to
+both packages.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import dataclasses
 
+import numpy as np
+import torch
+
+from ranklib_tpu_torch.gbdt.boost import BoostState
 from ranklib_tpu_torch.gbdt.ensemble import Tree, TreeEnsemble
+from ranklib_tpu_torch.gbdt.grow import TreeArrays
 
 
 def from_reference_arrays(trees, weights) -> TreeEnsemble:
@@ -23,3 +29,18 @@ def from_reference_arrays(trees, weights) -> TreeEnsemble:
     for t, w in zip(trees, weights):
         ens.add(Tree(*(np.array(getattr(t, f)) for f in Tree.__slots__)), w)
     return ens
+
+
+def boost_state_from_reference(ref, device: torch.device):
+    """A reference ``BoostState`` or ``TreeArrays`` (any object with those
+    fields, e.g. after ``jax.device_get``) → the port's, as copies on
+    ``device`` with the same dtypes. Lets a test start both packages'
+    round from one mid-training state."""
+    if hasattr(ref, "scores"):
+        cls = BoostState
+        names = [f.name for f in dataclasses.fields(BoostState)]
+    else:
+        cls = TreeArrays
+        names = list(TreeArrays._fields)
+    return cls(**{n: torch.from_numpy(np.array(getattr(ref, n))).to(device)
+                  for n in names})

@@ -6,9 +6,6 @@ of ranklib_tpu.data.dataset).
 * :class:`QueryBucket` — queries padded to a common doc count D and
   stacked as ``labels[B, D]``, ``mask[B, D]`` (metrics run on these).
 
-The load flows never re-align a file's width (the model pads its input to
-its own largest fid), so ``Dataset.with_width`` is not carried.
-
 Numpy only; tensors start at the device boundary (metrics, forest eval).
 """
 
@@ -58,6 +55,24 @@ class Dataset:
             feats = np.where(keep[None, :], q.feats, 0.0).astype(np.float32)
             out.append(Query(q.qid, q.labels.copy(), feats, list(q.descs)))
         return Dataset(out, self.n_features)
+
+    def with_width(self, n_features: int) -> "Dataset":
+        """Pad or clip every query's features to exactly ``n_features``
+        columns: aligns validation/test files to the training width. The
+        reference parses all files into one global fid space, where fids
+        the model never references are unused, so clipping is
+        behaviourally identical and padding is missing-fid-reads-as-0."""
+        if n_features == self.n_features:
+            return self
+        out = []
+        for q in self.queries:
+            feats = q.feats[:, :n_features]
+            if feats.shape[1] < n_features:
+                feats = np.pad(feats,
+                               ((0, 0), (0, n_features - feats.shape[1])))
+            out.append(Query(q.qid, q.labels, np.ascontiguousarray(feats),
+                             q.descs))
+        return Dataset(out, n_features)
 
 
 def feature_mask_from_fids(fids, n_features: int) -> np.ndarray:

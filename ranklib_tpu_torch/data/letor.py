@@ -78,13 +78,16 @@ def _parse_line(line: str):
     return label, qid, fids, vals, desc
 
 
-def read_letor(path: str, missing_zero: bool = True) -> Dataset:
+def read_letor(path: str, missing_zero: bool = True,
+               must_have_rel_doc: bool = False,
+               n_features: int | None = None) -> Dataset:
     """Read a LETOR file into a :class:`Dataset` whose width is the
-    file's max fid. ``missing_zero=False`` makes a line that does not
-    specify every fid 1..max_fid an error (ref:
-    learning/DataPoint.java:~120 missingZero). The reference's
-    ``must_have_rel_doc`` and ``n_features`` serve its training flows and
-    are not carried.
+    file's max fid, or ``n_features`` when that is wider (a validation or
+    test file read into the training width). ``missing_zero=False`` makes
+    a line that does not specify every fid 1..max_fid an error (ref:
+    learning/DataPoint.java:~120 missingZero). ``must_have_rel_doc`` drops
+    queries without a relevant (label > 0) document (ref: Evaluator's
+    ``mustHaveRelDoc``, set when the training metric needs one).
     """
     from ranklib_tpu_torch.native.loader import (
         NativeParseError, native_parse_letor,
@@ -97,11 +100,13 @@ def read_letor(path: str, missing_zero: bool = True) -> Dataset:
         labels, feats, qptr, qids, descs, counts, max_fid = parsed
         if not missing_zero:
             _check_fully_specified(path, counts, max_fid, qptr, qids)
+        if n_features is not None and n_features > feats.shape[1]:
+            feats = np.pad(feats, ((0, 0), (0, n_features - feats.shape[1])))
         queries = [Query(qid=qid, labels=labels[qptr[i]:qptr[i + 1]],
                          feats=feats[qptr[i]:qptr[i + 1]],
                          descs=descs[qptr[i]:qptr[i + 1]])
                    for i, qid in enumerate(qids)]
-        return _finish(path, queries, feats.shape[1])
+        return _finish(path, queries, feats.shape[1], must_have_rel_doc)
 
     raw = []  # (qid, (labels, fid_lists, val_lists, descs)) per query
     max_fid = 0
@@ -129,6 +134,8 @@ def read_letor(path: str, missing_zero: bool = True) -> Dataset:
             for fids in fid_lists:
                 if len(fids) < max_fid:
                     _raise_missing(path, qid, fids, max_fid)
+    if n_features is not None:
+        max_fid = max(max_fid, int(n_features))
     queries = []
     for qid, (labels, fid_lists, val_lists, descs) in raw:
         feats = np.zeros((len(labels), max_fid), dtype=np.float32)
@@ -138,7 +145,7 @@ def read_letor(path: str, missing_zero: bool = True) -> Dataset:
         queries.append(Query(qid=qid,
                              labels=np.asarray(labels, dtype=np.float32),
                              feats=feats, descs=descs))
-    return _finish(path, queries, max_fid)
+    return _finish(path, queries, max_fid, must_have_rel_doc)
 
 
 def _raise_missing(path, qid, fids, max_fid):
@@ -165,10 +172,17 @@ def _check_fully_specified(path, counts, max_fid, qptr, qids):
             f"missingZero)")
 
 
-def _finish(path, queries, n_features) -> Dataset:
+def _finish(path, queries, n_features, must_have_rel_doc=False) -> Dataset:
+    n_dropped = 0
+    if must_have_rel_doc:
+        kept = [q for q in queries if (q.labels > 0).any()]
+        n_dropped = len(queries) - len(kept)
+        queries = kept
     if not queries:
         raise RankLibError(f"No queries read from {path}")
     log(f"Reading feature file [{path}]... [Done.]")
     log(f"({len(queries)} ranked lists, "
         f"{sum(q.n for q in queries)} entries read)")
+    if n_dropped:
+        log(f"({n_dropped} queries with no relevant documents dropped)")
     return Dataset(queries=queries, n_features=n_features)

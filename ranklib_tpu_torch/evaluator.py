@@ -1,7 +1,8 @@
-"""Serving flows (ranklib_tpu.evaluator; ref: eval/Evaluator.java:~400+):
-load+test with per-query output (``-idv``) and load+rank (``-score``,
-``-indri``), on the dense input path. The CLI (``cli``) parses RankLib's
-flags, picks the device and dispatches here.
+"""Orchestration flows (ranklib_tpu.evaluator; ref: eval/Evaluator.java:~400+)
+on the dense input path: train (+validate) (+test) (+save), load+test
+with per-query output (``-idv``) and load+rank (``-score``, ``-indri``).
+The CLI (``cli``) parses RankLib's flags, picks the device and dispatches
+here.
 """
 
 from __future__ import annotations
@@ -9,19 +10,28 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ranklib_tpu_torch.data.cv import split_tvs
 from ranklib_tpu_torch.data.dataset import Dataset, read_feature_file
 from ranklib_tpu_torch.data.letor import read_letor
 from ranklib_tpu_torch.metrics.base import (
     MetricScorer, create_scorer, score_dataset,
 )
-from ranklib_tpu_torch.models.base import load_ranker_file
+from ranklib_tpu_torch.models.base import Ranker, load_ranker_file
+from ranklib_tpu_torch.models.trainer import train_ranker
 from ranklib_tpu_torch.utils.logging import log, result
 
 
-def _prepare(path, feature_fids, missing_zero=False) -> Dataset:
-    """Read a dense LETOR file and apply ``-feature`` (the dense branch of
-    the reference's ``_prepare`` for the load flows)."""
-    ds = read_letor(path, missing_zero=missing_zero)
+def _prepare(path, feature_fids, missing_zero=False, must_have_rel=False,
+             n_features=None) -> Dataset:
+    """Read a dense LETOR file, align it to the training width and apply
+    ``-feature`` (the dense branch of the reference's ``_prepare``)."""
+    ds = read_letor(path, missing_zero=missing_zero,
+                    must_have_rel_doc=must_have_rel, n_features=n_features)
+    if n_features is not None and ds.n_features != n_features:
+        # fids above the training width are unusable by the model: clip
+        log(f"[{path}] feature width {ds.n_features} -> {n_features} "
+            f"(aligned to the training feature space)")
+        ds = ds.with_width(n_features)
     if feature_fids is not None:
         ds = ds.subset_features(feature_fids)
     return ds
@@ -60,6 +70,53 @@ def write_indri_rankings(path: str, ds: Dataset, scores) -> None:
                 f.write(f"{q.qid} Q0 {docid} {rank} {float(s[idx]):.6f} "
                         f"indri\n")
     log(f"Reranked lists saved to: {path}")
+
+
+def evaluate_train(args, device: torch.device) -> Ranker:
+    """Flow 3.1: -train (+ -validate or -tvs) (+ -test or -tts) (+ -save)."""
+    feature_fids = read_feature_file(args.feature) if args.feature else None
+    train_scorer = create_scorer(args.metric2t, gmax=args.gmax)
+    test_scorer = (create_scorer(args.metric2T, gmax=args.gmax)
+                   if args.metric2T else train_scorer)
+    must_rel = train_scorer.needs_rel
+    train = _prepare(args.train, feature_fids, args.missingZero, must_rel)
+    split_test = None
+    has_tts = bool(args.tts) and args.tts > 0
+    if has_tts:
+        # -tts carves the test set out of the training file; it overrides
+        # -tvs and an explicit -test file (ref: Evaluator -tts precedence)
+        train, split_test = split_tvs(train, args.tts)
+        log(f"Train-test split: {len(train.queries)} / "
+            f"{len(split_test.queries)} queries")
+    validation = None
+    if args.validate:
+        validation = _prepare(args.validate, feature_fids, args.missingZero,
+                              must_rel, n_features=train.n_features)
+    elif args.tvs and args.tvs > 0 and not has_tts:
+        train, validation = split_tvs(train, args.tvs)
+    ranker = train_ranker(args.ranker, train, train_scorer, validation,
+                          args.hparams, device)
+    m_train, _ = score_dataset(train_scorer, train,
+                               ranker.eval_dataset(train, device), device)
+    result(f"{train_scorer.name} on training data: {m_train:.4f}")
+    if validation is not None:
+        m_val, _ = score_dataset(train_scorer, validation,
+                                 ranker.eval_dataset(validation, device),
+                                 device)
+        result(f"{train_scorer.name} on validation data: {m_val:.4f}")
+    if args.test or split_test is not None:
+        test = (split_test if split_test is not None else
+                _prepare(args.test, feature_fids, args.missingZero,
+                         n_features=train.n_features))
+        m_test, per_q = score_dataset(test_scorer, test,
+                                      ranker.eval_dataset(test, device),
+                                      device)
+        result(f"{test_scorer.name} on test data: {m_test:.4f}")
+        if args.idv:
+            write_idv(args.idv, test_scorer, test, per_q)
+    if args.save:
+        ranker.save(args.save)
+    return ranker
 
 
 def evaluate_test_only(args, device: torch.device) -> None:

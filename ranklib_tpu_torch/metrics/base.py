@@ -19,19 +19,21 @@ from ranklib_tpu_torch.ops.sorting import rank_labels, rank_perm
 from ranklib_tpu_torch.utils.errors import RankLibError
 
 _METRICS = {
-    # name -> (score_fn(L, n, k), uses_k)
-    "MAP": (S.ap_score, False),
-    "NDCG": (S.ndcg_score, True),
-    "DCG": (S.dcg_score, True),
-    "P": (S.precision_score, True),
-    "RR": (S.rr_score, True),
-    "ERR": (S.err_score, True),
-    "BEST": (S.best_score, True),
+    # name -> (score_fn(L, n, k), swap_fn(L, n, k), uses_k, needs_rel)
+    "MAP": (S.ap_score, S.ap_swap, False, True),
+    "NDCG": (S.ndcg_score, S.ndcg_swap, True, False),
+    "DCG": (S.dcg_score, S.dcg_swap, True, False),
+    "P": (S.precision_score, S.precision_swap, True, True),
+    "RR": (S.rr_score, S.rr_swap, True, True),
+    "ERR": (S.err_score, S.err_swap, True, False),
+    "BEST": (S.best_score, S.best_swap, True, False),
 }
 
 
 class MetricScorer:
-    """One metric with a fixed cutoff k."""
+    """One metric with a fixed cutoff k. ``needs_rel``: training drops
+    queries without a relevant document (the reference's
+    ``mustHaveRelDoc``)."""
 
     def __init__(self, name: str, k: int = 10, gmax: float = 4.0):
         name = name.upper()
@@ -40,12 +42,11 @@ class MetricScorer:
         self.metric = name
         self.k = int(k)
         self.gmax = float(gmax)
-        score_fn, self.uses_k = _METRICS[name]
+        score_fn, swap_fn, self.uses_k, self.needs_rel = _METRICS[name]
         kk = self.k if self.uses_k else 0
-        if name == "ERR":
-            self._score = functools.partial(score_fn, k=kk, gmax=self.gmax)
-        else:
-            self._score = functools.partial(score_fn, k=kk)
+        extra = {"gmax": self.gmax} if name == "ERR" else {}
+        self._score = functools.partial(score_fn, k=kk, **extra)
+        self._swap = functools.partial(swap_fn, k=kk, **extra)
 
     @property
     def name(self) -> str:
@@ -53,6 +54,14 @@ class MetricScorer:
         if self.uses_k:
             return f"{self.metric}@{self.k}"
         return self.metric
+
+    def score_ranked(self, L: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+        """L: [B, D] labels in ranked order; n: [B] doc counts → [B]."""
+        return self._score(L, n)
+
+    def swap_deltas(self, L: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+        """Signed [B, D, D] metric change for swapping ranked positions."""
+        return self._swap(L, n)
 
     def score_from_scores(self, labels: torch.Tensor, scores: torch.Tensor,
                           mask: torch.Tensor) -> torch.Tensor:

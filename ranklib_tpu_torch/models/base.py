@@ -7,7 +7,9 @@ header line are API surface and preserved exactly. Scoring takes an
 explicit ``torch.device``.
 
 Ported rankers: LambdaMART and MART (``models.gbdt``). A known name that
-is not ported yet raises RankLibError saying so.
+is not ported yet raises RankLibError saying so. Hyperparameters are
+per-instance attributes set from ``**hp`` (the reference sets public
+static fields; neither package keeps that global state).
 """
 
 from __future__ import annotations
@@ -41,10 +43,15 @@ def register_ranker(cls):
     return cls
 
 
-def get_ranker_class(name: str):
-    """Resolve a display name (a model file's ``## <Name>``) to a class."""
+def get_ranker_class(name):
+    """Resolve a display name (a model file's ``## <Name>``) or a
+    ``-ranker N`` id to a class."""
     from ranklib_tpu_torch.models import gbdt  # noqa: F401  (registers)
 
+    if isinstance(name, int):
+        if name not in RANKER_NAMES:
+            raise RankLibError(f"Unknown ranker type {name}")
+        name = RANKER_NAMES[name]
     if name in _REGISTRY:
         return _REGISTRY[name]
     if name in RANKER_NAMES.values():
@@ -58,6 +65,16 @@ class Ranker:
     """Base class: the serving half of the reference Ranker's contract."""
 
     NAME = "?"
+
+    def __init__(self, **hparams):
+        for k, v in hparams.items():
+            if not hasattr(self, k):
+                raise RankLibError(f"{self.NAME}: unknown hyperparameter '{k}'")
+            setattr(self, k, v)
+
+    def fit(self, train: Dataset, scorer, validation: Dataset | None = None,
+            device: torch.device | None = None) -> None:
+        raise NotImplementedError
 
     def eval_dataset(self, ds: Dataset, device: torch.device) -> list:
         """Per-query score arrays (list aligned with ds.queries)."""

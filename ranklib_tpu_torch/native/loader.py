@@ -8,8 +8,10 @@ reference and imports no Python from it. When the sources or a compiler
 are missing every entry point returns ``None`` and the callers run their
 Python/numpy fallbacks, exactly as the reference's loader does.
 
-Ported entry points: :func:`native_parse_letor` (dense parse) and
-:func:`native_bin_features_transposed` (serving-upload binning).
+Ported entry points: :func:`native_parse_letor` (dense parse),
+:func:`native_feature_uniques` and :func:`native_bin_features` (the
+training grid and bin matrix) and :func:`native_bin_features_transposed`
+(serving-upload binning).
 """
 
 from __future__ import annotations
@@ -76,6 +78,10 @@ def _binner_lib():
     for fn in (lib.bin_features_u8_T, lib.bin_features_i16_T):
         fn.argtypes = [_vp, _vp, _vp, _i64, _i64, _i64, _i64, _i64]
         fn.restype = ctypes.c_int
+    lib.bin_features_i32.argtypes = [_vp, _vp, _vp, _i64, _i64, _i64, _i64]
+    lib.bin_features_i32.restype = ctypes.c_int
+    lib.feature_uniques.argtypes = [_vp, _i64, _i64, _i64, _vp, _vp, _vp]
+    lib.feature_uniques.restype = ctypes.c_int
     return lib
 
 
@@ -128,6 +134,45 @@ def native_parse_letor(path: str):
     descs = [draw[i * DESC_STRIDE:(i + 1) * DESC_STRIDE]
              .split(b"\0", 1)[0].decode(errors="replace") for i in range(N)]
     return labels, feats, qptr, qids, descs, counts, F
+
+
+def native_feature_uniques(feats: np.ndarray, cap: int):
+    """One capped-hash pass collecting each feature's unique values
+    (binner.cpp ``feature_uniques``). Returns (vals [F, cap] f32, the
+    first counts[f] valid and unsorted; counts [F] i64, cap+1 meaning
+    "more than cap"; minmax [F, 2] f32 over non-NaN values), or None when
+    unavailable (caller runs np.unique)."""
+    if cap <= 0 or cap > 400:
+        return None
+    lib = _binner_lib()
+    feats = np.ascontiguousarray(feats, dtype=np.float32)
+    N, F = feats.shape
+    if lib is None or N == 0:
+        return None
+    vals = np.empty((F, cap), np.float32)
+    counts = np.empty((F,), np.int64)
+    minmax = np.empty((F, 2), np.float32)
+    rc = lib.feature_uniques(feats.ctypes.data, N, F, cap, vals.ctypes.data,
+                             counts.ctypes.data, minmax.ctypes.data)
+    return (vals, counts, minmax) if rc == 0 else None
+
+
+def native_bin_features(feats: np.ndarray, thresholds: np.ndarray):
+    """Training binning (binner.cpp ``bin_features_i32``):
+    ``searchsorted(thresholds[f], x, 'left')`` for every value, NaN → B.
+    Returns [N, F] int32, or None when unavailable (caller runs numpy)."""
+    lib = _binner_lib()
+    if lib is None:
+        return None
+    feats = np.ascontiguousarray(feats, dtype=np.float32)
+    thr = np.ascontiguousarray(thresholds, dtype=np.float32)
+    N, F = feats.shape
+    if thr.shape[0] != F:
+        return None
+    out = np.empty((N, F), np.int32)
+    rc = lib.bin_features_i32(feats.ctypes.data, thr.ctypes.data,
+                              out.ctypes.data, N, F, thr.shape[1], 0)
+    return out if rc == 0 else None
 
 
 def native_bin_features_transposed(feats: np.ndarray, thresholds: np.ndarray,

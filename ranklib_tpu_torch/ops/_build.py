@@ -6,11 +6,12 @@ an edited source rebuilds and an unchanged one loads straight away. The
 compiler writes to a per-process temporary name that is renamed into place,
 so concurrent first uses (test workers) never load a half-written file.
 
-The CUDA kernels (``csrc/*.cu``) build with ``nvcc`` for ``sm_90a`` into
-one library with a plain C interface, loaded with ``ctypes``: no
+Each CUDA source (``csrc/<stem>.cu``) builds with ``nvcc`` for ``sm_90a``
+into its own library with a plain C interface, loaded with ``ctypes``: no
 ``torch.utils.cpp_extension`` and no PyTorch headers, which keeps a cold
-build to seconds. Only the CUDA branch of a kernel wrapper calls
-:func:`load_kernels`, so hosts without ``nvcc`` import everything.
+build to seconds; :func:`build_all` starts one ``nvcc`` per source at once.
+Only the CUDA branch of a kernel wrapper calls :func:`kernel_library`, so
+hosts without ``nvcc`` import everything.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 from ranklib_tpu_torch.utils.errors import RankLibError
 
@@ -84,15 +86,29 @@ def find_nvcc() -> str:
         "first use and need the CUDA toolkit")
 
 
+def kernel_sources() -> list[str]:
+    """Stems of every ``csrc/*.cu``, sorted."""
+    return sorted(os.path.splitext(os.path.basename(p))[0]
+                  for p in glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
 @functools.cache
-def load_kernels() -> ctypes.CDLL:
-    """Build (once per source hash) and load every ``csrc/*.cu`` as one
-    library. Callers declare ``argtypes`` for the functions they use."""
-    sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+def kernel_library(stem: str) -> ctypes.CDLL:
+    """Build (once per source hash) and load ``csrc/<stem>.cu``; every
+    ``csrc/*.cuh`` feeds the hash. Callers declare ``argtypes`` for the
+    functions they use."""
     deps = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
-    path = compile_shared("kernels", (find_nvcc(), *NVCC_FLAGS), sources,
-                          deps)
+    path = compile_shared(stem, (find_nvcc(), *NVCC_FLAGS),
+                          (os.path.join(CSRC_DIR, f"{stem}.cu"),), deps)
     return ctypes.CDLL(path)
+
+
+def build_all() -> dict:
+    """Build every kernel source at once, one ``nvcc`` each; returns
+    {stem: CDLL}. A failed build raises."""
+    stems = kernel_sources()
+    with ThreadPoolExecutor(max_workers=max(1, len(stems))) as pool:
+        return dict(zip(stems, pool.map(kernel_library, stems)))
 
 
 def build_log(lib: ctypes.CDLL) -> str:

@@ -162,7 +162,7 @@ _vp, _i64, _int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 def _kernels() -> ctypes.CDLL:
     from ranklib_tpu_torch.ops import _build
 
-    lib = _build.load_kernels()
+    lib = _build.kernel_library("forest_eval")
     walk = [_vp, _vp, _vp, _int, _int, _int, _vp, _vp]
     for fn in (lib.forest_eval_frombins_u8, lib.forest_eval_frombins_i16):
         fn.argtypes = [_vp, _i64, _int, *walk]

@@ -2,8 +2,8 @@
 
 ``log`` prints progress lines unless ``-silent`` (ref:
 Ranker.printLogLn, learning/Ranker.java:~200); ``result`` prints final
-results regardless. The reference's JSONL event log is fed only by
-training, which is not ported yet, so it is not carried here.
+results regardless. The reference's JSONL event log (``-eventlog``) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +16,10 @@ _SILENT = False
 def set_silent(silent: bool) -> None:
     global _SILENT
     _SILENT = bool(silent)
+
+
+def is_silent() -> bool:
+    return _SILENT
 
 
 def log(msg: str = "") -> None:

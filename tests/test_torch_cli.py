@@ -6,7 +6,8 @@ packages then load it and run ``-load -test -idv`` and ``-load -rank
 -score -indri``. Per-query values are compared parsed, to 1e-5 (the score
 file prints %.6f, and f32 reassociation may move its last digit). Model
 files round-trip byte for byte in both directions. A subprocess pins that
-the port runs with JAX unimportable and never loads the reference.
+the port serves and trains with JAX unimportable and never loads the
+reference.
 """
 
 import os
@@ -116,14 +117,17 @@ def test_feature_subset_matches_reference(files):
 
 
 @pytest.mark.parametrize("extra", [
-    ["-train", "x.txt"], ["-train", "x.txt", "-kcv", "3"], ["-sparse"],
-    ["-qrel", "q.txt"], ["-norm", "zscore"], ["-ana"], ["-combine", "d"],
+    ["-train", "x.txt", "-resume", "m.txt"], ["-train", "x.txt", "-kcv", "3"],
+    ["-sparse"], ["-qrel", "q.txt"], ["-norm", "zscore"], ["-ana"],
+    ["-combine", "d"],
 ], ids=["train", "kcv", "sparse", "qrel", "norm", "ana", "combine"])
 def test_unported_flows_exit_cleanly(files, extra, capsys):
+    """-train itself is ported; the training flags that are not (here
+    -resume and -kcv) still exit cleanly."""
     _, model, test = files
     rc = port_main(["-load", model, "-test", test, *extra])
     assert rc == 1
-    flag = "-kcv" if "-kcv" in extra else extra[0]
+    flag = [a for a in extra if a.startswith("-")][-1]
     assert (f"Error: {flag} is not yet ported to ranklib_tpu_torch"
             in capsys.readouterr().out)
 
@@ -154,6 +158,10 @@ def test_port_runs_without_jax_or_the_reference(files):
         f"rc = main(['-load', {model!r}, '-rank', {test!r}, '-score', "
         f"{str(d / 'nojax.score')!r}])\n"
         "assert rc == 0, rc\n"
+        f"rc = main(['-train', {str(d / 'train.txt')!r}, '-ranker', '6', "
+        f"'-tree', '3', '-leaf', '4', '-metric2t', 'NDCG@10', '-test', "
+        f"{test!r}, '-save', {str(d / 'nojax_model.txt')!r}])\n"
+        "assert rc == 0, rc\n"
         "assert sys.modules['jax'] is None\n"
         "bad = [m for m in sys.modules if m == 'ranklib_tpu' or "
         "m.startswith(('ranklib_tpu.', 'jax.', 'jaxlib'))]\n"
@@ -164,6 +172,8 @@ def test_port_runs_without_jax_or_the_reference(files):
                           text=True, env=env, timeout=300, cwd=str(d))
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("OK")
+    assert "NDCG@10 on training data:" in proc.stdout
+    assert open(d / "nojax_model.txt").readline() == "## LambdaMART\n"
     assert port_main(["-load", model, "-rank", test, "-score",
                       str(d / "inproc.score")]) == 0
     np.testing.assert_array_equal(np.loadtxt(d / "nojax.score", usecols=2),
