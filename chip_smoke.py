@@ -1,5 +1,6 @@
-"""On-card smoke test of ranklib_tpu_torch's main path (one NVIDIA GPU):
-serving and training.
+"""On-card smoke test of ranklib_tpu_torch's main paths (one NVIDIA GPU):
+serving, LambdaMART/MART training, Random Forests and the f32 forest
+route.
 
 Run from the repository root with no arguments::
 
@@ -20,7 +21,13 @@ Phases, none of whose failures is caught:
    all-zero weights (counts exact, sums atol 2e-4 / rtol 1e-5, two launches
    bit-identical). Split scan: Cn 1 and 2, B 8/11/256/512, feature masks,
    -mls 0 with empty sides (integer histograms with planted ties exactly
-   equal; float histograms to rtol 1e-5);
+   equal; float histograms to rtol 1e-5). Multi-bag histogram: the same
+   id types and odd B with ids >= B, C 1/3/8/the RF group size, an
+   all-zero bag and multiplicities up to 3 (counts exact, two launches
+   bit-identical). f32 forest route: odd shapes, NaN/±inf features, more
+   than 256 thresholds on a feature, thresholds near ±3.4e38 and an input
+   wider than MAX_FEATURES (kernel and plain bit-identical, both within
+   1e-5 of the f32 traversal);
 3. the serving path at the full width the repo measures — 1,000 trees x 10
    leaves over 136 features scoring 262,144 documents — with its launch
    counters at 0: ``TreeEnsemble.eval_matrix`` (host binning, then the
@@ -44,7 +51,24 @@ Phases, none of whose failures is caught:
 8. training kernels at full width: kernel vs plain device times of the
    histogram (root, and a child with ~10% weights) and the scan
    ([1|2, 136, 256, 2]), the peak device memory, one round's parts timed
-   alone and the device-busy share of a profiled round.
+   alone and the device-busy share of a profiled round;
+9. Random Forests at the training width — 300 bags of one 100-leaf MART
+   tree, -frate 0.3, -srate 1.0, 256 bins, the port's group size — with
+   the multi-bag histogram and split-scan counters at 0: the fit (each
+   counter must read groups x 99), a second fit saving the same model
+   text, one group step under ``set_sync_debug_mode("error")``, card vs
+   CPU at 4 bags x 8 leaves on 200 queries (-rtype 0 and a small -rtype
+   6), and the multi-bag histogram kernel vs plain at the group's width
+   (root and a ~10% child);
+10. the f32 forest route at the serving width: 1,000 trees x 10 leaves
+    whose first 8 features carry a 1,024-point threshold grid, 262,144
+    documents: kernel vs plain (bit-identical) and vs the f32 traversal,
+    device times, and ``eval_matrix`` through it;
+11. the RF CLI: ``-train -ranker 8 -test -save`` then ``-load -test``;
+    three forests trained on different files combined with ``-combine``
+    (more than 256 thresholds on a feature), then ``-load -test -idv`` of
+    the result with every counter at 0: it must run the f32 kernel and
+    print the plain version's metric.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 are the kernels' JSON record and the ``nvidia-smi`` name/power-limit line.
@@ -70,6 +94,12 @@ N_TREES, N_LEAVES, N_FEATURES, N_DOCS = 1000, 10, 136, 262144
 SOURCE = "ranklib_tpu_torch/csrc/forest_eval.cu"
 # training: bench.py's LambdaMART shape, 50 rounds
 FIT_TREES, FIT_QUERIES, FIT_VQUERIES = 50, 1500, 300
+# Random Forests at the same width: RankLib's defaults (300 bags of one
+# 100-leaf tree), all of them — one group of the port's group size on an
+# 80 GB card
+RF_BAGS, RF_LEAVES = 300, 100
+FIT_NPAD = 180224             # the training set's 179,440 docs, padded
+FMAX = float(np.finfo(np.float32).max)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -139,7 +169,7 @@ def wall_ms(fn, reps: int) -> float:
 
 
 def small_case_checks(dev) -> None:
-    from ranklib_tpu_torch.gbdt.ensemble import Tree, _ensemble_eval
+    from ranklib_tpu_torch.gbdt.ensemble import Tree
     from ranklib_tpu_torch.ops import forest_eval as fe
 
     def case(name, n_trees, n_leaves, F, N, seed, grid256=False,
@@ -167,9 +197,7 @@ def small_case_checks(dev) -> None:
             X[::17, 1 % F] = np.nan
         pack = ens.forest_pack(F, dev)
         Xd = torch.from_numpy(X).to(dev)
-        walk = _ensemble_eval(Xd, *[torch.from_numpy(a).to(dev)
-                                    if isinstance(a, np.ndarray) else a
-                                    for a in ens._pack()])
+        walk = traversal(ens, Xd)
         bins_k = fe.forest_eval_bins(Xd, pack)
         bins_p = fe.forest_eval_bins_plain(
             Xd, pack.grid, *pack.matmul_operands(), n_grid=pack.n_grid,
@@ -649,33 +677,469 @@ def round_breakdown(fit, dev) -> dict:
     for k, v in parts.items():
         print(f"  {k}: {v:.3f} ms")
 
-    # device-busy share of one round: kernel time over the round's wall
+    profiled("round", lambda: step(state, 2, data))
+    return parts
+
+
+def profiled(what: str, fn) -> None:
+    """Device-busy share of one call of fn: kernel time over its wall,
+    and the kernels that took the most device time."""
     from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(state, 2, data)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    launches = sum(e.count for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if busy > 0:
-        print(f"  profiled round: wall {wall:.3f} ms, device busy "
-              f"{busy:.3f} ms ({100 * busy / wall:.1f}%), {launches} "
-              f"kernels; top device time:")
-        top = sorted((e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)[:8]
-        for e in top:
-            print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
-                  f"x{e.count:<5} {e.key[:90]}")
-    else:
-        print(f"  profiled round: wall {wall:.3f} ms, device time not "
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy <= 0:
+        print(f"  profiled {what}: wall {wall:.3f} ms, device time not "
               f"measured (the profiler saw no kernels)")
-    return parts
+        return
+    print(f"  profiled {what}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / wall:.1f}%), {sum(e.count for e in kernels)} "
+          f"kernels; top device time:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5} "
+              f"{e.key[:90]}")
+
+
+def hist_multi_small_checks(dev, group: int) -> float:
+    """Multi-bag histogram kernel vs plain: id types, odd B with ids >= B,
+    an all-zero bag, multiplicities up to 3, C up to the RF group size."""
+    from ranklib_tpu_torch.ops import histogram as H
+
+    rng = np.random.default_rng(19)
+    worst = 0.0
+    for N, F, B, C in [(300, 6, 8, 1), (1024, 17, 128, 3), (700, 9, 11, 8),
+                       (5000, 13, 256, group), (1, 3, 5, 3)]:
+        grads = torch.from_numpy(
+            rng.normal(size=(C, N)).astype(np.float32)).to(dev)
+        w = rng.integers(0, 4, (C, N)).astype(np.float32)
+        w[C // 2] = 0.0                              # a bag that weighs nothing
+        wt = torch.from_numpy(w).to(dev)
+        for dt, top in ((torch.uint8, 256), (torch.int16, 32767),
+                        (torch.int32, 1 << 30)):
+            ids = rng.integers(0, min(B + 3, top), size=(F, N))
+            binsT = torch.from_numpy(ids).to(dt).contiguous().to(dev)
+            got = H.histogram_multi(binsT, grads, wt, B)
+            again = H.histogram_multi(binsT, grads, wt, B)
+            want = H.histogram_multi_plain(binsT, grads, wt, B)
+            torch.cuda.synchronize()
+            what = f"multi-bag histogram ({N}, {F}, {B}, C={C}, {dt})"
+            check(got.shape == want.shape == (C, F, B, 2), f"{what}: shape")
+            check(torch.equal(got[..., 1], want[..., 1]),
+                  f"{what}: counts differ")
+            check(torch.allclose(got[..., 0], want[..., 0], **HIST_TOL),
+                  f"{what}: sums differ")
+            check(torch.equal(got, again), f"{what}: not reproducible")
+            check(not got[C // 2].any(), f"{what}: the zero bag is not 0")
+            worst = max(worst, float((got - want).abs().max()))
+        print(f"  multi-bag histogram ({N}, {F}, {B}, C={C}) x "
+              f"uint8/int16/int32: ok")
+    print(f"  multi-bag histogram small cases: max_abs_err={worst:.3e}, "
+          f"counts exact, bit-reproducible")
+    return worst
+
+
+def widen_grid(ens, n_feats: int, n_thr: int, n_nodes: int):
+    """Move the first ``n_nodes`` splits of a fresh ensemble onto features
+    0..n_feats-1 with thresholds from an ``n_thr``-point grid, so a
+    feature carries more than 256 thresholds (the f32 route)."""
+    pool = np.linspace(-3.0, 3.0, n_thr).astype(np.float32)
+    i = 0
+    for t in ens.trees:
+        for n in np.flatnonzero(~t.is_leaf):
+            if i < n_nodes:
+                t.feature[n] = i % n_feats
+                t.threshold[n] = pool[(i // n_feats) % n_thr]
+            i += 1
+    return ens
+
+
+def traversal(ens, X):
+    """The plain f32 pointer traversal of ``ens`` on device features."""
+    from ranklib_tpu_torch.gbdt.ensemble import _ensemble_eval
+
+    return _ensemble_eval(X, *[torch.from_numpy(a).to(X.device)
+                               if isinstance(a, np.ndarray) else a
+                               for a in ens._pack()])
+
+
+def full_small_checks(dev) -> float:
+    """f32 forest route: kernel vs plain (bit-identical) and vs the f32
+    traversal, on hostile inputs and models."""
+    from ranklib_tpu_torch.ops import forest_eval as fe
+
+    extreme = np.array([FMAX, 3.2e38, 3.0e38, -3.1e38, -FMAX], np.float32)
+    worst = 0.0
+
+    def case(name, n_trees, n_leaves, F, N, seed, wide=0, far=False):
+        nonlocal worst
+        rng = np.random.default_rng(seed)
+        ens = synthetic_ensemble(n_trees, n_leaves, F, rng)
+        if wide:                        # `wide` thresholds on feature 0
+            widen_grid(ens, 1, wide, wide)
+        if far:            # some thresholds past the TPU kernel's clamp
+            for i, t in enumerate(ens.trees):
+                for j, n in enumerate(np.flatnonzero(~t.is_leaf)[::4]):
+                    t.threshold[n] = extreme[(i + j) % len(extreme)]
+        X = rng.normal(size=(N, F)).astype(np.float32)
+        thrs = np.concatenate([t.threshold[~t.is_leaf] for t in ens.trees])
+        flat = X.reshape(-1)
+        pick = rng.integers(0, len(thrs), size=flat.size // 3)
+        flat[: pick.size] = thrs[pick]               # docs ON thresholds
+        if N > 12:
+            X[::13, 1 % F] = np.nan
+            X[3, 0], X[4, 0] = -np.inf, np.inf
+            X[6:12, :] = np.array([FMAX, -FMAX, 3.1e38, -3.05e38, 3.3e38,
+                                   1e38], np.float32)[:, None]
+        route = ens.serving_route(F, "cuda")[0]
+        pack = ens.full_pack(F, dev)
+        Xd = torch.from_numpy(X).to(dev)
+        got = fe.forest_eval_full(Xd, pack)
+        again = fe.forest_eval_full(Xd, pack)
+        plain = fe.forest_eval_full_plain(Xd, *pack.matmul_operands(),
+                                          tree_chunk=pack.tree_chunk)
+        torch.cuda.synchronize()
+        print(f" case {name}: {n_trees} trees x {n_leaves} leaves, F={F}, "
+              f"N={N}, {ens._bins_grid_meta()[1]} thresholds on a feature, "
+              f"route {route}")
+        check(torch.equal(got, plain), f"f32 kernel {name}: not bit-equal "
+                                       f"to its plain version")
+        check(torch.equal(got, again), f"f32 kernel {name}: not reproducible")
+        worst = max(worst, max_err(got, traversal(ens, Xd),
+                                   "f32 kernel vs f32 traversal"))
+        return route
+
+    check(case("odd", 23, 7, 13, 257, 11) == "bins", "odd case route")
+    check(case("wide-grid", 60, 7, 13, 300, 5, wide=300) == "f32",
+          "a 300-threshold model did not take the f32 route")
+    check(case("far-thresholds", 60, 8, 9, 300, 17, wide=420, far=True)
+          == "f32", "the far-threshold model did not take the f32 route")
+    check(case("wide-input", 20, 6, fe.MAX_FEATURES + 9, 300, 4) == "f32",
+          "an input wider than MAX_FEATURES did not take the f32 route")
+    case("one-doc", 7, 3, 5, 1, 3)
+    return worst
+
+
+@contextlib.contextmanager
+def timed_group_steps(times: list):
+    """Time each group step of every RF fit inside the block (synchronised
+    wall ms per ``group_step`` call); the fits are otherwise the users'
+    ``fit``."""
+    from ranklib_tpu_torch.models import rf as RF
+
+    orig = RF.group_step
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*args, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    RF.group_step = timed
+    try:
+        yield
+    finally:
+        RF.group_step = orig
+
+
+def silently(fn, *args, **kw):
+    """Run fn with -silent in force (an RF fit then skips the per-bag
+    train metric, which scores every bag's ensemble)."""
+    from ranklib_tpu_torch.utils.logging import set_silent
+
+    set_silent(True)
+    try:
+        return fn(*args, **kw)
+    finally:
+        set_silent(False)
+
+
+def rf_training_phase(dev, train, group: int) -> dict:
+    """RF at the training width: the fit with its counters, a second fit,
+    the forest's quality, and one group step with no host sync."""
+    from ranklib_tpu_torch.gbdt.boost import upload_bins
+    from ranklib_tpu_torch.metrics.base import create_scorer, score_dataset
+    from ranklib_tpu_torch.models import rf as RF
+    from ranklib_tpu_torch.models.gbdt import flatten_binned, pad_binned
+    from ranklib_tpu_torch.ops import histogram as H
+    from ranklib_tpu_torch.ops import split_scan as SS
+
+    scorer = create_scorer("NDCG@10")
+    feats, labels, _, thr, N, F = flatten_binned(train, 256)
+    binned, labels_pad, Npad = pad_binned(feats, thr, labels, N)
+    B = thr.shape[1]
+    check(RF.bag_group_size(2 * RF_LEAVES - 1, F, B, Npad, RF_BAGS, dev)
+          == group and RF_BAGS >= group, "the RF group size moved")
+    n_groups = -(-RF_BAGS // group)
+    hp = dict(n_bags=RF_BAGS, n_leaves=RF_LEAVES, n_trees=1,
+              feature_sampling_rate=0.3, sub_sampling_rate=1.0)
+    cap = RF.bag_group_size(2 * RF_LEAVES - 1, F, B, Npad, 1 << 30, dev)
+    print(f"RF: {RF_BAGS} bags x 1 tree x {RF_LEAVES} leaves, B={B}; "
+          f"{n_groups} group(s) of up to {group} bags (the card's memory "
+          f"takes {cap} a group)")
+    steps = []
+    rf = RF.RFRanker(**hp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    H.histogram_multi.launches = 0
+    SS.best_splits.launches = 0
+    H.histogram.launches = 0
+    t0 = time.perf_counter()
+    with timed_group_steps(steps):
+        silently(rf.fit, train, scorer, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"histogram_multi": H.histogram_multi.launches,
+                "split_scan": SS.best_splits.launches,
+                "histogram": H.histogram.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = n_groups * (RF_LEAVES - 1)
+    print(f"  fit: {wall:.3f} s wall ({1e3 * wall / RF_BAGS:.3f} ms a bag); "
+          f"group steps {', '.join(f'{t:.3f}' for t in steps)} ms "
+          f"({max(steps) / group:.3f} ms a bag in a full group); launches "
+          f"{launches} (want {want} multi-bag and scan, 0 single); peak "
+          f"device memory {peak / 2**30:.2f} GiB")
+    check(launches["histogram_multi"] == want
+          and launches["split_scan"] == want, "RF launch counts are off")
+    check(launches["histogram"] == 0,
+          "-rtype 0 launched the single-bag histogram")
+    check(len(rf.ensembles) == RF_BAGS
+          and all(len(e) == 1 for e in rf.ensembles), "wrong number of trees")
+    leaves = np.mean([e.trees[0].is_leaf.sum() for e in rf.ensembles])
+    m, _ = score_dataset(scorer, train, rf.eval_dataset(train, dev), dev)
+    base, _ = score_dataset(scorer, train, [np.zeros(q.n, np.float32)
+                                            for q in train.queries], dev)
+    print(f"  {leaves:.1f} leaves a tree on average; train NDCG@10 of the "
+          f"forest {m:.4f} (file order {base:.4f})")
+    check(np.isfinite(m) and m > base + 0.05,
+          "the forest does not rank better than file order")
+
+    again = RF.RFRanker(**hp)
+    silently(again.fit, train, scorer, device=dev)
+    check(again.model_str() == rf.model_str(),
+          "two RF fits of the same data gave different models")
+    print("  a second fit gave the same model text (deterministic)")
+
+    binned_T = upload_bins(np.ascontiguousarray(binned.T), dev)
+    labels_d = torch.from_numpy(labels_pad).to(dev)
+    rng = np.random.default_rng(12)
+    w = rng.poisson(1.0, (group, Npad)).astype(np.float32)
+    w[:, N:] = 0.0
+    doc_w = torch.from_numpy(w).to(dev)
+    fm = rng.random((group, F)) < 0.3
+    fm[:, 0] = True
+    fmask = torch.from_numpy(fm).to(dev)
+    scores = torch.zeros((group, Npad), dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new_scores, _ = RF.group_step(scores, doc_w, fmask, binned_T,
+                                      labels_d, B, RF_LEAVES, 0.1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(new_scores).all()), "sync-free group step: NaN")
+    print("  one group step ran under set_sync_debug_mode('error'): no host "
+          "sync")
+    profiled("group step", lambda: RF.group_step(
+        scores, doc_w, fmask, binned_T, labels_d, B, RF_LEAVES, 0.1))
+    return {"launches": launches, "peak": peak, "wall": wall, "steps": steps,
+            "binned_T": binned_T, "grads": labels_d[None] - scores,
+            "doc_w": doc_w}
+
+
+def rf_card_vs_cpu(dev) -> None:
+    """4 bags x 8 leaves on 200 queries, plain versions on the CPU vs
+    kernels: -rtype 0 (multi-bag histogram) and -rtype 6 (per-bag
+    LambdaMART, the single histogram)."""
+    from ranklib_tpu_torch.metrics.base import create_scorer
+    from ranklib_tpu_torch.models import rf as RF
+    from ranklib_tpu_torch.ops import histogram as H
+
+    ds = synth_queries(200, N_FEATURES, seed=5, w_seed=11)
+    scorer = create_scorer("NDCG@10")
+    for rtype, n_trees in ((0, 1), (6, 2)):
+        fits = []
+        for d in (torch.device("cpu"), dev):
+            r = RF.RFRanker(n_bags=4, n_leaves=8, n_trees=n_trees,
+                            ranker_type=rtype)
+            H.histogram.launches = H.histogram_multi.launches = 0
+            silently(r.fit, ds, scorer, device=d)
+            fits.append(r)
+        launches = (H.histogram_multi.launches, H.histogram.launches)
+        pairs = [(a, b) for ea, eb in zip(fits[0].ensembles,
+                                          fits[1].ensembles)
+                 for a, b in zip(ea.trees, eb.trees)]
+        same = [all(np.array_equal(getattr(a, f), getattr(b, f)) for f in
+                    ("feature", "threshold", "left", "right", "is_leaf"))
+                for a, b in pairs]
+        diff = max(float(np.abs(a.output - b.output).max())
+                   for (a, b), ok in zip(pairs, same) if ok)
+        print(f"  -rtype {rtype}: {sum(same)} of {len(same)} trees "
+              f"identical card vs CPU; leaf outputs differ by at most "
+              f"{diff:.2e}; launches on the card (multi-bag, single) "
+              f"{launches}")
+        firsts = same[::n_trees]
+        check(all(same) if rtype == 0 else all(firsts),
+              f"-rtype {rtype}: trees differ between the card and the CPU")
+        check(launches[0] > 0 if rtype == 0 else launches[1] > 0,
+              f"-rtype {rtype} did not launch its histogram kernel")
+
+
+def rf_kernel_times(rf) -> dict:
+    """Multi-bag histogram kernel vs plain at the RF group's width: the
+    root (bag multiplicities) and a child (~10% of them)."""
+    from ranklib_tpu_torch.ops import histogram as H
+
+    binned_T, grads, doc_w = rf["binned_T"], rf["grads"], rf["doc_w"]
+    keep = np.random.default_rng(14).random(tuple(doc_w.shape)) < 0.1
+    child = doc_w * torch.from_numpy(keep).to(doc_w.device)
+    C, N = doc_w.shape
+    F = binned_T.shape[0]
+    out = {}
+    for name, w in (("root", doc_w), ("child", child)):
+        got = H.histogram_multi(binned_T, grads, w, 256)
+        want = H.histogram_multi_plain(binned_T, grads, w, 256)
+        torch.cuda.synchronize()
+        check(torch.equal(got[..., 1], want[..., 1]),
+              f"multi-bag histogram counts differ at full width ({name})")
+        check(torch.allclose(got[..., 0], want[..., 0], **HIST_TOL),
+              f"multi-bag histogram sums differ at full width ({name})")
+        check(torch.equal(got, H.histogram_multi(binned_T, grads, w, 256)),
+              "multi-bag histogram not reproducible at full width")
+        err = float((got - want).abs().max())
+        del got, want
+        out[name] = (err, event_ms(lambda: H.histogram_multi(
+            binned_T, grads, w, 256), 5), event_ms(
+            lambda: H.histogram_multi_plain(binned_T, grads, w, 256), 1))
+        print(f"  multi-bag histogram {name}: {C} bags x [{F}, {N}] uint8, "
+              f"{int(w.count_nonzero())} weighted (bag, doc) pairs: kernel "
+              f"{out[name][1]:.4f} ms vs plain {out[name][2]:.4f} ms; "
+              f"max_abs_err {err:.3e}")
+    return out
+
+
+def full_route_phase(dev, Xh, Xd) -> dict:
+    """The f32 route at the serving width with a 1,024-point grid on 8
+    features: kernel vs plain and traversal, times, eval_matrix."""
+    from ranklib_tpu_torch.ops import forest_eval as fe
+
+    ens = widen_grid(synthetic_ensemble(N_TREES, N_LEAVES, N_FEATURES,
+                                        np.random.default_rng(0)),
+                     8, 1024, 8192)
+    n_thr = ens._bins_grid_meta()[1]
+    route = ens.serving_route(N_FEATURES, "cuda")
+    print(f"model: {N_TREES} trees x {N_LEAVES} leaves, {n_thr} thresholds "
+          f"on a feature; route {route}")
+    check(route[0] == "f32" and n_thr > 256, "the model missed the f32 route")
+    pack = ens.full_pack(N_FEATURES, dev)
+    got = fe.forest_eval_full(Xd, pack)
+    plain = fe.forest_eval_full_plain(Xd, *pack.matmul_operands(),
+                                      tree_chunk=pack.tree_chunk)
+    torch.cuda.synchronize()
+    check(torch.equal(got, plain), "f32 kernel not bit-equal to plain at "
+                                   "full width")
+    err = max_err(got, plain, f"f32 kernel vs plain ({N_DOCS} docs)")
+    max_err(got, traversal(ens, Xd), "f32 kernel vs f32 traversal")
+    ms = event_ms(lambda: fe.forest_eval_full(Xd, pack), 20)
+    plain_ms = event_ms(lambda: fe.forest_eval_full_plain(
+        Xd, *pack.matmul_operands(), tree_chunk=pack.tree_chunk), 3)
+    max_err(torch.from_numpy(ens.eval_matrix(Xh, dev)), plain.cpu(),
+            "eval_matrix (f32 route) vs plain")
+    e2e = wall_ms(lambda: ens.eval_matrix(Xh, dev), 3)
+    print(f"  device time (CUDA events, median): f32 kernel {ms:.4f} ms vs "
+          f"plain {plain_ms:.4f} ms; eval_matrix wall {e2e:.3f} ms")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def rf_cli(tmp) -> int:
+    """-train -ranker 8 then -load -test; -combine of three forests from
+    different 5-feature files (each feature splits ~400 times a forest,
+    so their union holds more than 256 thresholds on a feature), then
+    -load -test -idv of the result through the f32 kernel with every
+    counter at 0. Returns its f32 launches."""
+    from ranklib_tpu_torch import cli
+    from ranklib_tpu_torch.data.letor import read_letor
+    from ranklib_tpu_torch.metrics.base import create_scorer, score_dataset
+    from ranklib_tpu_torch.models.base import load_ranker_file
+    from ranklib_tpu_torch.ops import forest_eval as fe
+    from ranklib_tpu_torch.ops import histogram as H
+    from ranklib_tpu_torch.ops import split_scan as SS
+
+    train, test = (os.path.join(tmp, f) for f in ("train.txt", "test.txt"))
+    model = os.path.join(tmp, "rf.txt")
+    rc, out = quiet(cli.main, [
+        "-train", train, "-ranker", "8", "-bag", "20", "-leaf",
+        str(RF_LEAVES), "-metric2t", "NDCG@10", "-test", test, "-metric2T",
+        "NDCG@10", "-save", model])
+    check(rc == 0, f"-train -ranker 8 failed:\n{out[-2000:]}")
+    bag_lines = [ln for ln in out.splitlines() if ln.startswith("bag ")]
+    trained = [ln for ln in out.splitlines() if " on " in ln]
+    rc, out = quiet(cli.main, ["-load", model, "-test", test, "-metric2T",
+                               "NDCG@10"])
+    loaded = [ln for ln in out.splitlines() if " on test data" in ln]
+    print(f"  -ranker 8: {len(bag_lines)} bag lines ({bag_lines[-1]}); "
+          f"{'; '.join(trained)}; -load: {loaded[0]}")
+    check(rc == 0 and len(bag_lines) == 20 and loaded[0] in trained,
+          "the loaded forest's test metric differs from training's")
+
+    bags = os.path.join(tmp, "rf_bags")
+    os.makedirs(bags)
+    for i in range(3):
+        path = os.path.join(tmp, f"narrow{i}.txt")
+        write_dataset(path, synth_queries(300, 5, seed=30 + i, w_seed=31))
+        rc, out = quiet(cli.main, [
+            "-train", path, "-ranker", "8", "-bag", "20", "-leaf",
+            str(RF_LEAVES), "-frate", "1.0", "-silent", "-save",
+            os.path.join(bags, f"rf{i}.txt")])
+        check(rc == 0, f"-train -ranker 8 on {path} failed:\n{out[-2000:]}")
+    combined = os.path.join(tmp, "combined.txt")
+    rc, out = quiet(cli.main, ["-combine", bags, "-o", combined])
+    check(rc == 0, f"-combine failed:\n{out[-2000:]}")
+    forest = load_ranker_file(combined)
+    merged = forest._merged_ensemble()
+    n_thr = merged._bins_grid_meta()[1]
+    print(f"  -combine: {len(forest.ensembles)} bags from 3 files, "
+          f"{n_thr} thresholds on a feature, route "
+          f"{merged.serving_route(5, 'cuda')}")
+    check(len(forest.ensembles) == 60 and n_thr > 256
+          and merged.serving_route(5, "cuda")[0] == "f32",
+          "the combined forest does not need the f32 route")
+    narrow_test = os.path.join(tmp, "narrow_test.txt")
+    write_dataset(narrow_test, synth_queries(100, 5, seed=39, w_seed=31))
+    idv = os.path.join(tmp, "combined.idv")
+    for counted in (fe.forest_eval_frombins, fe.forest_eval_bins,
+                    fe.forest_eval_full, H.histogram, H.histogram_multi,
+                    SS.best_splits):
+        counted.launches = 0
+    rc, out = quiet(cli.main, ["-load", combined, "-test", narrow_test,
+                               "-metric2T", "NDCG@10", "-idv", idv])
+    torch.cuda.synchronize()
+    launches = fe.forest_eval_full.launches
+    check(rc == 0 and launches > 0,
+          "-load -test of the combined forest did not run the f32 kernel")
+    ds, _ = quiet(read_letor, narrow_test)
+    cpu = torch.device("cpu")
+    m, _ = score_dataset(create_scorer("NDCG@10"), ds,
+                         forest.eval_dataset(ds, cpu), cpu)
+    got = [ln for ln in out.splitlines() if " on test data" in ln][-1]
+    print(f"  -load -test of the combined forest: {got} (plain version on "
+          f"the CPU: {m:.4f}); f32 launches {launches}")
+    check(got == f"NDCG@10 on test data: {m:.4f}",
+          "the combined forest's CLI metric differs from the plain version")
+    with open(idv) as f:
+        check(len(f.read().splitlines()) == 101,
+              "idv file should hold 100 queries + all")
+    return launches
 
 
 def write_letor(path, X, labels, qptr):
@@ -694,6 +1158,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ranklib_tpu_torch import cli
+    from ranklib_tpu_torch.models import rf as RF
     from ranklib_tpu_torch.models.gbdt import LambdaMART
     from ranklib_tpu_torch.ops import _build
     from ranklib_tpu_torch.ops import forest_eval as fe
@@ -720,6 +1185,10 @@ def main() -> int:
     small_case_checks(dev)
     hist_small_checks(dev)
     scan_small_checks(dev)
+    group = RF.bag_group_size(2 * RF_LEAVES - 1, N_FEATURES, 256, FIT_NPAD,
+                              RF_BAGS, dev)
+    hist_multi_small_checks(dev, group)
+    full_small_checks(dev)
 
     print("== phase 3: main path at full width "
           f"({N_TREES} trees x {N_LEAVES} leaves, {N_FEATURES} features, "
@@ -857,6 +1326,25 @@ def main() -> int:
     print(f"  per round (wall, median): fit A {fit['ms_a']:.3f} ms, fit B "
           f"{fit['ms_b']:.3f} ms; peak device memory over fit A "
           f"{fit['peak'] / 2**20:.1f} MiB  [{smi}]")
+
+    print(f"== phase 9: Random Forests at the training width ({RF_BAGS} "
+          f"bags x {RF_LEAVES} leaves, {FIT_QUERIES} queries x {N_FEATURES} "
+          f"features)")
+    rf = rf_training_phase(dev, fit["train"], group)
+    print(" card vs CPU (4 bags x 8 leaves, 200 queries)")
+    rf_card_vs_cpu(dev)
+    rf_hists = rf_kernel_times(rf)
+    del rf["binned_T"], rf["grads"], rf["doc_w"]
+    print(f"  RF fit {rf['wall']:.3f} s, peak {rf['peak'] / 2**30:.2f} GiB  "
+          f"[{smi}]")
+
+    print("== phase 10: the f32 forest route at full width "
+          f"({N_TREES} trees x {N_LEAVES} leaves, {N_FEATURES} features, "
+          f"{N_DOCS} docs)")
+    full = full_route_phase(dev, Xh, Xd)
+
+    print("== phase 11: Random Forests and -combine CLI")
+    full_launches = rf_cli(tmp)
     tmpdir.cleanup()
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -881,6 +1369,16 @@ def main() -> int:
          "launches": fit["launches"]["split_scan"],
          "max_abs_err": scans[2][0], "ms": scans[2][1],
          "plain_ms": scans[2][2]},
+        {"name": "histogram_multi", "route": "cuda",
+         "source": "ranklib_tpu_torch/csrc/histogram_multi.cu",
+         "replaces": "ranklib_tpu/ops/histogram.py:51",
+         "launches": rf["launches"]["histogram_multi"],
+         "max_abs_err": rf_hists["root"][0], "ms": rf_hists["root"][1],
+         "plain_ms": rf_hists["root"][2]},
+        {"name": "forest_eval_full", "route": "cuda", "source": SOURCE,
+         "replaces": "ranklib_tpu/ops/forest_eval.py:53",
+         "launches": full_launches, "max_abs_err": full["err"],
+         "ms": full["ms"], "plain_ms": full["plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

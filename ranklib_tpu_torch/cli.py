@@ -11,13 +11,16 @@ The argument parser is the reference's, flag for flag. The ported flows::
     python -m ranklib_tpu_torch -load model.txt -test test.txt \
         -metric2T NDCG@10 -idv idv.txt
     python -m ranklib_tpu_torch -load model.txt -rank test.txt -score s.txt
+    python -m ranklib_tpu_torch -train train.txt -ranker 8 [-rtype 0|6] \
+        -bag 300 -srate 1.0 -frate 0.3 -tree 1 -leaf 100 -save rf.txt
+    python -m ranklib_tpu_torch -combine models_dir -o combined.txt
 
-Training takes MART (``-ranker 0``) and LambdaMART (``-ranker 6``). Flows
-and flags not ported yet (``-kcv``, ``-ana``, ``-combine``, ``-sparse``,
-``-qrel``, ``-norm``; with ``-train`` also ``-resume``, ``-ckpt``,
-``-dp``, ``-eventlog`` and ``-profile``) exit with a clean error and
-rc 1 rather than being ignored. Hyperparameter flags of other rankers are
-accepted and unused, as in the reference.
+Training takes MART (``-ranker 0``), LambdaMART (``-ranker 6``) and Random
+Forests (``-ranker 8``). Flows and flags not ported yet (``-kcv``,
+``-ana``, ``-sparse``, ``-qrel``, ``-norm``; with ``-train`` also
+``-resume``, ``-ckpt``, ``-dp``, ``-eventlog`` and ``-profile``) exit with
+a clean error and rc 1 rather than being ignored. Hyperparameter flags of
+other rankers are accepted and unused, as in the reference.
 """
 
 from __future__ import annotations
@@ -121,20 +124,29 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 # (cli flag, ranker ids, attribute) — per-ranker hyperparameter routing,
-# the reference's rows for the ported rankers (MART 0, LambdaMART 6)
+# the reference's rows for the ported rankers (MART 0, LambdaMART 6, Random
+# Forests 8). As there, -mls reaches Random Forests, which has no such
+# hyperparameter and says so.
 _HPARAM_ROUTES = [
-    ("tree", {0, 6}, "n_trees"),
-    ("leaf", {0, 6}, "n_leaves"),
-    ("shrinkage", {0, 6}, "learning_rate"),
-    ("tc", {0, 6}, "n_threshold"),
-    ("mls", {0, 6}, "min_leaf_support"),
+    ("tree", {0, 6, 8}, "n_trees"),
+    ("leaf", {0, 6, 8}, "n_leaves"),
+    ("shrinkage", {0, 6, 8}, "learning_rate"),
+    ("tc", {0, 6, 8}, "n_threshold"),
+    ("mls", {0, 6, 8}, "min_leaf_support"),
     ("estop", {0, 6}, "early_stop"),
+    ("bag", {8}, "n_bags"),
+    ("srate", {8}, "sub_sampling_rate"),
+    ("frate", {8}, "feature_sampling_rate"),
+    ("rtype", {8}, "ranker_type"),
 ]
 
 
 def collect_hparams(args) -> dict:
-    return {attr: getattr(args, flag) for flag, rankers, attr in _HPARAM_ROUTES
-            if getattr(args, flag) is not None and args.ranker in rankers}
+    hp = {attr: getattr(args, flag) for flag, rankers, attr in _HPARAM_ROUTES
+          if getattr(args, flag) is not None and args.ranker in rankers}
+    if args.randomSeed and args.ranker == 8:
+        hp.setdefault("seed", args.randomSeed)
+    return hp
 
 
 _NOTHING_TO_DO = ("Nothing to do: give -train, -load -test, -load -rank, "
@@ -152,7 +164,7 @@ def _unported(args) -> str | None:
     if args.ana:
         return "-ana"
     if args.combine:
-        return "-combine"
+        return None
     for flag in ("sparse", "qrel", "norm"):
         if getattr(args, flag):
             return f"-{flag}"
@@ -175,8 +187,16 @@ def main(argv=None) -> int:
         flag = _unported(args)
         if flag:
             raise RankLibError(f"{flag} is not yet ported to "
-                               f"ranklib_tpu_torch (ported: -train, and "
-                               f"-load with -test or -rank, on dense input)")
+                               f"ranklib_tpu_torch (ported: -train, -load "
+                               f"with -test or -rank, on dense input, and "
+                               f"-combine)")
+        if args.combine:
+            from ranklib_tpu_torch.combiner import combine
+
+            if not args.combine_out:
+                raise RankLibError("-combine requires -o <output model file>")
+            combine(args.combine, args.combine_out)
+            return 0
         from ranklib_tpu_torch.device import choose_device
         from ranklib_tpu_torch.evaluator import (
             evaluate_rank, evaluate_test_only, evaluate_train,

@@ -1,4 +1,5 @@
-"""Carry a reference ensemble or training state into the port.
+"""Carry a reference ensemble, Random Forest or training state into the
+port.
 
 Duck-typed: it reads numpy-convertible fields and imports nothing from
 ``ranklib_tpu``, so tests can feed one model or one mid-training state to
@@ -29,6 +30,21 @@ def from_reference_arrays(trees, weights) -> TreeEnsemble:
     for t, w in zip(trees, weights):
         ens.add(Tree(*(np.array(getattr(t, f)) for f in Tree.__slots__)), w)
     return ens
+
+
+def rf_from_reference(ref_rf):
+    """A reference ``RFRanker`` (its ``ensembles`` and hyperparameters) →
+    the port's ``RFRanker`` over copies of its bags' arrays."""
+    from ranklib_tpu_torch.models.rf import RFRanker
+
+    hp = {k: getattr(ref_rf, k) for k in (
+        "n_bags", "sub_sampling_rate", "feature_sampling_rate",
+        "ranker_type", "n_trees", "n_leaves", "learning_rate", "n_threshold",
+        "seed")}
+    rf = RFRanker(**hp)
+    rf.ensembles = [from_reference_arrays(e.trees, e.weights)
+                    for e in ref_rf.ensembles]
+    return rf
 
 
 def boost_state_from_reference(ref, device: torch.device):

@@ -39,7 +39,8 @@ class BoostData:
 
     binned_T: torch.Tensor        # [F, Npad] uint8/int16/int32
     labels_flat: torch.Tensor     # [Npad] f32 (pads 0)
-    doc_mask: torch.Tensor        # [Npad] bool
+    doc_mask: torch.Tensor        # [Npad] bool, or f32 doc weights (an
+                                  #   RF bag's multiplicities, -rtype 6)
     feat_mask: torch.Tensor       # [F] bool
     tb: list                      # train chunks: (labels, mask, didx)
     vbinned: torch.Tensor | None  # [Nv, F] doc-major (traversal)
@@ -180,7 +181,7 @@ def make_round_step(scorer, *, n_bins: int, n_leaves: int,
 
         # ---- pseudo-responses ------------------------------------------
         if pointwise:
-            lam = torch.where(data.doc_mask,
+            lam = torch.where(data.doc_mask > 0,
                               data.labels_flat - scores[:-1], 0.0)
             w = torch.ones_like(lam)
         else:

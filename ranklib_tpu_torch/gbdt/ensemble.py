@@ -10,28 +10,32 @@ All host-side packing and text formatting stays in numpy, so the packs are
 bit-identical to the reference's and the file bytes match; tensors start
 at the device boundary (:meth:`TreeEnsemble.forest_pack`).
 
-Serving routes (:meth:`TreeEnsemble.eval_matrix`):
+Serving routes (:meth:`TreeEnsemble.eval_matrix`), chosen by
+:meth:`TreeEnsemble.serving_route`:
 
 * host-binned — bin on the host against the model's own threshold grid
   (native binner), upload uint8/int16 ids, :func:`forest_eval_frombins`;
 * device-resident — :meth:`TreeEnsemble._device_eval_fn`, which bins on
   the device inside :func:`forest_eval_bins`;
-* plain :func:`_mm_eval` — the f32-compare path, for CPU models the
-  kernels do not take (> 256 thresholds on a feature). On CUDA such models
-  need the f32 forest kernel ``forest_eval_pallas_full``, not ported yet,
-  and raise.
+* f32 — :func:`forest_eval_full`, the test ``x <= threshold`` itself, for
+  models the bin-space kernels do not take (more than 256 thresholds on a
+  feature, or more than ``MAX_FEATURES`` columns).
+
+Each route runs its CUDA kernel on the card and its plain version on the
+CPU.
 """
 
 from __future__ import annotations
 
+import functools
 import xml.etree.ElementTree as ET
 
 import numpy as np
 import torch
 
 from ranklib_tpu_torch.ops.forest_eval import (
-    MAX_FEATURES, MAX_GRID, ForestPack, forest_eval_bins,
-    forest_eval_frombins,
+    MAX_FEATURES, MAX_GRID, ForestPack, FullPack, forest_eval_bins,
+    forest_eval_frombins, forest_eval_full,
 )
 from ranklib_tpu_torch.utils.errors import RankLibError
 
@@ -73,8 +77,10 @@ class TreeEnsemble:
     # Trees per chunk of the matmul pack (the reference's value, so the
     # packs are bit-identical) and per f32 partial sum in the kernels.
     _TREE_CHUNK = 25
-    # Docs per chunk of the plain f32 route, which materializes a
-    # [TC·M, chunk] predicate block per tree chunk.
+    # Docs per device call of the kernels, and of the plain f32 route on
+    # the CPU, which materializes a [TC·M, chunk] predicate block per tree
+    # chunk.
+    _KERNEL_CHUNK = 1 << 20
     _EVAL_CHUNK = 1 << 14
     # Bytes of host-binned ids per upload in the host-binned route.
     _SERVE_CHUNK_BYTES = 8 << 20
@@ -191,18 +197,19 @@ class TreeEnsemble:
                                outwc), Bm_real)
         return self._mmb[1] + (self._mmb[2],)
 
-    def _pack_walk(self, n_features: int):
+    def _pack_walk(self, n_features: int, f32: bool = False):
         """(nodes [S, 4] int32, values [S] f32, roots [T] int32, max_depth):
         the traversal pack the CUDA kernels walk. Every tree's slots are
-        concatenated; a record is (feature or −1 at a leaf, node bin,
-        left, right) with absolute child slots. Node bins and leaf values
-        come from the same expressions as :meth:`_pack_matmul_bins`, so
+        concatenated; a record is (feature or −1 at a leaf, node test,
+        left, right) with absolute child slots. The node test is the node
+        bin, or with ``f32`` the threshold's f32 bits. Node bins and leaf
+        values come from the same expressions as the matmul packs, so
         kernel and plain version route and add identically. Raises when a
         split reads a feature at or past ``n_features`` or links outside
         its tree (the kernel would read out of bounds)."""
-        key = ("walk", n_features)
+        key = ("walk", n_features, f32)
         if self._walk is None or self._walk[0] != key:
-            grid = self._model_grid_np(n_features)
+            grid = None if f32 else self._model_grid_np(n_features)
             nodes, values, roots = [], [], []
             base = 0
             for t, w in zip(self.trees, self.weights):
@@ -215,11 +222,14 @@ class TreeEnsemble:
                     raise RankLibError(
                         f"tree {len(roots) + 1}: a split reads a feature "
                         f"outside 1..{n_features} or links outside the tree")
-                fid = np.where(split, t.feature, 0)
-                nodebin = (grid[fid] < t.threshold[:, None]).sum(axis=1)
+                if f32:
+                    test = t.threshold.astype(np.float32).view(np.int32)
+                else:
+                    fid = np.where(split, t.feature, 0)
+                    test = (grid[fid] < t.threshold[:, None]).sum(axis=1)
                 rec = np.zeros((n, 4), np.int32)
                 rec[:, 0] = np.where(split, t.feature, -1)
-                rec[:, 1] = np.where(split, nodebin, 0)
+                rec[:, 1] = np.where(split, test, 0)
                 rec[:, 2] = np.where(split, t.left + base, 0)
                 rec[:, 3] = np.where(split, t.right + base, 0)
                 val = np.zeros(n, np.float32)
@@ -295,17 +305,14 @@ class TreeEnsemble:
                 and n_features <= MAX_FEATURES)
 
     def forest_pack(self, n_features: int, device: torch.device) -> ForestPack:
-        """The kernels' operands on ``device``, uploaded once per
+        """The bin-space kernels' operands on ``device``, uploaded once per
         (width, device) and dropped by add/truncate."""
-        key = (n_features, str(device))
+        key = ("bins", n_features, str(device))
         if key not in self._dev_packs:
             *mm, n_grid = self._pack_matmul_bins(n_features)
             grid, fid_full, nodebin, PmQc, csQc, plenc, outwc = mm
             nodes, values, roots, max_depth = self._pack_walk(n_features)
-
-            def dev(a):
-                return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
+            dev = functools.partial(_upload, device=device)
             self._dev_packs[key] = ForestPack(
                 n_features=n_features, n_grid=int(n_grid),
                 tree_chunk=self._TREE_CHUNK, max_depth=int(max_depth),
@@ -315,33 +322,52 @@ class TreeEnsemble:
                 values=dev(values), roots=dev(roots))
         return self._dev_packs[key]
 
-    def _unported_route(self, n_features: int) -> RankLibError:
-        _, Bm_real = self._bins_grid_meta()
-        return RankLibError(
-            f"this model needs the f32 forest route (forest_eval_pallas_full"
-            f" in ranklib_tpu), which is not yet ported to ranklib_tpu_torch:"
-            f" the CUDA bin-space kernels take at most {MAX_GRID} distinct "
-            f"thresholds per feature and {MAX_FEATURES} features (model: "
-            f"{Bm_real} thresholds, input: {n_features} features)")
+    def full_pack(self, n_features: int, device: torch.device) -> FullPack:
+        """The f32 route's operands on ``device``, uploaded once per
+        (width, device) and dropped by add/truncate."""
+        key = ("f32", n_features, str(device))
+        if key not in self._dev_packs:
+            dev = functools.partial(_upload, device=device)
+            fid_full, thr_full, PmQc, csQc, plenc, outwc = (
+                self._pack_matmul(n_features))
+            nodes, values, roots, max_depth = self._pack_walk(n_features,
+                                                              f32=True)
+            self._dev_packs[key] = FullPack(
+                n_features=n_features, tree_chunk=self._TREE_CHUNK,
+                max_depth=int(max_depth), fid_full=dev(fid_full),
+                thr_full=dev(thr_full), PmQc=dev(PmQc), csQc=dev(csQc),
+                plenc=dev(plenc), outwc=dev(outwc), nodes=dev(nodes),
+                values=dev(values), roots=dev(roots))
+        return self._dev_packs[key]
+
+    def serving_route(self, n_features: int, device_type: str):
+        """(route, docs per call) of the device-resident route for this
+        model, input width and device type: ``"bins"`` when the bin-space
+        kernels take the model (:meth:`_use_bins_kernel`), else ``"f32"``
+        (ref ``_device_eval_fn``, :425, whose TPU gates the port drops).
+        A route runs its kernel on CUDA and its plain version on the CPU;
+        only the plain f32 version, which materializes a predicate block
+        per tree chunk, takes smaller calls."""
+        if self._use_bins_kernel(n_features):
+            return "bins", self._KERNEL_CHUNK
+        return "f32", (self._EVAL_CHUNK if device_type == "cpu"
+                       else self._KERNEL_CHUNK)
 
     def _device_eval_fn(self, n_features: int, device: torch.device):
         """(fn, chunk): fn maps a ``device``-resident [n, F] f32 tensor to
-        scores [n] on the device (ref ``_device_eval_fn``, :425). Route:
-        the device-binning kernel; on the CPU, plain :func:`_mm_eval` for
-        models the kernels do not take; on CUDA such models raise."""
-        if self._use_bins_kernel(n_features):
+        scores [n] on the device, through :meth:`serving_route`."""
+        route, chunk = self.serving_route(n_features, device.type)
+        if route == "bins":
             pack = self.forest_pack(n_features, device)
-            return (lambda X: forest_eval_bins(X, pack)), 1 << 20
-        if device.type != "cpu":
-            raise self._unported_route(n_features)
-        packed = [torch.from_numpy(a) for a in self._pack_matmul(n_features)]
-        return (lambda X: _mm_eval(X, *packed)), self._EVAL_CHUNK
+            return (lambda X: forest_eval_bins(X, pack)), chunk
+        pack = self.full_pack(n_features, device)
+        return (lambda X: forest_eval_full(X, pack)), chunk
 
     def eval_matrix(self, feats: np.ndarray,
                     device: torch.device) -> np.ndarray:
         """feats [N, F] → scores [N] f32 = Σ_t w_t · tree_t(x), computed on
-        ``device``: the host-binned kernel route when the kernels take the
-        model, else the device-resident route's fallback (CPU only)."""
+        ``device``: the host-binned route when the bin-space kernels take
+        the model, else the f32 route on uploaded features."""
         feats = np.asarray(feats, np.float32)
         N, F = feats.shape
         if not self.trees or N == 0:
@@ -418,6 +444,10 @@ class TreeEnsemble:
         return ens
 
 
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
 def _node_text(t: Tree, node: int, indent: int, pos: str | None = None):
     """Explicit-stack DFS (chain trees can be deeper than the recursion
     limit). Thresholds print through numpy float32 ``str``, outputs as
@@ -490,27 +520,6 @@ def _parse_split(el, nodes) -> int:
     except ValueError as err:
         raise RankLibError(f"Bad number in <split>: {err}") from None
     return root_idx
-
-
-def _mm_eval(X: torch.Tensor, fid_full, thr_full, PmQc, csQc, plenc,
-             outwc) -> torch.Tensor:
-    """Plain f32-compare scoring on the matmul pack (ref ``_mm_eval``,
-    :741): per tree chunk, gather each node's feature row of Xᵀ, compare
-    with its f32 threshold (NaN <= t is False: routed right), count path
-    agreements ``pred @ (P−Q) + colsum(Q)`` and fold the matching leaf's
-    ``w·output``. X: [N, F] f32 → [N] f32."""
-    XT = X.T
-    fid = fid_full.to(torch.int64)
-    nch, TCM, _ = PmQc.shape
-    score = torch.zeros(X.shape[0], dtype=torch.float32, device=X.device)
-    for c in range(nch):
-        rows = fid[c * TCM:(c + 1) * TCM]
-        pred = (XT.index_select(0, rows)
-                <= thr_full[c * TCM:(c + 1) * TCM, None]).to(torch.float32)
-        hits = pred.T @ PmQc[c] + csQc[c][None, :]
-        ind = (hits == plenc[c][None, :]).to(torch.float32)
-        score = score + ind @ outwc[c]
-    return score
 
 
 def _ensemble_eval(X: torch.Tensor, feat, thr, lft, rgt, leaf, out, w,

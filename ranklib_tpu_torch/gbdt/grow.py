@@ -19,6 +19,10 @@ validity and its split are device tensors combined with ``torch.where``,
 so a round on the card never waits for the host. Arrays update in place
 (the reference's are immutable), which keeps one copy of the node
 histograms.
+
+:func:`grow_forest` grows the trees of a group of Random-Forests bags in
+lockstep (the same rules per bag, a leading [Cb] axis everywhere): one
+:func:`histogram_multi` launch per split serves every bag.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from typing import NamedTuple
 
 import torch
 
-from ranklib_tpu_torch.ops.histogram import histogram
+from ranklib_tpu_torch.ops.histogram import histogram, histogram_multi
 from ranklib_tpu_torch.ops.split_scan import best_splits
 
 
@@ -195,4 +199,188 @@ def leaf_outputs(node_of_doc: torch.Tensor, lam: torch.Tensor,
         n_slots, dtype=node_of_doc.dtype, device=lam.device)[:, None])
     s1 = torch.where(onehot, lam[None, :], 0.0).sum(dim=1)
     s2 = torch.where(onehot, s2_src[None, :], 0.0).sum(dim=1)
+    return torch.where(s2 > 0, s1 / torch.where(s2 > 0, s2, 1.0), 0.0)
+
+
+def _take(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """arr[c, idx[c]] for every bag c (arr [Cb, M], idx [Cb] int64)."""
+    return arr.gather(1, idx[:, None])[:, 0]
+
+
+def _put(arr: torch.Tensor, idx: torch.Tensor, val, valid: torch.Tensor):
+    """arr[c, idx[c]] = val[c] where valid[c], in place, on the device.
+    ``arr`` [Cb, M] or [Cb, M, K] (then ``val`` [Cb, K])."""
+    if arr.dim() == 3:
+        at = idx[:, None, None].expand(-1, 1, arr.shape[2])
+        old = arr.gather(1, at)[:, 0]
+        arr.scatter_(1, at, torch.where(valid[:, None], val, old)[:, None])
+        return
+    arr.scatter_(1, idx[:, None],
+                 torch.where(valid, val, _take(arr, idx))[:, None])
+
+
+def grow_forest(binned_T: torch.Tensor, grads: torch.Tensor, n_bins: int,
+                n_leaves: int, min_leaf_support: int = 1, doc_weights=None,
+                feature_masks=None) -> TreeArrays:
+    """Grow ``Cb`` independent regression trees in lockstep on one bin
+    matrix (ref ``grow_forest``, grow.py:256): bag c's tree is the one
+    :func:`grow_tree` grows on ``grads[c]`` under ``doc_weights[c]`` and
+    ``feature_masks[c]``.
+
+    ``grads`` [Cb, N] f32; ``doc_weights`` optional [Cb, N] f32
+    multiplicities (0 excludes a doc); ``feature_masks`` optional [Cb, F]
+    bool. Returns TreeArrays with a leading [Cb] axis (node_of_doc
+    [Cb, N], impacts [Cb, F]).
+
+    As in the reference: node statistics (S, SQ, C) are sums over the doc
+    axis, not histogram rows; both children of every bag go through one
+    stacked ``[2·Cb, F, B, 2]`` scan; node histograms live in an
+    iteration-indexed buffer — iteration k writes its children at rows
+    2k+1 and 2k+2 and ``hidx`` maps each bag's slot to its row (rows a
+    slot never maps are never read, so the buffer starts uninitialised)."""
+    F, N = binned_T.shape
+    Cb = grads.shape[0]
+    M = 2 * n_leaves - 1
+    B = int(n_bins)
+    mls = float(min_leaf_support)
+    dev = grads.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    cidx = torch.arange(Cb, device=dev)
+
+    dw = (torch.ones((Cb, N), **f32) if doc_weights is None
+          else doc_weights.to(torch.float32))
+    root_hist = histogram_multi(binned_T, grads, dw, B)       # [Cb,F,B,2]
+    S0 = (dw * grads).sum(dim=1)
+    SQ0 = (dw * grads * grads).sum(dim=1)
+    C0 = dw.sum(dim=1)
+    g0, f0, b0, ok0 = best_splits(root_hist, mls, feature_masks)
+
+    root = (torch.arange(M, device=dev) == 0).expand(Cb, M)
+    hist = torch.empty((Cb, M, F, B, 2), **f32)
+    hist[:, 0] = root_hist
+    hidx = torch.zeros((Cb, M), **i32)
+    stats = torch.zeros((Cb, M, 3), **f32)
+    stats[:, 0] = torch.stack([S0, SQ0, C0], dim=1)
+    deviance = torch.where(root, torch.inf, -torch.inf)
+    best_gain = torch.zeros((Cb, M), **f32)
+    best_gain[:, 0] = g0
+    best_f = torch.zeros((Cb, M), **i32)
+    best_f[:, 0] = f0
+    best_b = torch.zeros((Cb, M), **i32)
+    best_b[:, 0] = b0
+    splittable = torch.zeros((Cb, M), dtype=torch.bool, device=dev)
+    splittable[:, 0] = ok0
+
+    feature = torch.full((Cb, M), -1, **i32)
+    sbin = torch.full((Cb, M), -1, **i32)
+    left = torch.full((Cb, M), -1, **i32)
+    right = torch.full((Cb, M), -1, **i32)
+    is_leaf = root.clone()
+    node_of_doc = torch.zeros((Cb, N), **i32)
+    n_nodes = torch.ones(Cb, **i32)
+    impacts = torch.zeros((Cb, F), **f32)
+    fm2 = (None if feature_masks is None
+           else torch.cat([feature_masks, feature_masks]))
+
+    for k in range(n_leaves - 1):
+        build_children = k < n_leaves - 2      # the last iteration is peeled
+        cand = torch.where(is_leaf & splittable, deviance, -torch.inf)
+        leaf = torch.argmax(cand, dim=1)                   # [Cb] int64
+        valid = _take(cand, leaf) > -torch.inf
+        f_s = _take(best_f, leaf)
+        b_s = _take(best_b, leaf)
+        pstats = stats.gather(1, leaf[:, None, None].expand(-1, 1, 3))[:, 0]
+        parent_term = torch.where(
+            pstats[:, 2] > 0,
+            pstats[:, 0] * pstats[:, 0] / torch.clamp(pstats[:, 2], min=1.0),
+            0.0)
+        # one (bag, feature) cell per bag: no two adds meet
+        impacts.view(-1).index_add_(0, cidx * F + f_s.long(), torch.where(
+            valid, _take(best_gain, leaf) - parent_term, 0.0))
+        la = n_nodes.long()
+        ra = la + 1
+
+        col = binned_T.index_select(0, f_s.long()).to(torch.int32)  # [Cb,N]
+        in_node = node_of_doc == leaf[:, None].to(torch.int32)
+        go_left = col <= b_s[:, None]
+        new_assign = torch.where(
+            in_node, torch.where(go_left, n_nodes[:, None],
+                                 n_nodes[:, None] + 1), node_of_doc)
+        node_of_doc = torch.where(valid[:, None], new_assign, node_of_doc)
+
+        if build_children:
+            # right child directly, left by subtraction (parent − sibling)
+            w_r = dw * (in_node & ~go_left & valid[:, None])
+            hist_r = histogram_multi(binned_T, grads, w_r, B)
+            hist_l = hist[cidx, _take(hidx, leaf).long()] - hist_r
+            S_r = (w_r * grads).sum(dim=1)
+            SQ_r = (w_r * grads * grads).sum(dim=1)
+            C_r = w_r.sum(dim=1)
+            S_l = pstats[:, 0] - S_r
+            SQ_l = pstats[:, 1] - SQ_r
+            C_l = pstats[:, 2] - C_r
+            g2, f2, b2, ok2 = best_splits(torch.cat([hist_l, hist_r]), mls,
+                                          fm2)
+            # unconditional row writes: a row an invalid bag never maps
+            # is never read
+            hist[:, 2 * k + 1] = hist_l
+            hist[:, 2 * k + 2] = hist_r
+            _put(hidx, la, 2 * k + 1, valid)
+            _put(hidx, ra, 2 * k + 2, valid)
+            _put(stats, la, torch.stack([S_l, SQ_l, C_l], dim=1), valid)
+            _put(stats, ra, torch.stack([S_r, SQ_r, C_r], dim=1), valid)
+            _put(deviance, la, _deviance(SQ_l, S_l, C_l), valid)
+            _put(deviance, ra, _deviance(SQ_r, S_r, C_r), valid)
+            for arr, v in ((best_gain, g2), (best_f, f2), (best_b, b2),
+                           (splittable, ok2)):
+                _put(arr, la, v[:Cb], valid)
+                _put(arr, ra, v[Cb:], valid)
+
+        _put(feature, leaf, f_s, valid)
+        _put(sbin, leaf, b_s, valid)
+        _put(left, leaf, n_nodes, valid)
+        _put(right, leaf, n_nodes + 1, valid)
+        _put(is_leaf, leaf, False, valid)
+        _put(is_leaf, la, True, valid)
+        _put(is_leaf, ra, True, valid)
+        n_nodes = n_nodes + 2 * valid.to(torch.int32)
+
+    return TreeArrays(feature, sbin, left, right, is_leaf, n_nodes,
+                      node_of_doc, impacts)
+
+
+# elements of one [bags, M, N] masked temporary of leaf_outputs_forest
+_LEAF_BUDGET = 1 << 27
+
+
+def leaf_outputs_forest(node_of_doc: torch.Tensor, lam: torch.Tensor,
+                        w: torch.Tensor, n_slots: int, newton: bool,
+                        doc_weights=None) -> torch.Tensor:
+    """Per-bag leaf outputs [Cb, n_slots]: :func:`leaf_outputs` with a
+    leading [Cb] axis (ref ``leaf_outputs_forest``, grow.py:426, a
+    segment sum over Cb·n_slots segments). Masked [bags, M, N] sums over
+    as many bags at a time as ``_LEAF_BUDGET`` holds: deterministic on the
+    card, where a segment ``index_add_`` sums in atomic order, and never
+    the whole [Cb, M, N] (~9 GB at 64 bags of 100 leaves over 180K
+    docs)."""
+    Cb, N = node_of_doc.shape
+    dw = None if doc_weights is None else doc_weights.to(lam.dtype)
+    if dw is not None:
+        lam = lam * dw
+    if newton:
+        s2_src = w if dw is None else w * dw
+    else:
+        s2_src = torch.ones_like(lam) if dw is None else dw
+    slots = torch.arange(n_slots, dtype=node_of_doc.dtype,
+                         device=lam.device)[None, :, None]
+    step = max(1, _LEAF_BUDGET // max(1, n_slots * N))
+    s1, s2 = [], []
+    for lo in range(0, Cb, step):
+        onehot = node_of_doc[lo:lo + step, None, :] == slots
+        s1.append(torch.where(onehot, lam[lo:lo + step, None, :], 0.0)
+                  .sum(dim=2))
+        s2.append(torch.where(onehot, s2_src[lo:lo + step, None, :], 0.0)
+                  .sum(dim=2))
+    s1, s2 = torch.cat(s1), torch.cat(s2)
     return torch.where(s2 > 0, s1 / torch.where(s2 > 0, s2, 1.0), 0.0)

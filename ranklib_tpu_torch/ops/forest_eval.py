@@ -1,4 +1,4 @@
-"""Bin-space forest evaluation: the serving hot path's two CUDA kernels.
+"""Forest evaluation: the serving path's three CUDA kernels.
 
 Kernels (``csrc/forest_eval.cu``, built for ``sm_90a`` by ``ops._build``):
 
@@ -9,20 +9,27 @@ Kernels (``csrc/forest_eval.cu``, built for ``sm_90a`` by ``ops._build``):
 * :func:`forest_eval_bins` replaces ``_forest_bins_kernel`` (wrapper
   ``forest_eval_pallas_bins``): bins ``X [N, F]`` f32 on the device
   (``#{grid_f < x}``, NaN → n_grid), then scores. The device-resident route.
+* :func:`forest_eval_full` replaces ``_forest_full3_kernel`` /
+  ``_forest_full_kernel`` (wrapper ``forest_eval_pallas_full``): scores
+  ``X [N, F]`` f32 by the f32 test ``x <= threshold`` itself, for models
+  the bin-space kernels do not take (more than ``MAX_GRID`` thresholds on
+  a feature, or more than ``MAX_FEATURES`` columns).
 
-Both route a document left iff ``bin <= nodebin`` and sum ``w·leaf``. The
-TPU kernels express that as one-hot selection and path matmuls for the
-MXU; the CUDA kernels walk each tree from the root, one thread per
-document, over per-node records packed once per model (bound on the H100
-by dependent L1/L2 loads and warp divergence, not HBM; the document's bins
-are staged in shared memory once per block — see the .cu header).
+The bin-space kernels route a document left iff ``bin <= nodebin``, the
+f32 kernel iff ``x <= t`` (NaN goes right); all sum ``w·leaf``. The TPU
+kernels express that as one-hot selection and path matmuls for the MXU
+(the f32 one through three exact bf16 planes); the CUDA kernels walk each
+tree from the root, one thread per document, over per-node records packed
+once per model (bound on the H100 by dependent L1/L2 loads and warp
+divergence, not HBM; the document's bins or values are staged in shared
+memory once per block — see the .cu header).
 
 Beside each kernel, a plain PyTorch version of the same function takes the
-reference's ``_pack_matmul_bins`` operands and mirrors
-``_bins_selection_epilogue``: gather, compare, P−Q path product, leaf fold.
-Routing is integer-exact in both; the kernel and the plain version also add
-the leaf values in the same f32 order (tree order, one partial per chunk of
-trees), so they agree bit for bit.
+reference's ``_pack_matmul_bins`` (or ``_pack_matmul``) operands and
+mirrors ``_bins_selection_epilogue`` (or ``_mm_eval``): gather, compare,
+P−Q path product, leaf fold. Routing is exact in both; the kernel and the
+plain version also add the leaf values in the same f32 order (tree order,
+one partial per chunk of trees), so they agree bit for bit.
 
 Wrapper rule: a CPU tensor goes to the plain version; a CUDA tensor goes to
 the kernel or the wrapper raises — nothing falls back. Each wrapper counts
@@ -39,12 +46,12 @@ import torch
 
 from ranklib_tpu_torch.utils.errors import RankLibError
 
-# Largest n_grid the ported kernels take: the reference routes models with
-# more distinct thresholds on one feature to forest_eval_pallas_full (the
-# f32 route), which is not ported yet.
+# Largest n_grid the bin-space kernels take (uint8/int16 ids of at most 256
+# thresholds): models with more distinct thresholds on one feature take the
+# f32 route, as in the reference.
 MAX_GRID = 256
-# Widest input the kernels take: 32 docs x F int16 bins must fit the 227 KB
-# of shared memory a block can use.
+# Widest input the bin-space kernels take: 32 docs x F int16 bins must fit
+# the 227 KB of shared memory a block can use. The f32 route takes any width.
 MAX_FEATURES = 232448 // (32 * 2)
 
 
@@ -86,6 +93,38 @@ class ForestPack:
                 self.plenc, self.outwc)
 
 
+@dataclass(frozen=True, eq=False)
+class FullPack:
+    """One model's device operands for the f32 route, built by
+    ``TreeEnsemble.full_pack``: the reference's ``_pack_matmul`` layout
+    (``fid_full``/``thr_full`` [nch·TCM], ``PmQc``, ``csQc``, ``plenc``,
+    ``outwc``) for the plain version, and traversal records for the
+    kernel: ``nodes [S, 4]`` int32 (feature or −1, the threshold's f32
+    bits, left, right), ``values [S]``, ``roots [T]``."""
+
+    n_features: int
+    tree_chunk: int
+    max_depth: int
+    fid_full: torch.Tensor
+    thr_full: torch.Tensor
+    PmQc: torch.Tensor
+    csQc: torch.Tensor
+    plenc: torch.Tensor
+    outwc: torch.Tensor
+    nodes: torch.Tensor
+    values: torch.Tensor
+    roots: torch.Tensor
+
+    @property
+    def device(self) -> torch.device:
+        return self.nodes.device
+
+    def matmul_operands(self):
+        """(fid_full, thr_full, PmQc, csQc, plenc, outwc)."""
+        return (self.fid_full, self.thr_full, self.PmQc, self.csQc,
+                self.plenc, self.outwc)
+
+
 # ---- plain PyTorch versions ----------------------------------------------
 
 def _selection_operands(fid_full, nodebin_full, PmQc, csQc, plenc, outwc):
@@ -99,26 +138,34 @@ def _selection_operands(fid_full, nodebin_full, PmQc, csQc, plenc, outwc):
     return fid, nodebin, PmQc, plenc - csQc, outwc
 
 
+def _chunk_leaf_sum(pred, PmQ, plen_adj, outw, tree_chunk: int):
+    """One tree chunk's leaf sum [N] from its node tests ``pred [TCM, N]``
+    (0/1 f32): count path agreements with one P−Q product (small
+    integers, exact in f32), take the output of the one leaf each tree's
+    path reaches, and add those in tree order — the kernels' order."""
+    N = pred.shape[1]
+    hits = pred.T @ PmQ                                      # [N, TCL]
+    contrib = torch.where(hits == plen_adj, outw, 0.0)
+    per_tree = contrib.view(N, tree_chunk, -1).sum(dim=2)   # one leaf each
+    partial = torch.zeros(N, dtype=torch.float32, device=pred.device)
+    for j in range(tree_chunk):
+        partial = partial + per_tree[:, j]
+    return partial
+
+
 def _bins_selection_epilogue(bins, fid, nodebin, PmQ, plen_adj, outw,
                              tree_chunk: int) -> torch.Tensor:
     """Selection + leaf fold over int32 ids ``bins [F, N]`` (ref
     ``_bins_selection_epilogue``, :244): per tree chunk, gather each
-    node's feature ids, compare with the node bin, count path agreements
-    with one P−Q product (small integers, exact in f32), and add the
-    output of the one leaf each tree's path reaches. Leaf values add in
-    tree order, one partial per chunk — the kernels' order."""
-    N = bins.shape[1]
-    score = torch.zeros(N, dtype=torch.float32, device=bins.device)
+    node's feature ids, compare with the node bin, and add the chunk's
+    :func:`_chunk_leaf_sum`."""
+    score = torch.zeros(bins.shape[1], dtype=torch.float32,
+                        device=bins.device)
     for c in range(PmQ.shape[0]):
         vals = bins.index_select(0, fid[c])                  # [TCM, N]
         pred = (vals <= nodebin[c][:, None]).to(torch.float32)
-        hits = pred.T @ PmQ[c]                               # [N, TCL]
-        contrib = torch.where(hits == plen_adj[c], outw[c], 0.0)
-        per_tree = contrib.view(N, tree_chunk, -1).sum(dim=2)  # one leaf each
-        partial = torch.zeros_like(score)
-        for j in range(tree_chunk):
-            partial = partial + per_tree[:, j]
-        score = score + partial
+        score = score + _chunk_leaf_sum(pred, PmQ[c], plen_adj[c], outw[c],
+                                        tree_chunk)
     return score
 
 
@@ -131,6 +178,26 @@ def forest_eval_frombins_plain(binsT, fid_full, nodebin_full, PmQc, csQc,
     return _bins_selection_epilogue(
         bins, *_selection_operands(fid_full, nodebin_full, PmQc, csQc,
                                    plenc, outwc), tree_chunk)
+
+
+def forest_eval_full_plain(X, fid_full, thr_full, PmQc, csQc, plenc, outwc,
+                           *, tree_chunk: int):
+    """Plain version of :func:`forest_eval_full` (ref ``_mm_eval``, :741)
+    on the reference's ``_pack_matmul`` operands: per tree chunk, gather
+    each node's feature row of Xᵀ, compare with its f32 threshold (NaN <=
+    t is False: routed right) and add the chunk's :func:`_chunk_leaf_sum`.
+    X [N, F] f32 → [N] f32."""
+    nch, TCM, _ = PmQc.shape
+    fid = fid_full.reshape(nch, TCM).to(torch.int64)
+    thr = thr_full.reshape(nch, TCM)
+    XT = X.T
+    score = torch.zeros(X.shape[0], dtype=torch.float32, device=X.device)
+    for c in range(nch):
+        pred = (XT.index_select(0, fid[c]) <= thr[c][:, None]).to(
+            torch.float32)
+        score = score + _chunk_leaf_sum(pred, PmQc[c], plenc[c] - csQc[c],
+                                        outwc[c], tree_chunk)
+    return score
 
 
 def device_bins(X: torch.Tensor, grid: torch.Tensor,
@@ -169,10 +236,12 @@ def _kernels() -> ctypes.CDLL:
         fn.restype = _int
     lib.forest_eval_bins.argtypes = [_vp, _i64, _int, _vp, _int, _int, *walk]
     lib.forest_eval_bins.restype = _int
+    lib.forest_eval_full.argtypes = [_vp, _i64, _int, *walk]
+    lib.forest_eval_full.restype = _int
     return lib
 
 
-def _check_device(x: torch.Tensor, pack: ForestPack, name: str) -> bool:
+def _check_device(x: torch.Tensor, pack, name: str) -> bool:
     """True for CUDA (launch the kernel), False for CPU (plain version)."""
     if x.device.type not in ("cpu", "cuda"):
         raise RankLibError(f"{name}: tensors on {x.device} are not supported")
@@ -182,7 +251,7 @@ def _check_device(x: torch.Tensor, pack: ForestPack, name: str) -> bool:
     return x.device.type == "cuda"
 
 
-def _walk_args(pack: ForestPack, out: torch.Tensor):
+def _walk_args(pack, out: torch.Tensor):
     return (pack.nodes.data_ptr(), pack.values.data_ptr(),
             pack.roots.data_ptr(), int(pack.roots.shape[0]),
             pack.max_depth, pack.tree_chunk, out.data_ptr(),
@@ -226,10 +295,9 @@ def forest_eval_frombins(binsT: torch.Tensor, pack: ForestPack) -> torch.Tensor:
 forest_eval_frombins.launches = 0
 
 
-def forest_eval_bins(X: torch.Tensor, pack: ForestPack) -> torch.Tensor:
-    """Scores ``[N]`` f32 of device-resident features ``X [N, F]``
-    (contiguous f32), binned on the device against ``pack``'s grid."""
-    name = "forest_eval_bins"
+def _check_features(X: torch.Tensor, pack, name: str) -> bool:
+    """Validates ``X [N, F]`` contiguous f32; True for CUDA (launch the
+    kernel), False for CPU (plain version)."""
     if X.dtype != torch.float32:
         raise RankLibError(f"{name}: features must be float32, got {X.dtype}")
     if X.dim() != 2 or X.shape[1] != pack.n_features:
@@ -237,7 +305,14 @@ def forest_eval_bins(X: torch.Tensor, pack: ForestPack) -> torch.Tensor:
                            f"got {tuple(X.shape)}")
     if not X.is_contiguous():
         raise RankLibError(f"{name}: features must be contiguous")
-    if not _check_device(X, pack, name):
+    return _check_device(X, pack, name)
+
+
+def forest_eval_bins(X: torch.Tensor, pack: ForestPack) -> torch.Tensor:
+    """Scores ``[N]`` f32 of device-resident features ``X [N, F]``
+    (contiguous f32), binned on the device against ``pack``'s grid."""
+    name = "forest_eval_bins"
+    if not _check_features(X, pack, name):
         return forest_eval_bins_plain(X, pack.grid, *pack.matmul_operands(),
                                       n_grid=pack.n_grid,
                                       tree_chunk=pack.tree_chunk)
@@ -255,3 +330,24 @@ def forest_eval_bins(X: torch.Tensor, pack: ForestPack) -> torch.Tensor:
 
 
 forest_eval_bins.launches = 0
+
+
+def forest_eval_full(X: torch.Tensor, pack: FullPack) -> torch.Tensor:
+    """Scores ``[N]`` f32 of device-resident features ``X [N, F]``
+    (contiguous f32) by each node's f32 test ``x <= threshold``: any
+    number of thresholds on a feature, any width."""
+    name = "forest_eval_full"
+    if not _check_features(X, pack, name):
+        return forest_eval_full_plain(X, *pack.matmul_operands(),
+                                      tree_chunk=pack.tree_chunk)
+    N, F = X.shape
+    out = torch.empty(N, dtype=torch.float32, device=X.device)
+    if N:
+        with torch.cuda.device(X.device):
+            _raise_on(_kernels().forest_eval_full(
+                X.data_ptr(), N, F, *_walk_args(pack, out)), name)
+        forest_eval_full.launches += 1
+    return out
+
+
+forest_eval_full.launches = 0

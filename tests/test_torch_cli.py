@@ -6,8 +6,8 @@ packages then load it and run ``-load -test -idv`` and ``-load -rank
 -score -indri``. Per-query values are compared parsed, to 1e-5 (the score
 file prints %.6f, and f32 reassociation may move its last digit). Model
 files round-trip byte for byte in both directions. A subprocess pins that
-the port serves and trains with JAX unimportable and never loads the
-reference.
+the port serves, trains (LambdaMART and Random Forests) and combines with
+JAX unimportable and never loads the reference.
 """
 
 import os
@@ -123,13 +123,16 @@ def test_feature_subset_matches_reference(files):
 ], ids=["train", "kcv", "sparse", "qrel", "norm", "ana", "combine"])
 def test_unported_flows_exit_cleanly(files, extra, capsys):
     """-train itself is ported; the training flags that are not (here
-    -resume and -kcv) still exit cleanly."""
+    -resume and -kcv) still exit cleanly. -combine is ported, and without
+    -o exits with the reference's error."""
     _, model, test = files
     rc = port_main(["-load", model, "-test", test, *extra])
     assert rc == 1
     flag = [a for a in extra if a.startswith("-")][-1]
-    assert (f"Error: {flag} is not yet ported to ranklib_tpu_torch"
-            in capsys.readouterr().out)
+    want = (f"Error: {flag} is not yet ported to ranklib_tpu_torch"
+            if flag != "-combine"
+            else "Error: -combine requires -o <output model file>")
+    assert want in capsys.readouterr().out
 
 
 def test_errors_exit_1(files, tmp_path, capsys, monkeypatch):
@@ -162,6 +165,15 @@ def test_port_runs_without_jax_or_the_reference(files):
         f"'-tree', '3', '-leaf', '4', '-metric2t', 'NDCG@10', '-test', "
         f"{test!r}, '-save', {str(d / 'nojax_model.txt')!r}])\n"
         "assert rc == 0, rc\n"
+        "import os\n"
+        f"os.makedirs({str(d / 'nojax_bags')!r}, exist_ok=True)\n"
+        f"rc = main(['-train', {str(d / 'train.txt')!r}, '-ranker', '8', "
+        f"'-bag', '2', '-leaf', '4', '-save', "
+        f"{str(d / 'nojax_bags' / 'rf.txt')!r}])\n"
+        "assert rc == 0, rc\n"
+        f"rc = main(['-combine', {str(d / 'nojax_bags')!r}, '-o', "
+        f"{str(d / 'nojax_combined.txt')!r}])\n"
+        "assert rc == 0, rc\n"
         "assert sys.modules['jax'] is None\n"
         "bad = [m for m in sys.modules if m == 'ranklib_tpu' or "
         "m.startswith(('ranklib_tpu.', 'jax.', 'jaxlib'))]\n"
@@ -174,6 +186,8 @@ def test_port_runs_without_jax_or_the_reference(files):
     assert proc.stdout.strip().endswith("OK")
     assert "NDCG@10 on training data:" in proc.stdout
     assert open(d / "nojax_model.txt").readline() == "## LambdaMART\n"
+    assert (open(d / "nojax_combined.txt").read(40)
+            .startswith("## Random Forests\n## No. of bags = 2\n"))
     assert port_main(["-load", model, "-rank", test, "-score",
                       str(d / "inproc.score")]) == 0
     np.testing.assert_array_equal(np.loadtxt(d / "nojax.score", usecols=2),

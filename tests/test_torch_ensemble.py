@@ -16,10 +16,8 @@ from ranklib_tpu.gbdt.ensemble import TreeEnsemble as RefEnsemble
 from ranklib_tpu.gbdt.ensemble import _ensemble_eval as ref_ensemble_eval
 from ranklib_tpu.gbdt.ensemble import _mm_eval as ref_mm_eval
 from ranklib_tpu_torch.convert import from_reference_arrays
-from ranklib_tpu_torch.gbdt.ensemble import (
-    TreeEnsemble, _ensemble_eval, _mm_eval,
-)
-from ranklib_tpu_torch.ops.forest_eval import MAX_GRID
+from ranklib_tpu_torch.gbdt.ensemble import TreeEnsemble, _ensemble_eval
+from ranklib_tpu_torch.ops.forest_eval import MAX_GRID, forest_eval_full_plain
 from ranklib_tpu_torch.utils.errors import RankLibError
 
 CPU = torch.device("cpu")
@@ -108,10 +106,14 @@ def test_wide_grid_takes_the_f32_route_on_cpu_and_raises_elsewhere():
     want = ref.eval_matrix(X)
     np.testing.assert_allclose(port.eval_matrix(X, CPU), want, **TOL)
     packed = [torch.from_numpy(a) for a in port._pack_matmul(6)]
-    np.testing.assert_allclose(_mm_eval(torch.from_numpy(X), *packed).numpy(),
-                               want, **TOL)
-    # on any other device the unported f32 kernel is named, nothing falls back
-    with pytest.raises(RankLibError, match="forest_eval_pallas_full"):
+    np.testing.assert_allclose(
+        forest_eval_full_plain(torch.from_numpy(X), *packed,
+                               tree_chunk=TreeEnsemble._TREE_CHUNK).numpy(),
+        want, **TOL)
+    # on a device that is neither the CPU nor CUDA the f32 route's wrapper
+    # raises: nothing falls back
+    with pytest.raises(RankLibError, match="forest_eval_full: tensors on "
+                                           "meta are not supported"):
         port.eval_matrix(X, torch.device("meta"))
 
 
