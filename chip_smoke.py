@@ -1,6 +1,7 @@
 """On-card smoke test of ranklib_tpu_torch's main paths (one NVIDIA GPU):
-serving, LambdaMART/MART training, Random Forests and the f32 forest
-route.
+serving, LambdaMART/MART training, Random Forests, the f32 forest route,
+and the opt-in routes and tools that hold the last kernels: fused lambdas,
+split bin-space serving, the predicate epilogue and the compiler probes.
 
 Run from the repository root with no arguments::
 
@@ -27,7 +28,13 @@ Phases, none of whose failures is caught:
    bit-identical). f32 forest route: odd shapes, NaN/±inf features, more
    than 256 thresholds on a feature, thresholds near ±3.4e38 and an input
    wider than MAX_FEATURES (kernel and plain bit-identical, both within
-   1e-5 of the f32 traversal);
+   1e-5 of the f32 traversal). On the forest cases also the split route's
+   binning kernel (ids equal to ``device_bins``, scores bit-equal to the
+   bins kernel) and the predicate epilogue on uint8 and bf16 node tests
+   (bit-equal to its plain version); the fused lambda kernel on ranked
+   chunks up to D = 1,024 with ties and padded rows (atol 2e-5, rtol 1e-4,
+   two launches bit-identical); the probes' dot (signed int8, 0/1 f32) and
+   int16 compare, exactly;
 3. the serving path at the full width the repo measures — 1,000 trees x 10
    leaves over 136 features scoring 262,144 documents — with its launch
    counters at 0: ``TreeEnsemble.eval_matrix`` (host binning, then the
@@ -48,27 +55,51 @@ Phases, none of whose failures is caught:
 6. card vs CPU: 10 trees on 200 queries, kernels against plain versions;
 7. the training CLI: ``-train -ranker 6`` and ``-ranker 0`` with
    ``-validate -test -idv -save``, then ``-load`` of each saved model;
-8. training kernels at full width: kernel vs plain device times of the
+8. fused lambdas at the training shape under ``RANKLIB_TPU_FUSED_LAMBDA=1``
+   (before any profiled phase, so its rounds are timed as fit A's): a
+   sort-free and a fused 50-tree fit, the fused one with its counters at 0
+   (50 launches a bucket chunk), the kernel vs plain on every chunk, the
+   lambda phase alone against the sort-free path, a sync-free round, card
+   vs CPU (10 trees, 200 queries) and the ``-train -ranker 6`` CLI, each
+   launching the kernel;
+9. training kernels at full width: kernel vs plain device times of the
    histogram (root, and a child with ~10% weights) and the scan
-   ([1|2, 136, 256, 2]), the peak device memory, one round's parts timed
-   alone and the device-busy share of a profiled round;
-9. Random Forests at the training width — 300 bags of one 100-leaf MART
-   tree, -frate 0.3, -srate 1.0, 256 bins, the port's group size — with
-   the multi-bag histogram and split-scan counters at 0: the fit (each
-   counter must read groups x 99), a second fit saving the same model
-   text, one group step under ``set_sync_debug_mode("error")``, card vs
-   CPU at 4 bags x 8 leaves on 200 queries (-rtype 0 and a small -rtype
-   6), and the multi-bag histogram kernel vs plain at the group's width
-   (root and a ~10% child);
-10. the f32 forest route at the serving width: 1,000 trees x 10 leaves
+   ([1|2, 136, 256, 2]), the root histogram's ``index_add_``, the peak
+   device memory, one round's parts timed alone and the device-busy share
+   of a profiled round;
+10. Random Forests at the training width — 300 bags of one 100-leaf MART
+    tree, -frate 0.3, -srate 1.0, 256 bins, the port's group size — with
+    the multi-bag histogram and split-scan counters at 0: the fit (each
+    counter must read groups x 99), a second fit saving the same model
+    text, one group step under ``set_sync_debug_mode("error")``, card vs
+    CPU at 4 bags x 8 leaves on 200 queries (-rtype 0 and a small -rtype
+    6), and the multi-bag histogram kernel vs plain and its ``index_add_``
+    at the group's width (root and a ~10% child);
+11. the f32 forest route at the serving width: 1,000 trees x 10 leaves
     whose first 8 features carry a 1,024-point threshold grid, 262,144
     documents: kernel vs plain (bit-identical) and vs the f32 traversal,
     device times, and ``eval_matrix`` through it;
-11. the RF CLI: ``-train -ranker 8 -test -save`` then ``-load -test``;
+12. the RF CLI: ``-train -ranker 8 -test -save`` then ``-load -test``;
     three forests trained on different files combined with ``-combine``
     (more than 256 thresholds on a feature), then ``-load -test -idv`` of
     the result with every counter at 0: it must run the f32 kernel and
-    print the plain version's metric.
+    print the plain version's metric;
+13. split serving under ``RANKLIB_TPU_SERVE_SPLIT=1`` at the serving
+    width: the binning kernel vs ``device_bins`` and ``torch.searchsorted``,
+    the split route bit-equal to the bins kernel and the plain version,
+    then ``eval_matrix`` and the CLI's ``-load -test`` with the counters at
+    0 (binning and frombins kernels launched, the fused bins kernel not);
+14. the predicate epilogue at the serving width: ~9,600 x 262,144 node
+    tests of the f32 pack built on the card, uint8 and bf16, bit-equal to
+    the plain version and to the f32 route;
+15. the compiler probes: the int8 and f32 dot at [256, 2^20] x [2^20, 128]
+    (one call, median of 3) and the int16 compare.
+
+Every kernel's line in the JSON record carries its launches on its path,
+its error against the plain version, its time and the plain version's,
+its bound (bytes over 3.35 TB/s or operations over the published peak,
+whichever is larger, from this run's inputs) and, where one PyTorch call
+computes the same function, that call's time.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 are the kernels' JSON record and the ``nvidia-smi`` name/power-limit line.
@@ -90,8 +121,15 @@ import torch
 
 TOL = {"atol": 1e-5, "rtol": 1e-5}
 HIST_TOL = {"atol": 2e-4, "rtol": 1e-5}
+# the reference's own tolerance for its fused lambda kernel
+# (tests/test_lambda_kernel.py:38-41): f32 pair sums in another order
+LAMBDA_TOL = {"atol": 2e-5, "rtol": 1e-4}
+FUSED_FLAG, SPLIT_FLAG = "RANKLIB_TPU_FUSED_LAMBDA", "RANKLIB_TPU_SERVE_SPLIT"
+# one H100 SXM's published peaks (NVIDIA data sheet): HBM bytes a second,
+# and f32 operations a second outside the tensor cores (the units every
+# kernel here but the int8 probe runs on)
+HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
 N_TREES, N_LEAVES, N_FEATURES, N_DOCS = 1000, 10, 136, 262144
-SOURCE = "ranklib_tpu_torch/csrc/forest_eval.cu"
 # training: bench.py's LambdaMART shape, 50 rounds
 FIT_TREES, FIT_QUERIES, FIT_VQUERIES = 50, 1500, 300
 # Random Forests at the same width: RankLib's defaults (300 bags of one
@@ -168,6 +206,64 @@ def wall_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def bound(nbytes: float, ops: float, peak: float = F32_OPS_S) -> tuple:
+    """(ms, "bytes" | "operations"): the least time the card could take for
+    a function that moves ``nbytes`` (each input read once, each output
+    written once) and does ``ops`` operations of a type whose peak rate is
+    ``peak`` — whichever of the two times is larger."""
+    b_ms, o_ms = nbytes / HBM_BYTES_S * 1e3, ops / peak * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def walk_ops(ens, X) -> int:
+    """Operations of scoring ``X`` with ``ens`` by walking its trees: one
+    compare for every internal node a document visits (counted on these
+    documents, with the f32 test the kernels' routing equals) and one add
+    a (document, tree)."""
+    feat, thr, lft, rgt, leaf, _, _, depth = ens._pack()
+    dev = X.device
+    feat, thr, lft, rgt, leaf = (torch.from_numpy(a).to(dev) for a in
+                                 (feat, thr, lft, rgt, leaf))
+    T = feat.shape[0]
+    tix = torch.arange(T, device=dev)
+    visits = torch.zeros((), dtype=torch.int64, device=dev)
+    for lo in range(0, X.shape[0], 4096):
+        x = X[lo:lo + 4096]
+        rows = torch.arange(x.shape[0], device=dev)[:, None]
+        node = torch.zeros((x.shape[0], T), dtype=torch.int64, device=dev)
+        for _ in range(depth):
+            lf = leaf[tix, node]
+            visits += (~lf).sum()
+            v = x[rows, feat[tix, node].long()]
+            nxt = torch.where(v <= thr[tix, node], lft[tix, node],
+                              rgt[tix, node]).long()
+            node = torch.where(lf, node, nxt)
+    return int(visits) + X.shape[0] * T
+
+
+def pack_bytes(pack) -> int:
+    """Bytes of the traversal records a forest kernel reads."""
+    return nbytes(pack.nodes, pack.values, pack.roots)
+
+
+def pred_matrix(fpack, Xd, rows: int = 1024) -> torch.Tensor:
+    """The predicate epilogue's input: 0/1 node tests ``x[fid] <= thr``
+    ``[nch·TCM, N]`` uint8 of an f32 pack (NaN tests 0), built on the card
+    a block of rows at a time."""
+    fid, thr = fpack.fid_full.long(), fpack.thr_full
+    XT = Xd.T.contiguous()
+    out = torch.empty((fid.shape[0], Xd.shape[0]), dtype=torch.uint8,
+                      device=Xd.device)
+    for lo in range(0, fid.shape[0], rows):
+        out[lo:lo + rows] = (XT.index_select(0, fid[lo:lo + rows])
+                             <= thr[lo:lo + rows, None])
+    return out
+
+
 def small_case_checks(dev) -> None:
     from ranklib_tpu_torch.gbdt.ensemble import Tree
     from ranklib_tpu_torch.ops import forest_eval as fe
@@ -216,11 +312,95 @@ def small_case_checks(dev) -> None:
                 binsT, *pack.matmul_operands(), tree_chunk=pack.tree_chunk)
             max_err(fb_k, fb_p, f"frombins kernel ({dt}) vs plain")
             max_err(fb_k, walk, f"frombins kernel ({dt}) vs f32 traversal")
+        narrow = fe.device_bins_narrow(Xd, pack)
+        torch.cuda.synchronize()
+        check(narrow.dtype == fe.ids_dtype(pack.n_grid)
+              and torch.equal(narrow.to(torch.int32), ids),
+              f"case {name}: the binning kernel's ids differ from device_bins")
+        split = fe.forest_eval_bins_split(Xd, pack)
+        torch.cuda.synchronize()
+        check(torch.equal(split, bins_k),
+              f"case {name}: the split route is not bit-equal to the bins "
+              f"kernel")
+        print(f"  binning kernel ({narrow.dtype}) ids equal device_bins; "
+              f"split route bit-equal to the bins kernel")
+        fpack = ens.full_pack(F, dev)
+        ops = fpack.matmul_operands()[2:]
+        predT = pred_matrix(fpack, Xd)
+        plain = fe.forest_eval_pred_plain(predT, *ops,
+                                          tree_chunk=fpack.tree_chunk)
+        for dt in (torch.uint8, torch.bfloat16):
+            got = fe.forest_eval_pred(predT.to(dt), fpack)
+            torch.cuda.synchronize()
+            check(torch.equal(got, plain), f"case {name}: predicate epilogue "
+                                           f"({dt}) not bit-equal to plain")
+            max_err(got, walk, f"predicate epilogue ({dt}) vs f32 traversal")
 
     case("A", 50, 10, 20, 300, seed=7)
     case("B-odd", 23, 7, 13, 257, seed=11, lone_leaf=True)
     case("C-grid256", 60, 6, 12, 400, seed=5, grid256=True)
     case("D-one-doc", 7, 3, 5, 1, seed=3)
+
+
+def lambda_small_checks(dev) -> float:
+    """Fused lambda kernel vs plain on ranked chunks: score ties, padded
+    slots and a fully padded row, D up to 1,024 (two q tiles)."""
+    from ranklib_tpu_torch.metrics.base import create_scorer
+    from ranklib_tpu_torch.ops import lambda_kernel as LK
+
+    rng = np.random.default_rng(29)
+    worst = 0.0
+    for B, D in [(4, 8), (3, 16), (5, 130), (2, 512), (2, 640), (3, 1024)]:
+        labels = rng.integers(0, 5, (B, D)).astype(np.float32)
+        scores = (np.round(rng.normal(size=(B, D)) * 4) / 4).astype(
+            np.float32)
+        n = rng.integers(1, D + 1, B)
+        n[-1] = 0                                    # a fully padded row
+        mask = np.arange(D)[None, :] < n[:, None]
+        labels[~mask] = 0.0
+        chunk = [torch.from_numpy(a).to(dev) for a in (labels, scores, mask)]
+        for metric in ("NDCG@10", "DCG@5", "P@4", "P@0"):
+            _, vecs = LK.ranked_pair_inputs(create_scorer(metric), *chunk)
+            got = LK.lambda_pairs(*vecs)
+            again = LK.lambda_pairs(*vecs)
+            want = LK.lambda_pairs_plain(*vecs)
+            torch.cuda.synchronize()
+            for g, a, w in zip(got, again, want):
+                what = f"lambda kernel ({B}, {D}) {metric}"
+                check(torch.equal(g, a), f"{what}: not reproducible")
+                check(torch.allclose(g, w, **LAMBDA_TOL),
+                      f"{what}: kernel and plain version disagree")
+                check(not g[vecs[4] == 0].any(), f"{what}: padded slots "
+                                                  f"not 0")
+                worst = max(worst, float((g - w).abs().max()))
+        print(f"  lambda kernel ({B}, {D}) x NDCG@10/DCG@5/P@4/P@0: ok")
+    print(f"  lambda kernel small cases: max_abs_err={worst:.3e}, "
+          f"bit-reproducible")
+    return worst
+
+
+def probe_small_checks(dev) -> None:
+    """The probes' kernels vs plain, exactly: signed int8 and 0/1 f32
+    products at odd shapes, the int16 compare over the type's range."""
+    from ranklib_tpu_torch.tools import probes as P
+
+    rng = np.random.default_rng(31)
+    for M, N, K in [(19, 5, 33), (256, 128, 5000), (70, 130, 4097)]:
+        a = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(
+            np.int8)).to(dev)
+        b = torch.from_numpy(rng.integers(-128, 128, (K, N)).astype(
+            np.int8)).to(dev)
+        check(torch.equal(P.dot(a, b), P.dot_plain(a, b)),
+              f"int8 dot ({M}, {N}, {K}) differs from plain")
+        a01, b01 = (a > 0).float(), (b > 0).float()
+        check(torch.equal(P.dot(a01, b01), P.dot_plain(a01, b01)),
+              f"f32 dot ({M}, {N}, {K}) differs from plain")
+    x = torch.from_numpy(np.arange(-32768, 32767, 7).astype(np.int16)).to(
+        dev)
+    for thr in (3, -5):
+        check(torch.equal(P.compare(x, thr), P.compare_plain(x, thr)),
+              "int16 compare differs from plain")
+    print("  probes: int8 and f32 dot at odd shapes, int16 compare: exact")
 
 
 def hist_small_checks(dev) -> float:
@@ -410,6 +590,7 @@ def training_phase(dev) -> dict:
     from ranklib_tpu_torch.metrics.base import create_scorer
     from ranklib_tpu_torch.models.gbdt import LambdaMART
     from ranklib_tpu_torch.ops import histogram as H
+    from ranklib_tpu_torch.ops import lambda_kernel as LK
     from ranklib_tpu_torch.ops import split_scan as SS
 
     check(torch.backends.cuda.matmul.allow_tf32 is False,
@@ -428,11 +609,14 @@ def training_phase(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     H.histogram.launches = 0
     SS.best_splits.launches = 0
+    LK.lambda_pairs.launches = 0
     with timed_rounds(times_a):
         quiet(fit_a.fit, train, scorer, device=dev)
     torch.cuda.synchronize()
     launches = {"histogram": H.histogram.launches,
                 "split_scan": SS.best_splits.launches}
+    check(LK.lambda_pairs.launches == 0,
+          "the default route launched the fused lambda kernel")
     peak = torch.cuda.max_memory_allocated(dev)
     want = FIT_TREES * (N_LEAVES - 1)
     print(f"fit A: {FIT_TREES} trees; launches {launches} (want {want} "
@@ -482,7 +666,7 @@ def training_phase(dev) -> dict:
     ms_a, ms_b = float(np.median(times_a)), float(np.median(times_b))
     print(f"  median wall ms per round: fit A {ms_a:.3f}, fit B {ms_b:.3f}")
     return {"launches": launches, "peak": peak, "ms_a": ms_a, "ms_b": ms_b,
-            "data": data, "train": train, "vali": vali}
+            "data": data, "train": train, "vali": vali, "train_m": tm}
 
 
 def card_vs_cpu(dev) -> None:
@@ -513,9 +697,9 @@ def card_vs_cpu(dev) -> None:
           "train NDCG@10 differs between the card and the CPU")
 
 
-def training_cli(tmp) -> None:
-    """-train with -validate -test -idv -save for rankers 6 and 0, then
-    -load of each saved model: the same test metric."""
+def training_cli(tmp, rankers=(6, 0)) -> None:
+    """-train with -validate -test -idv -save for each ranker, then -load
+    of each saved model: the same test metric."""
     from ranklib_tpu_torch import cli
 
     paths = {}
@@ -523,7 +707,7 @@ def training_cli(tmp) -> None:
                            ("test", 60, 8)):
         paths[name] = os.path.join(tmp, f"{name}.txt")
         write_dataset(paths[name], synth_queries(nq, N_FEATURES, seed, 11))
-    for ranker in (6, 0):
+    for ranker in rankers:
         model = os.path.join(tmp, f"model{ranker}.txt")
         rc, out = quiet(cli.main, [
             "-train", paths["train"], "-ranker", str(ranker),
@@ -576,6 +760,21 @@ def training_kernel_times(fit) -> tuple:
               f"{int(w.sum())} weighted docs: kernel {out[name][2]:.4f} ms "
               f"vs plain {out[name][3]:.4f} ms; max_abs_err "
               f"{out[name][1]:.3e}")
+    # the root's library call: one index_add_ over the flat f·B + bin index
+    w = root_w.to(torch.float32)
+    idx = (torch.arange(F, device=dev)[:, None] * B
+           + binsT.to(torch.int64)).reshape(-1)
+    src = torch.stack([(grad * w).expand(F, N).reshape(-1),
+                       w.expand(F, N).reshape(-1)], dim=-1)
+    lib_ms = event_ms(lambda: torch.zeros((F * B, 2), device=dev).index_add_(
+        0, idx, src), 10)
+    out["root_bound"] = bound(nbytes(binsT, grad, root_w, out["root"][0]),
+                              2 * F * int(root_w.sum()))
+    out["root_library"] = lib_ms
+    print(f"  histogram root: index_add_ over the flat f*B + bin index "
+          f"{lib_ms:.4f} ms; bound {out['root_bound'][0]:.4f} ms "
+          f"({out['root_bound'][1]})")
+    del idx, src
     fm = data.feat_mask
     scans = {}
     for cn, h in ((1, out["root"][0][None]),
@@ -593,6 +792,9 @@ def training_kernel_times(fit) -> tuple:
         print(f"  split scan [{cn}, {F}, {B}, 2]: kernel route "
               f"{scans[cn][1]:.4f} ms vs plain {scans[cn][2]:.4f} ms; "
               f"max_abs_err {err:.3e}")
+    # inclusive prefix sums of both channels and the gain, ~10 operations a
+    # (node, feature, bin); the best (gain, feature, bin, ok) a node out
+    scans["bound"] = bound(nbytes(h) + 2 * 13, 10 * h[..., 0].numel())
     return out, scans
 
 
@@ -1025,6 +1227,33 @@ def rf_kernel_times(rf) -> dict:
               f"{int(w.count_nonzero())} weighted (bag, doc) pairs: kernel "
               f"{out[name][1]:.4f} ms vs plain {out[name][2]:.4f} ms; "
               f"max_abs_err {err:.3e}")
+    out["root_bound"] = bound(
+        nbytes(binned_T, grads, doc_w) + C * F * 256 * 2 * 4,
+        2 * F * int(doc_w.count_nonzero()))
+    # the root's library call: one index_add_ over the flat f·B + bin index
+    # of every bag, whose expanded [C, F·N, 2] source must fit the card
+    need = 2 * C * F * N * 4 + C * F * 256 * 2 * 4 + F * N * 8
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(binned_T.device)[0]
+    out["root_library"] = None
+    if free > 1.1 * need:
+        dev = binned_T.device
+        idx = (torch.arange(F, device=dev)[:, None] * 256
+               + binned_T.to(torch.int64)).reshape(-1)
+        src = torch.stack([grads * doc_w, doc_w], dim=-1)[:, None].expand(
+            C, F, N, 2).reshape(C, F * N, 2)
+        out["root_library"] = event_ms(lambda: torch.zeros(
+            (C, F * 256, 2), device=dev).index_add_(1, idx, src), 1)
+        del idx, src
+        torch.cuda.empty_cache()
+        print(f"  multi-bag histogram root: index_add_ over the flat f*B + "
+              f"bin index of every bag {out['root_library']:.4f} ms")
+    else:
+        print(f"  multi-bag histogram root: the index_add_ source needs "
+              f"{need / 2**30:.1f} GiB, {free / 2**30:.1f} GiB free: not "
+              f"timed")
+    print(f"  multi-bag histogram root bound {out['root_bound'][0]:.4f} ms "
+          f"({out['root_bound'][1]})")
     return out
 
 
@@ -1056,9 +1285,11 @@ def full_route_phase(dev, Xh, Xd) -> dict:
     max_err(torch.from_numpy(ens.eval_matrix(Xh, dev)), plain.cpu(),
             "eval_matrix (f32 route) vs plain")
     e2e = wall_ms(lambda: ens.eval_matrix(Xh, dev), 3)
+    bnd = bound(nbytes(Xd, got) + pack_bytes(pack), walk_ops(ens, Xd))
     print(f"  device time (CUDA events, median): f32 kernel {ms:.4f} ms vs "
-          f"plain {plain_ms:.4f} ms; eval_matrix wall {e2e:.3f} ms")
-    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+          f"plain {plain_ms:.4f} ms (bound {bnd[0]:.4f} ms, {bnd[1]}); "
+          f"eval_matrix wall {e2e:.3f} ms")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bnd}
 
 
 def rf_cli(tmp) -> int:
@@ -1142,6 +1373,318 @@ def rf_cli(tmp) -> int:
     return launches
 
 
+def fused_lambda_phase(dev, fit, tmp, smi) -> dict:
+    """RANKLIB_TPU_FUSED_LAMBDA=1 at the training shape: a 50-tree fit with
+    its counters at 0, the kernel vs plain on every bucket chunk, the
+    lambda phase alone against the sort-free path, a sync-free round, card
+    vs CPU and the training CLI."""
+    from ranklib_tpu_torch.gbdt import lambdas as PL
+    from ranklib_tpu_torch.metrics.base import create_scorer
+    from ranklib_tpu_torch.models.gbdt import LambdaMART
+    from ranklib_tpu_torch.ops import histogram as H
+    from ranklib_tpu_torch.ops import lambda_kernel as LK
+    from ranklib_tpu_torch.ops import split_scan as SS
+
+    scorer = create_scorer("NDCG@10")
+    train = fit["train"]
+    hp = dict(n_trees=FIT_TREES, n_leaves=N_LEAVES, learning_rate=0.1,
+              n_threshold=256, min_leaf_support=1, early_stop=0)
+    n_chunks = len(fit["data"].tb)
+    # a sort-free fit next to the fused one, for rounds timed alike
+    times_sf = []
+    with timed_rounds(times_sf):
+        quiet(LambdaMART(**hp).fit, train, scorer, device=dev)
+    ms_sf = float(np.median(times_sf))
+    os.environ[FUSED_FLAG] = "1"
+    try:
+        check(LK.supports_fused(scorer), "the flag did not take the fused "
+                                         "route")
+        times = []
+        r = LambdaMART(**hp)
+        torch.cuda.synchronize()
+        LK.lambda_pairs.launches = 0
+        H.histogram.launches = SS.best_splits.launches = 0
+        with timed_rounds(times):
+            quiet(r.fit, train, scorer, device=dev)
+        torch.cuda.synchronize()
+        launches = {"lambda_pairs": LK.lambda_pairs.launches,
+                    "histogram": H.histogram.launches,
+                    "split_scan": SS.best_splits.launches}
+        want = {"lambda_pairs": FIT_TREES * n_chunks,
+                "histogram": FIT_TREES * (N_LEAVES - 1),
+                "split_scan": FIT_TREES * (N_LEAVES - 1)}
+        print(f"fused fit: {FIT_TREES} trees; launches {launches} (want "
+              f"{want}: one lambda launch a bucket chunk a round)")
+        check(launches == want, "the fused fit's launch counts are off")
+        tm = r.fit_state.train_m[:FIT_TREES].cpu().numpy()
+        print(f"  train NDCG@10 round 1 {tm[0]:.4f} -> round {FIT_TREES} "
+              f"{tm[-1]:.4f} (sort-free fit A: "
+              f"{float(fit['train_m'][0]):.4f} -> "
+              f"{float(fit['train_m'][-1]):.4f})")
+        check(bool(np.isfinite(tm).all()) and tm[-1] > tm[0],
+              "train NDCG@10 did not rise over the fused fit")
+        ms_round = float(np.median(times))
+        print(f"  median wall ms per round: fused {ms_round:.3f} vs "
+              f"sort-free {ms_sf:.3f} just before it (fit A in phase 5: "
+              f"{fit['ms_a']:.3f})  [{smi}]")
+
+        step, state, data, _ = r.prepare_fit(train, scorer, None, dev)
+        scores = r.fit_state.scores
+        ranked = [LK.ranked_pair_inputs(scorer, lab, scores[didx], msk)[1]
+                  for lab, msk, didx in data.tb]
+        err = 0.0
+        for vecs in ranked:
+            got = LK.lambda_pairs(*vecs)
+            again = LK.lambda_pairs(*vecs)
+            want_ = LK.lambda_pairs_plain(*vecs)
+            torch.cuda.synchronize()
+            for g, a, w in zip(got, again, want_):
+                check(torch.equal(g, a), "lambda kernel not reproducible at "
+                                         "the training shape")
+                check(torch.allclose(g, w, **LAMBDA_TOL),
+                      "lambda kernel and plain version disagree at the "
+                      "training shape")
+                err = max(err, float((g - w).abs().max()))
+        shapes = [tuple(v[0].shape) for v in ranked]
+        ms = event_ms(lambda: [LK.lambda_pairs(*v) for v in ranked], 20)
+        plain_ms = event_ms(lambda: [LK.lambda_pairs_plain(*v)
+                                     for v in ranked], 5)
+        pairs = sum(int(((v[2][:, :, None] > v[2][:, None, :])
+                         & (v[4][:, :, None] * v[4][:, None, :] > 0)).sum())
+                    for v in ranked)
+        # ~12 flops and one exp a (winner, loser) pair; 5 inputs, 2 outputs
+        bnd = bound(sum(7 * nbytes(v[0]) for v in ranked), 13 * pairs)
+        print(f"  kernel vs plain on the {len(ranked)} bucket chunks "
+              f"{shapes}: max_abs_err {err:.3e}, two launches bit-identical; "
+              f"a round's launches {ms:.4f} ms vs plain {plain_ms:.4f} ms "
+              f"(device, CUDA events; {pairs} pairs, bound {bnd[0]:.4f} ms, "
+              f"{bnd[1]})  [{smi}]")
+
+        zero = torch.zeros(1, device=dev)
+
+        def lambda_phase(fn):
+            def run():
+                parts = [fn(lab, scores[didx], msk, scl)[0].reshape(-1)
+                         for (lab, msk, didx), scl in zip(data.tb,
+                                                          data.tb_scale)]
+                return torch.cat(parts + [zero])[data.tb_inv]
+            return run
+
+        fused = lambda_phase(lambda lab, sc, msk, scl:
+                             LK.lambda_weights_fused(scorer, lab, sc, msk))
+        nosort = lambda_phase(lambda lab, sc, msk, scl:
+                              PL.lambda_weights_nosort(scorer, lab, sc, msk,
+                                                       scl))
+        diff = float((fused() - nosort()).abs().max())
+        check(torch.allclose(fused(), nosort(), atol=1e-4, rtol=1e-4),
+              "fused and sort-free lambdas disagree")
+        phase = {"fused wall": wall_ms(fused, 10),
+                 "fused device": event_ms(fused, 10),
+                 "sort-free wall": wall_ms(nosort, 10),
+                 "sort-free device": event_ms(nosort, 10)}
+        print(f"  the lambda phase alone (ms, median; fused vs sort-free "
+              f"lambdas differ by {diff:.3e}): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in phase.items())
+              + f"  [{smi}]")
+
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state = step(state, 0, data)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(state.scores).all()), "sync-free fused "
+                                                        "round: NaN")
+        print("  one fused round ran under set_sync_debug_mode('error'): no "
+              "host sync")
+
+        before = LK.lambda_pairs.launches
+        card_vs_cpu(dev)
+        check(LK.lambda_pairs.launches > before,
+              "the card's fit under the flag did not launch the lambda "
+              "kernel")
+        LK.lambda_pairs.launches = 0
+        training_cli(tmp, rankers=(6,))
+        torch.cuda.synchronize()
+        print(f"  -train -ranker 6 under the flag: "
+              f"{LK.lambda_pairs.launches} lambda launches")
+        check(LK.lambda_pairs.launches > 0,
+              "the training CLI under the flag did not launch the lambda "
+              "kernel")
+    finally:
+        os.environ.pop(FUSED_FLAG, None)
+    return {"launches": launches["lambda_pairs"], "err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound": bnd, "ms_round": ms_round,
+            "ms_round_sort_free": ms_sf, "phase": phase}
+
+
+def split_serving_phase(dev, ens, pack, Xh, Xd, plain_b, paths, smi) -> dict:
+    """RANKLIB_TPU_SERVE_SPLIT=1 at the serving width: the binning kernel
+    and the split route against their plain versions, their times, then
+    eval_matrix and the CLI with the counters at 0."""
+    from ranklib_tpu_torch import cli
+    from ranklib_tpu_torch.ops import forest_eval as fe
+
+    ids_p = fe.device_bins(Xd, pack.grid, pack.n_grid)
+    ids_k = fe.device_bins_narrow(Xd, pack)
+    torch.cuda.synchronize()
+    check(ids_k.dtype == torch.uint8 and torch.equal(ids_k.to(torch.int32),
+                                                     ids_p),
+          "the binning kernel's ids differ from device_bins at full width")
+    split = fe.forest_eval_bins_split(Xd, pack)
+    torch.cuda.synchronize()
+    check(torch.equal(split, fe.forest_eval_bins(Xd, pack)),
+          "the split route is not bit-equal to the bins kernel")
+    check(torch.equal(split, plain_b), "the split route is not bit-equal to "
+                                       "the plain version")
+    err = max_err(split, plain_b, f"split route vs plain ({N_DOCS} docs)")
+    XT = Xd.T.contiguous()
+    grid_n = pack.grid[:, :pack.n_grid].contiguous()
+    ms = event_ms(lambda: fe.device_bins_narrow(Xd, pack), 20)
+    plain_ms = event_ms(lambda: fe.device_bins(Xd, pack.grid, pack.n_grid)
+                        .to(torch.uint8), 5)
+    lib_ms = event_ms(lambda: torch.searchsorted(grid_n, XT), 20)
+    split_ms = event_ms(lambda: fe.forest_eval_bins_split(Xd, pack), 20)
+    # a binary search per value over n_grid sorted thresholds
+    steps = int(np.ceil(np.log2(pack.n_grid + 1)))
+    bnd = bound(nbytes(Xd, ids_k, pack.grid), Xd.numel() * steps)
+    print(f"  device time (CUDA events, median): binning kernel {ms:.4f} ms "
+          f"vs plain {plain_ms:.4f} ms vs torch.searchsorted on X^T "
+          f"{lib_ms:.4f} ms (bound {bnd[0]:.4f} ms, {bnd[1]}); split route "
+          f"(binning + frombins) {split_ms:.4f} ms  [{smi}]")
+    del XT, grid_n
+
+    os.environ[SPLIT_FLAG] = "1"
+    try:
+        check(ens.serving_route(N_FEATURES, "cuda")[0] == "bins_split",
+              "the flag did not take the split route")
+        torch.cuda.synchronize()
+        for counted in (fe.device_bins_narrow, fe.forest_eval_frombins,
+                        fe.forest_eval_bins):
+            counted.launches = 0
+        scores = ens.eval_matrix(Xh, dev)
+        rc, out = quiet(cli.main, ["-load", paths["model"], "-test",
+                                   paths["data"], "-metric2T", "NDCG@10"])
+        torch.cuda.synchronize()
+        launches = {"bins_only": fe.device_bins_narrow.launches,
+                    "frombins": fe.forest_eval_frombins.launches,
+                    "bins": fe.forest_eval_bins.launches}
+        line = [ln for ln in out.splitlines() if " on test data" in ln]
+        print(f"  eval_matrix and -load -test under the flag: launches "
+              f"{launches}; {line}")
+        check(rc == 0 and line == [f"NDCG@10 on test data: "
+                                   f"{paths['ndcg']:.4f}"],
+              "the CLI's metric under the split route differs")
+        check(launches["bins_only"] > 0 and launches["frombins"] > 0
+              and launches["bins"] == 0,
+              "the split route did not launch the binning and frombins "
+              "kernels")
+        check(np.array_equal(scores, plain_b.cpu().numpy()),
+              "eval_matrix under the split route differs from the plain "
+              "version")
+        e2e = wall_ms(lambda: ens.eval_matrix(Xh, dev), 5)
+        print(f"  eval_matrix wall under the split route {e2e:.3f} ms  "
+              f"[{smi}]")
+    finally:
+        os.environ.pop(SPLIT_FLAG, None)
+    return {"launches": launches["bins_only"], "err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound": bnd,
+            "split_ms": split_ms, "e2e": e2e}
+
+
+def pred_phase(dev, ens, Xd, smi) -> dict:
+    """The predicate epilogue at the serving width: node tests of the f32
+    pack built on the card, uint8 and bf16, against the plain version and
+    the f32 route."""
+    from ranklib_tpu_torch.ops import forest_eval as fe
+
+    fpack = ens.full_pack(N_FEATURES, dev)
+    ops = fpack.matmul_operands()[2:]
+    predT = pred_matrix(fpack, Xd)
+    pred_bf = predT.to(torch.bfloat16)
+    print(f"  node tests [{predT.shape[0]}, {predT.shape[1]}] (uint8 "
+          f"{nbytes(predT) / 2**30:.2f} GiB, bf16 "
+          f"{nbytes(pred_bf) / 2**30:.2f} GiB); tree_chunk "
+          f"{fpack.tree_chunk}, nodes_per_tree {fpack.nodes_per_tree}")
+    torch.cuda.synchronize()
+    fe.forest_eval_pred.launches = 0
+    got = {dt: fe.forest_eval_pred(p, fpack)
+           for dt, p in (("uint8", predT), ("bf16", pred_bf))}
+    torch.cuda.synchronize()
+    launches = fe.forest_eval_pred.launches
+    check(launches == 2, "the predicate epilogue was not launched")
+    plain = fe.forest_eval_pred_plain(predT, *ops,
+                                      tree_chunk=fpack.tree_chunk)
+    full = fe.forest_eval_full(Xd, fpack)
+    torch.cuda.synchronize()
+    for dt, g in got.items():
+        check(torch.equal(g, plain), f"predicate epilogue ({dt}) not "
+                                     f"bit-equal to plain at full width")
+        check(torch.equal(g, full), f"predicate epilogue ({dt}) not "
+                                    f"bit-equal to the f32 route")
+    err = max_err(got["uint8"], plain, "predicate epilogue vs plain")
+    ms = {dt: event_ms(lambda p=p: fe.forest_eval_pred(p, fpack), 10)
+          for dt, p in (("uint8", predT), ("bf16", pred_bf))}
+    plain_ms = event_ms(lambda: fe.forest_eval_pred_plain(
+        predT, *ops, tree_chunk=fpack.tree_chunk), 3)
+    # a multiply-add a nonzero of P−Q and a compare a leaf column, per doc
+    n_ops = Xd.shape[0] * (2 * int(ops[0].count_nonzero()) + ops[1].numel())
+    bnd = {dt: bound(nbytes(p, *ops, got[dt]), n_ops)
+           for dt, p in (("uint8", predT), ("bf16", pred_bf))}
+    print(f"  device time (CUDA events, median): uint8 {ms['uint8']:.4f} ms "
+          f"(bound {bnd['uint8'][0]:.4f}, {bnd['uint8'][1]}), bf16 "
+          f"{ms['bf16']:.4f} ms (bound {bnd['bf16'][0]:.4f}, "
+          f"{bnd['bf16'][1]}); plain {plain_ms:.4f} ms  [{smi}]")
+    del predT, pred_bf
+    torch.cuda.empty_cache()
+    return {"launches": launches, "err": err, "ms": ms["uint8"],
+            "ms_bf16": ms["bf16"], "plain_ms": plain_ms,
+            "bound": bnd["uint8"]}
+
+
+def probe_phase(dev, smi) -> dict:
+    """The compiler probes at the reference's shape, with their counters at
+    0, and the PyTorch call of each product."""
+    from ranklib_tpu_torch.tools import probes as P
+
+    P.dot.launches = P.compare.launches = 0
+    res = P.measure(P.PROBE_K, 3, dev)
+    torch.cuda.synchronize()
+    launches = P.dot.launches + P.compare.launches
+    check(P.dot.launches > 0 and P.compare.launches > 0,
+          "the probes did not launch their kernels")
+    a, b = P.probe_inputs(P.PROBE_K, dev)
+    af, bf = a.float(), b.float()
+    plain_ms = event_ms(lambda: P.dot_plain(a, b), 3)
+    lib = {"int8": event_ms(lambda: torch._int_mm(a, b), 3),
+           "f32": event_ms(lambda: torch.matmul(af, bf), 3)}
+    got = P.dot(a, b)
+    err = float((got - P.dot_plain(a, b)).abs().max())
+    check(err == 0.0 and torch.equal(torch._int_mm(a, b), got),
+          "the int8 probe differs from its plain version or torch._int_mm")
+    ops = 2 * P.PROBE_M * P.PROBE_N * P.PROBE_K
+    out_b = P.PROBE_M * P.PROBE_N * 4
+    bnd = {"int8": bound(nbytes(a, b) + out_b, ops, P.PEAK_OPS["int8"]),
+           "f32": bound(nbytes(af, bf) + out_b, ops, P.PEAK_OPS["f32"])}
+    for v in ("f32", "int8"):
+        r = res[v]
+        print(f"  {v} dot [{P.PROBE_M}, {P.PROBE_K}] x [{P.PROBE_K}, "
+              f"{P.PROBE_N}]: {r['ms']:.4f} ms (one call, median of 3), "
+              f"{r['tops']:.2f} T(fl)op/s = {100 * r['peak_share']:.2f}% of "
+              f"the published {P.PEAK_OPS[v] / 1e12:.0f} T; checksum "
+              f"{r['checksum']}; bound {bnd[v][0]:.4f} ms ({bnd[v][1]}); "
+              f"PyTorch {lib[v]:.4f} ms  [{smi}]")
+    print(f"  int16 compare: result_sum {res['compare']['sum']:.0f}, "
+          f"{res['compare']['ms']:.4f} ms; plain (float64 product) "
+          f"{plain_ms:.4f} ms; launches {launches}")
+    check(res["compare"]["sum"] == 438.0, "the compare probe's sum moved")
+    del a, b, af, bf
+    return {"launches": launches, "err": err, "ms": res["int8"]["ms"],
+            "plain_ms": plain_ms, "library_ms": lib["int8"],
+            "bound": bnd["int8"]}
+
+
 def write_letor(path, X, labels, qptr):
     with open(path, "w") as f:
         for q in range(len(qptr) - 1):
@@ -1165,6 +1708,10 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    # the default routes first: the opt-in flags are set only by the phases
+    # that drive their routes
+    for flag in (FUSED_FLAG, SPLIT_FLAG):
+        os.environ.pop(flag, None)
 
     print("== phase 1: environment and build")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -1189,6 +1736,8 @@ def main() -> int:
                               RF_BAGS, dev)
     hist_multi_small_checks(dev, group)
     full_small_checks(dev)
+    lambda_small_checks(dev)
+    probe_small_checks(dev)
 
     print("== phase 3: main path at full width "
           f"({N_TREES} trees x {N_LEAVES} leaves, {N_FEATURES} features, "
@@ -1219,6 +1768,7 @@ def main() -> int:
 
     fe.forest_eval_frombins.launches = 0
     fe.forest_eval_bins.launches = 0
+    fe.device_bins_narrow.launches = 0
     scores_host = ens.eval_matrix(Xh, dev)
     route, _ = ens._device_eval_fn(N_FEATURES, dev)
     scores_dev = route(Xd)
@@ -1239,6 +1789,8 @@ def main() -> int:
           "a kernel of the main path was never launched")
     check(launches["forest_eval_frombins"] > after_eval,
           "the CLI flows did not launch the frombins kernel")
+    check(fe.device_bins_narrow.launches == 0,
+          "the default serving route launched the split route's binning")
 
     print("== phase 4: full-width checks and times")
     ids = fe.device_bins(Xd, pack.grid, pack.n_grid).to(torch.uint8)
@@ -1307,6 +1859,17 @@ def main() -> int:
     print(f"  wall time (median, synchronised): eval_matrix host-binned "
           f"route {e2e_host:.3f} ms; device-resident route {e2e_dev:.3f} "
           f"ms; plain version {e2e_plain:.3f} ms  [{smi}]")
+    # bounds: the ids or features, the scores and the node records read
+    # once; one compare a node visited and one add a tree (plus the bins
+    # kernel's binary search a value)
+    walk = walk_ops(ens, Xd)
+    steps = int(np.ceil(np.log2(pack.n_grid + 1)))
+    bound_fb = bound(nbytes(binsT, plain_fb) + pack_bytes(pack), walk)
+    bound_b = bound(nbytes(Xd, pack.grid, plain_b) + pack_bytes(pack),
+                    walk + Xd.numel() * steps)
+    print(f"  bounds: frombins {bound_fb[0]:.4f} ms ({bound_fb[1]}), bins "
+          f"{bound_b[0]:.4f} ms ({bound_b[1]}); {walk} operations of the "
+          f"walk")
 
     print("== phase 5: training path at full width "
           f"({FIT_QUERIES} queries x {N_FEATURES} features, LambdaMART "
@@ -1319,7 +1882,11 @@ def main() -> int:
     print("== phase 7: training CLI")
     training_cli(tmp)
 
-    print("== phase 8: training kernels vs plain at full width, times")
+    # before any profiled phase: rounds timed as fit A's were
+    print(f"== phase 8: fused lambdas at the training shape ({FUSED_FLAG}=1)")
+    fused = fused_lambda_phase(dev, fit, tmp, smi)
+
+    print("== phase 9: training kernels vs plain at full width, times")
     hists, scans = training_kernel_times(fit)
     print("  one round's parts at full width (wall ms, median):")
     round_breakdown(fit, dev)
@@ -1327,7 +1894,7 @@ def main() -> int:
           f"{fit['ms_b']:.3f} ms; peak device memory over fit A "
           f"{fit['peak'] / 2**20:.1f} MiB  [{smi}]")
 
-    print(f"== phase 9: Random Forests at the training width ({RF_BAGS} "
+    print(f"== phase 10: Random Forests at the training width ({RF_BAGS} "
           f"bags x {RF_LEAVES} leaves, {FIT_QUERIES} queries x {N_FEATURES} "
           f"features)")
     rf = rf_training_phase(dev, fit["train"], group)
@@ -1338,47 +1905,76 @@ def main() -> int:
     print(f"  RF fit {rf['wall']:.3f} s, peak {rf['peak'] / 2**30:.2f} GiB  "
           f"[{smi}]")
 
-    print("== phase 10: the f32 forest route at full width "
+    print("== phase 11: the f32 forest route at full width "
           f"({N_TREES} trees x {N_LEAVES} leaves, {N_FEATURES} features, "
           f"{N_DOCS} docs)")
     full = full_route_phase(dev, Xh, Xd)
 
-    print("== phase 11: Random Forests and -combine CLI")
+    print("== phase 12: Random Forests and -combine CLI")
     full_launches = rf_cli(tmp)
+
+    print(f"== phase 13: split serving at full width ({SPLIT_FLAG}=1)")
+    split = split_serving_phase(
+        dev, ens, pack, Xh, Xd, plain_b,
+        {"model": model_path, "data": data_path, "ndcg": ndcg}, smi)
+
+    print("== phase 14: the predicate epilogue at full width")
+    pred = pred_phase(dev, ens, Xd, smi)
+
+    print("== phase 15: compiler probes")
+    probe = probe_phase(dev, smi)
     tmpdir.cleanup()
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
+              library_ms):
+        return {"name": name, "route": "cuda",
+                "source": f"ranklib_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms}
+
     kernels = [
-        {"name": "forest_eval_frombins", "route": "cuda", "source": SOURCE,
-         "replaces": "ranklib_tpu/ops/forest_eval.py:524",
-         "launches": launches["forest_eval_frombins"],
-         "max_abs_err": err_fb, "ms": ms_fb, "plain_ms": plain_ms_fb},
-        {"name": "forest_eval_bins", "route": "cuda", "source": SOURCE,
-         "replaces": "ranklib_tpu/ops/forest_eval.py:269",
-         "launches": launches["forest_eval_bins"],
-         "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_ms_b},
-        {"name": "histogram", "route": "cuda",
-         "source": "ranklib_tpu_torch/csrc/histogram.cu",
-         "replaces": "ranklib_tpu/ops/histogram.py:185",
-         "launches": fit["launches"]["histogram"],
-         "max_abs_err": hists["root"][1], "ms": hists["root"][2],
-         "plain_ms": hists["root"][3]},
-        {"name": "split_scan", "route": "cuda",
-         "source": "ranklib_tpu_torch/csrc/split_scan.cu",
-         "replaces": "ranklib_tpu/ops/split_scan.py:43",
-         "launches": fit["launches"]["split_scan"],
-         "max_abs_err": scans[2][0], "ms": scans[2][1],
-         "plain_ms": scans[2][2]},
-        {"name": "histogram_multi", "route": "cuda",
-         "source": "ranklib_tpu_torch/csrc/histogram_multi.cu",
-         "replaces": "ranklib_tpu/ops/histogram.py:51",
-         "launches": rf["launches"]["histogram_multi"],
-         "max_abs_err": rf_hists["root"][0], "ms": rf_hists["root"][1],
-         "plain_ms": rf_hists["root"][2]},
-        {"name": "forest_eval_full", "route": "cuda", "source": SOURCE,
-         "replaces": "ranklib_tpu/ops/forest_eval.py:53",
-         "launches": full_launches, "max_abs_err": full["err"],
-         "ms": full["ms"], "plain_ms": full["plain_ms"]},
+        entry("forest_eval_frombins", "forest_eval.cu",
+              "ranklib_tpu/ops/forest_eval.py:524",
+              launches["forest_eval_frombins"], err_fb, ms_fb, plain_ms_fb,
+              bound_fb, None),
+        entry("forest_eval_bins", "forest_eval.cu",
+              "ranklib_tpu/ops/forest_eval.py:269",
+              launches["forest_eval_bins"], err_b, ms_b, plain_ms_b, bound_b,
+              None),
+        entry("histogram", "histogram.cu", "ranklib_tpu/ops/histogram.py:185",
+              fit["launches"]["histogram"], hists["root"][1],
+              hists["root"][2], hists["root"][3], hists["root_bound"],
+              hists["root_library"]),
+        entry("split_scan", "split_scan.cu",
+              "ranklib_tpu/ops/split_scan.py:43",
+              fit["launches"]["split_scan"], scans[2][0], scans[2][1],
+              scans[2][2], scans["bound"], None),
+        entry("histogram_multi", "histogram_multi.cu",
+              "ranklib_tpu/ops/histogram.py:51",
+              rf["launches"]["histogram_multi"], rf_hists["root"][0],
+              rf_hists["root"][1], rf_hists["root"][2],
+              rf_hists["root_bound"], rf_hists["root_library"]),
+        entry("forest_eval_full", "forest_eval.cu",
+              "ranklib_tpu/ops/forest_eval.py:53", full_launches,
+              full["err"], full["ms"], full["plain_ms"], full["bound"], None),
+        entry("lambda_pairs", "lambda_pairs.cu",
+              "ranklib_tpu/ops/lambda_kernel.py:47", fused["launches"],
+              fused["err"], fused["ms"], fused["plain_ms"], fused["bound"],
+              None),
+        entry("bins_only", "forest_eval.cu",
+              "ranklib_tpu/ops/forest_eval.py:384", split["launches"],
+              split["err"], split["ms"], split["plain_ms"], split["bound"],
+              split["library_ms"]),
+        entry("pred_epilogue", "forest_eval.cu",
+              "ranklib_tpu/ops/forest_eval.py:606", pred["launches"],
+              pred["err"], pred["ms"], pred["plain_ms"], pred["bound"],
+              None),
+        entry("probes", "probes.cu", "tools/exp_int8_dot_probe.py:68",
+              probe["launches"], probe["err"], probe["ms"], probe["plain_ms"],
+              probe["bound"], probe["library_ms"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,7 +1,10 @@
 // Forest evaluation for Hopper (sm_90a): the CUDA counterparts of
 // ranklib_tpu/ops/forest_eval.py _forest_frombins_kernel (host-binned ids),
-// _forest_bins_kernel (ids binned here from f32 features) and
-// _forest_full3_kernel / _forest_full_kernel (the f32 route).
+// _forest_bins_kernel (ids binned here from f32 features),
+// _forest_full3_kernel / _forest_full_kernel (the f32 route),
+// _bins_only_kernel (the split route's binning pass; its selection half,
+// _forest_bins_split_kernel, is frombins_kernel on the ids written here) and
+// _forest_kernel (the predicate-matrix epilogue).
 //
 // What they compute (the same as the TPU kernels): the score of a document
 // is the sum over trees of w * the output of the leaf it reaches. In bin
@@ -36,6 +39,21 @@
 // entries. The f32 route stages f32 values the same way up to a 48 KB
 // budget (every feature at 136 features); features past it are read from
 // the document's row in global memory, so any width runs.
+//
+// The split route's binning pass (bins_only_kernel) transposes X [N, F]
+// through a 32 x 32 shared-memory tile, so both its f32 reads and its id
+// writes ([F, N], uint8 or int16) are coalesced; it is bound by those bytes.
+//
+// The predicate epilogue (pred_epilogue_kernel) takes the reference's
+// matmul layout as it is: 0/1 node tests predT [nch * TCM, N], P - Q
+// blocks, csQ, plen, w * output. One thread per document counts, for each
+// leaf of each tree, its path agreements hits = sum_m pred * (P - Q)
+// (small integers, exact in f32) and takes the output of the leaf whose
+// hits == plen - csQ. It reads only the tree's own [M, L] block of the
+// block-diagonal P - Q (one block per tree, M nodes, L leaves) and skips its
+// zero entries (a warp-uniform branch), so the work is the path lengths,
+// not TCM x TCL; the dominant cost is reading predT once (1 or 2 bytes a
+// node test and document).
 
 #include <cuda_runtime.h>
 
@@ -170,6 +188,89 @@ __global__ void full_kernel(const float* __restrict__ X, int64_t n_docs,
       forest);
 }
 
+// Split route, binning pass: ids[f, doc] = bin_of(x[doc, f]) through a
+// kTransposeTile^2 tile (read along features, written along documents).
+constexpr int kTransposeTile = 32;
+constexpr int kTransposeRows = 8;
+
+template <typename IdT>
+__global__ void bins_only_kernel(const float* __restrict__ X, int64_t n_docs,
+                                 int n_features,
+                                 const float* __restrict__ grid,
+                                 int grid_stride, int n_grid,
+                                 IdT* __restrict__ ids) {
+  __shared__ float tile[kTransposeTile][kTransposeTile + 1];
+  const int64_t doc0 = static_cast<int64_t>(blockIdx.x) * kTransposeTile;
+  const int f0 = blockIdx.y * kTransposeTile;
+  for (int j = threadIdx.y; j < kTransposeTile; j += kTransposeRows) {
+    const int64_t doc = doc0 + j;
+    const int f = f0 + threadIdx.x;
+    tile[j][threadIdx.x] =
+        doc < n_docs && f < n_features ? X[doc * n_features + f] : 0.0f;
+  }
+  __syncthreads();
+  const int64_t doc = doc0 + threadIdx.x;
+  for (int i = threadIdx.y; i < kTransposeTile; i += kTransposeRows) {
+    const int f = f0 + i;
+    if (f < n_features && doc < n_docs) {
+      ids[static_cast<int64_t>(f) * n_docs + doc] = static_cast<IdT>(
+          bin_of(grid + static_cast<int64_t>(f) * grid_stride, n_grid,
+                 tile[threadIdx.x][i], n_grid));
+    }
+  }
+}
+
+// A 0/1 node test as f32: uint8, or bf16 passed as its raw 16 bits.
+__device__ __forceinline__ float pred_value(uint8_t v) {
+  return static_cast<float>(v);
+}
+__device__ __forceinline__ float pred_value(uint16_t bf16_bits) {
+  return __uint_as_float(static_cast<unsigned>(bf16_bits) << 16);
+}
+
+// Predicate epilogue: chunks in order, one f32 partial a chunk; in a chunk,
+// trees in order, each adding the output of the leaf its path reaches.
+template <typename PredT>
+__global__ void pred_epilogue_kernel(const PredT* __restrict__ predT,
+                                     int64_t n_docs, int n_chunks, int tcm,
+                                     int tcl, int tree_chunk, int m_per_tree,
+                                     const float* __restrict__ pmq,
+                                     const float* __restrict__ csq,
+                                     const float* __restrict__ plen,
+                                     const float* __restrict__ outw,
+                                     float* __restrict__ out) {
+  const int64_t doc = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (doc >= n_docs) return;
+  const int n_leaves = tcl / tree_chunk;
+  float score = 0.0f;
+  for (int c = 0; c < n_chunks; ++c) {
+    const PredT* pred = predT + static_cast<int64_t>(c) * tcm * n_docs + doc;
+    const float* pm = pmq + static_cast<int64_t>(c) * tcm * tcl;
+    const int aux = c * tcl;
+    float partial = 0.0f;
+    for (int j = 0; j < tree_chunk; ++j) {
+      float leaf = 0.0f;
+      for (int l = 0; l < n_leaves; ++l) {
+        const int col = j * n_leaves + l;
+        float hits = 0.0f;
+        for (int m = 0; m < m_per_tree; ++m) {
+          const int r = j * m_per_tree + m;
+          const float w = __ldg(pm + static_cast<int64_t>(r) * tcl + col);
+          if (w != 0.0f) hits += w * pred_value(pred[static_cast<int64_t>(r) *
+                                                     n_docs]);
+        }
+        if (hits == __ldg(plen + aux + col) - __ldg(csq + aux + col)) {
+          leaf += __ldg(outw + aux + col);
+        }
+      }
+      partial += leaf;
+    }
+    score += partial;
+  }
+  out[doc] = score;
+}
+
 // Docs per block: 128, halved while the staged bins exceed the default
 // 48 KB; past that (very wide inputs) the block asks for up to 227 KB.
 int docs_per_block(int n_features, size_t* smem) {
@@ -213,6 +314,38 @@ int launch_frombins(const void* binsT, int64_t n_docs, int n_features,
       static_cast<const BinT*>(binsT), n_docs, n_features,
       make_forest(nodes, values, roots, n_trees, max_depth, tree_chunk),
       static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename IdT>
+int launch_bins_only(const void* X, int64_t n_docs, int n_features,
+                     const void* grid, int grid_stride, int n_grid, void* ids,
+                     void* stream) {
+  const dim3 blocks(
+      static_cast<unsigned>((n_docs + kTransposeTile - 1) / kTransposeTile),
+      static_cast<unsigned>((n_features + kTransposeTile - 1) /
+                            kTransposeTile));
+  bins_only_kernel<IdT><<<blocks, dim3(kTransposeTile, kTransposeRows), 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(X), n_docs, n_features,
+      static_cast<const float*>(grid), grid_stride, n_grid,
+      static_cast<IdT*>(ids));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename PredT>
+int launch_pred(const void* predT, int64_t n_docs, int n_chunks, int tcm,
+                int tcl, int tree_chunk, int m_per_tree, const void* pmq,
+                const void* csq, const void* plen, const void* outw, void* out,
+                void* stream) {
+  const unsigned blocks =
+      static_cast<unsigned>((n_docs + kMaxDocsPerBlock - 1) / kMaxDocsPerBlock);
+  pred_epilogue_kernel<PredT><<<blocks, kMaxDocsPerBlock, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const PredT*>(predT), n_docs, n_chunks, tcm, tcl,
+      tree_chunk, m_per_tree, static_cast<const float*>(pmq),
+      static_cast<const float*>(csq), static_cast<const float*>(plen),
+      static_cast<const float*>(outw), static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -283,4 +416,45 @@ extern "C" int forest_eval_full(const void* X, int64_t n_docs, int n_features,
       make_forest(nodes, values, roots, n_trees, max_depth, tree_chunk),
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Split route, binning pass: X [n_docs, n_features] f32 row-major -> ids
+// [n_features, n_docs] (uint8 when every id is below 256, else int16).
+extern "C" int forest_bins_only_u8(const void* X, int64_t n_docs,
+                                   int n_features, const void* grid,
+                                   int grid_stride, int n_grid, void* ids,
+                                   void* stream) {
+  return launch_bins_only<uint8_t>(X, n_docs, n_features, grid, grid_stride,
+                                   n_grid, ids, stream);
+}
+
+extern "C" int forest_bins_only_i16(const void* X, int64_t n_docs,
+                                    int n_features, const void* grid,
+                                    int grid_stride, int n_grid, void* ids,
+                                    void* stream) {
+  return launch_bins_only<int16_t>(X, n_docs, n_features, grid, grid_stride,
+                                   n_grid, ids, stream);
+}
+
+// Predicate epilogue: predT [n_chunks * tcm, n_docs] 0/1 (uint8, or bf16
+// bits), pmq [n_chunks, tcm, tcl] f32 block-diagonal (one [m_per_tree,
+// tcl / tree_chunk] block a tree), csq / plen / outw [n_chunks, tcl] f32.
+extern "C" int forest_eval_pred_u8(const void* predT, int64_t n_docs,
+                                   int n_chunks, int tcm, int tcl,
+                                   int tree_chunk, int m_per_tree,
+                                   const void* pmq, const void* csq,
+                                   const void* plen, const void* outw,
+                                   void* out, void* stream) {
+  return launch_pred<uint8_t>(predT, n_docs, n_chunks, tcm, tcl, tree_chunk,
+                              m_per_tree, pmq, csq, plen, outw, out, stream);
+}
+
+extern "C" int forest_eval_pred_bf16(const void* predT, int64_t n_docs,
+                                     int n_chunks, int tcm, int tcl,
+                                     int tree_chunk, int m_per_tree,
+                                     const void* pmq, const void* csq,
+                                     const void* plen, const void* outw,
+                                     void* out, void* stream) {
+  return launch_pred<uint16_t>(predT, n_docs, n_chunks, tcm, tcl, tree_chunk,
+                               m_per_tree, pmq, csq, plen, outw, out, stream);
 }

@@ -1,4 +1,5 @@
-"""Device choice for the CLI (the counterpart of ranklib_tpu.cli._ensure_backend).
+"""Device choice for the CLI and the models' ``fit`` (the counterpart of
+ranklib_tpu.cli._ensure_backend).
 
 ``RANKLIB_TPU_TORCH_DEVICE`` forces a device (``cpu``, ``cuda``,
 ``cuda:1``); otherwise the first CUDA device when one is available, else
@@ -18,7 +19,9 @@ from ranklib_tpu_torch.utils.logging import log
 DEVICE_ENV = "RANKLIB_TPU_TORCH_DEVICE"
 
 
-def choose_device() -> torch.device:
+def choose_device(*, quiet: bool = False) -> torch.device:
+    """The one device rule of the port, for the CLI and for entry points
+    called without a device; ``quiet`` leaves out the log line."""
     forced = os.environ.get(DEVICE_ENV)
     if forced:
         try:
@@ -39,7 +42,8 @@ def choose_device() -> torch.device:
         if dev.index >= torch.cuda.device_count():
             raise RankLibError(f"no CUDA device {dev.index} "
                                f"({torch.cuda.device_count()} available)")
-        log(f"Device: {dev} ({torch.cuda.get_device_name(dev)})")
-    else:
+        if not quiet:
+            log(f"Device: {dev} ({torch.cuda.get_device_name(dev)})")
+    elif not quiet:
         log("Device: cpu")
     return dev

@@ -169,9 +169,10 @@ def make_round_step(scorer, *, n_bins: int, n_leaves: int,
                     n_vqueries: int, train_metric: bool = True):
     """The round: ``step(state, t, data) → state``. ``train_metric=False``
     skips the per-round train metric, which only feeds the console
-    table. Lambda routing as the reference's (boost.py:223-235) without
-    the opt-in fused kernel: sort-free for NDCG/DCG/P, ERR and MAP,
-    sorted for RR and BEST."""
+    table. Lambda routing as the reference's (boost.py:223-235, see
+    :func:`lambda_fn`): the fused kernel under ``RANKLIB_TPU_FUSED_LAMBDA=1``
+    for NDCG/DCG/P, else sort-free for NDCG/DCG/P, ERR and MAP, sorted for
+    RR and BEST."""
     M = 2 * n_leaves - 1
     lr = learning_rate
     lam_fn = lambda_fn(scorer)

@@ -19,7 +19,11 @@ Serving routes (:meth:`TreeEnsemble.eval_matrix`), chosen by
   the device inside :func:`forest_eval_bins`;
 * f32 — :func:`forest_eval_full`, the test ``x <= threshold`` itself, for
   models the bin-space kernels do not take (more than 256 thresholds on a
-  feature, or more than ``MAX_FEATURES`` columns).
+  feature, or more than ``MAX_FEATURES`` columns);
+* split — with ``RANKLIB_TPU_SERVE_SPLIT=1`` (the reference's opt-in) and a
+  model the bin-space kernels take, :func:`forest_eval_bins_split`: a
+  device binning pass writes the ids, the frombins kernel scores them. The
+  flag wins over the host-binned route in :meth:`TreeEnsemble.eval_matrix`.
 
 Each route runs its CUDA kernel on the card and its plain version on the
 CPU.
@@ -28,6 +32,7 @@ CPU.
 from __future__ import annotations
 
 import functools
+import os
 import xml.etree.ElementTree as ET
 
 import numpy as np
@@ -35,9 +40,12 @@ import torch
 
 from ranklib_tpu_torch.ops.forest_eval import (
     MAX_FEATURES, MAX_GRID, ForestPack, FullPack, forest_eval_bins,
-    forest_eval_frombins, forest_eval_full,
+    forest_eval_bins_split, forest_eval_frombins, forest_eval_full,
 )
 from ranklib_tpu_torch.utils.errors import RankLibError
+
+# the reference's opt-in for the split bin-space route
+SERVE_SPLIT_ENV = "RANKLIB_TPU_SERVE_SPLIT"
 
 
 class Tree:
@@ -115,6 +123,11 @@ class TreeEnsemble:
 
     # ---- packs (host numpy) ------------------------------------------------
 
+    def _nodes_per_tree(self) -> int:
+        """M of the matmul packs: the most internal nodes of any tree (at
+        least 1), the P−Q rows each tree owns in a chunk."""
+        return int(max(max((~t.is_leaf).sum(), 1) for t in self.trees))
+
     def _pack_matmul(self, n_features: int):
         """(fid_full, thr_full, PmQc, csQc, plenc, outwc): the reference's
         matmul-path pack (ref ``_pack_matmul``, :157), bit-identical. Per
@@ -124,7 +137,7 @@ class TreeEnsemble:
         thr 0, zero P/Q rows)."""
         key = ("mm", n_features)
         if self._mm is None or self._mm[0] != key:
-            M = max(max((~t.is_leaf).sum(), 1) for t in self.trees)
+            M = self._nodes_per_tree()
             L = max(t.is_leaf.sum() for t in self.trees)
             TC = self._TREE_CHUNK
             Tp = ((len(self.trees) + TC - 1) // TC) * TC
@@ -315,7 +328,9 @@ class TreeEnsemble:
             dev = functools.partial(_upload, device=device)
             self._dev_packs[key] = ForestPack(
                 n_features=n_features, n_grid=int(n_grid),
-                tree_chunk=self._TREE_CHUNK, max_depth=int(max_depth),
+                tree_chunk=self._TREE_CHUNK,
+                nodes_per_tree=self._nodes_per_tree(),
+                max_depth=int(max_depth),
                 grid=dev(grid), fid_full=dev(fid_full),
                 nodebin_full=dev(nodebin), PmQc=dev(PmQc), csQc=dev(csQc),
                 plenc=dev(plenc), outwc=dev(outwc), nodes=dev(nodes),
@@ -334,6 +349,7 @@ class TreeEnsemble:
                                                               f32=True)
             self._dev_packs[key] = FullPack(
                 n_features=n_features, tree_chunk=self._TREE_CHUNK,
+                nodes_per_tree=self._nodes_per_tree(),
                 max_depth=int(max_depth), fid_full=dev(fid_full),
                 thr_full=dev(thr_full), PmQc=dev(PmQc), csQc=dev(csQc),
                 plenc=dev(plenc), outwc=dev(outwc), nodes=dev(nodes),
@@ -343,13 +359,16 @@ class TreeEnsemble:
     def serving_route(self, n_features: int, device_type: str):
         """(route, docs per call) of the device-resident route for this
         model, input width and device type: ``"bins"`` when the bin-space
-        kernels take the model (:meth:`_use_bins_kernel`), else ``"f32"``
-        (ref ``_device_eval_fn``, :425, whose TPU gates the port drops).
-        A route runs its kernel on CUDA and its plain version on the CPU;
-        only the plain f32 version, which materializes a predicate block
-        per tree chunk, takes smaller calls."""
+        kernels take the model (:meth:`_use_bins_kernel`) — ``"bins_split"``
+        instead under ``RANKLIB_TPU_SERVE_SPLIT=1`` (ref ``_device_eval_fn``
+        :434-445) — else ``"f32"`` (ref ``_device_eval_fn``, :425, whose TPU
+        gates the port drops). A route runs its kernels on CUDA and its
+        plain versions on the CPU; only the plain f32 version, which
+        materializes a predicate block per tree chunk, takes smaller
+        calls."""
         if self._use_bins_kernel(n_features):
-            return "bins", self._KERNEL_CHUNK
+            split = os.environ.get(SERVE_SPLIT_ENV) == "1"
+            return ("bins_split" if split else "bins"), self._KERNEL_CHUNK
         return "f32", (self._EVAL_CHUNK if device_type == "cpu"
                        else self._KERNEL_CHUNK)
 
@@ -357,9 +376,11 @@ class TreeEnsemble:
         """(fn, chunk): fn maps a ``device``-resident [n, F] f32 tensor to
         scores [n] on the device, through :meth:`serving_route`."""
         route, chunk = self.serving_route(n_features, device.type)
-        if route == "bins":
+        if route in ("bins", "bins_split"):
             pack = self.forest_pack(n_features, device)
-            return (lambda X: forest_eval_bins(X, pack)), chunk
+            fn = (forest_eval_bins if route == "bins"
+                  else forest_eval_bins_split)
+            return (lambda X: fn(X, pack)), chunk
         pack = self.full_pack(n_features, device)
         return (lambda X: forest_eval_full(X, pack)), chunk
 
@@ -367,12 +388,14 @@ class TreeEnsemble:
                     device: torch.device) -> np.ndarray:
         """feats [N, F] → scores [N] f32 = Σ_t w_t · tree_t(x), computed on
         ``device``: the host-binned route when the bin-space kernels take
-        the model, else the f32 route on uploaded features."""
+        the model, else the device route of :meth:`serving_route` on
+        uploaded features. ``RANKLIB_TPU_SERVE_SPLIT=1`` wins over the
+        host-binned route (ref :468-475), so the split route is what runs."""
         feats = np.asarray(feats, np.float32)
         N, F = feats.shape
         if not self.trees or N == 0:
             return np.zeros(N, np.float32)
-        if self._use_bins_kernel(F):
+        if self.serving_route(F, device.type)[0] == "bins":
             return self._eval_matrix_hostbin(feats, device)
         fn, C = self._device_eval_fn(F, device)
         parts = [fn(torch.from_numpy(np.ascontiguousarray(feats[lo:lo + C]))

@@ -23,10 +23,9 @@ from __future__ import annotations
 import torch
 
 from ranklib_tpu_torch.metrics import scorers as S
-
-# metrics whose |Δ| factors as |A_i − A_j|·|B_i − B_j| (the sort-free
-# path's per-fit scale; ref ops/lambda_kernel.py:92)
-SEPARABLE_METRICS = ("NDCG", "DCG", "P")
+from ranklib_tpu_torch.ops.lambda_kernel import (
+    SEPARABLE_METRICS, lambda_weights_fused, supports_fused,
+)
 
 
 def lambda_weights(scorer, labels, scores, mask):
@@ -215,9 +214,13 @@ def lambda_weights_nosort(scorer, labels, scores, mask, scale):
 
 def lambda_fn(scorer):
     """The round's lambda path (ref ``make_round_step`` routing,
-    gbdt/boost.py:223-235, without the fused kernel): sort-free for
-    NDCG/DCG/P (needs the per-fit scale), ERR and MAP; sorted otherwise.
+    gbdt/boost.py:223-235): the fused kernel when :func:`supports_fused`
+    (opt-in, NDCG/DCG/P; it ignores the per-fit scale), else sort-free for
+    NDCG/DCG/P (needs the per-fit scale), ERR and MAP, else sorted.
     Returns ``fn(labels, scores, mask, scale)``."""
+    if supports_fused(scorer):
+        return lambda lab, sc, msk, scl: lambda_weights_fused(
+            scorer, lab, sc, msk)
     if scorer.metric in SEPARABLE_METRICS:
         return lambda lab, sc, msk, scl: lambda_weights_nosort(
             scorer, lab, sc, msk, scl)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ranklib_tpu_torch.data.dataset import Dataset, flatten
+from ranklib_tpu_torch.device import choose_device
 from ranklib_tpu_torch.gbdt.binning import bin_features, compute_thresholds
 from ranklib_tpu_torch.gbdt.boost import (
     init_state, make_boost_data, make_round_step,
@@ -59,8 +60,9 @@ class LambdaMART(Ranker):
 
     def fit(self, train: Dataset, scorer, validation: Dataset | None = None,
             device: torch.device | None = None) -> None:
-        """Train on ``device`` (default: the CPU)."""
-        device = torch.device("cpu") if device is None else device
+        """Train on ``device`` (default: :func:`choose_device`'s, as the
+        CLI picks it)."""
+        device = choose_device(quiet=True) if device is None else device
         step, state, data, thresholds = self.prepare_fit(
             train, scorer, validation, device)
         log("Training starts...")

@@ -33,6 +33,7 @@ import torch
 
 from ranklib_tpu_torch.data.dataset import Dataset, flatten
 from ranklib_tpu_torch.data.sampling import sample_features, sample_queries
+from ranklib_tpu_torch.device import choose_device
 from ranklib_tpu_torch.gbdt.boost import (
     init_state, make_boost_data, make_round_step, upload_bins,
 )
@@ -134,9 +135,9 @@ class RFRanker(Ranker):
 
     def fit(self, train: Dataset, scorer, validation: Dataset | None = None,
             device: torch.device | None = None) -> None:
-        """Train on ``device`` (default: the CPU). ``validation`` is
-        ignored, as in the reference."""
-        device = torch.device("cpu") if device is None else device
+        """Train on ``device`` (default: :func:`choose_device`'s, as the
+        CLI picks it). ``validation`` is ignored, as in the reference."""
+        device = choose_device(quiet=True) if device is None else device
         if self.ranker_type == 0:
             return self._fit_bags_batched(train, scorer, device)
         rng = np.random.default_rng(self.seed)

@@ -14,6 +14,16 @@ Kernels (``csrc/forest_eval.cu``, built for ``sm_90a`` by ``ops._build``):
   ``X [N, F]`` f32 by the f32 test ``x <= threshold`` itself, for models
   the bin-space kernels do not take (more than ``MAX_GRID`` thresholds on
   a feature, or more than ``MAX_FEATURES`` columns).
+* :func:`device_bins_narrow` replaces ``_bins_only_kernel`` (wrapper
+  ``forest_eval_pallas_bins_split``): bins ``X [N, F]`` into uint8/int16
+  ids ``[F, N]`` on the device. :func:`forest_eval_bins_split` is that pass
+  then :func:`forest_eval_frombins` on the ids it wrote — the split route
+  (``RANKLIB_TPU_SERVE_SPLIT=1``), whose selection half
+  ``_forest_bins_split_kernel`` computes what the frombins kernel does.
+* :func:`forest_eval_pred` replaces ``_forest_kernel`` (wrapper
+  ``forest_eval_pallas``): folds precomputed 0/1 node tests ``predT`` into
+  leaf sums through the P−Q path blocks. Like the reference's, it is a
+  public function that no serving route calls.
 
 The bin-space kernels route a document left iff ``bin <= nodebin``, the
 f32 kernel iff ``x <= t`` (NaN goes right); all sum ``w·leaf``. The TPU
@@ -63,14 +73,16 @@ class ForestPack:
     The reference's ``_pack_matmul_bins`` layout feeds the plain versions:
     ``grid [F, Bm]`` f32 (+inf padded), ``fid_full``/``nodebin_full``
     ``[nch·TCM]``, ``PmQc [nch, TCM, TCL]``, ``csQc``/``plenc``/``outwc``
-    ``[nch, TCL]`` with TCL = tree_chunk·L. The traversal layout feeds the
-    kernels: ``nodes [S, 4]`` int32 (feature or −1 at a leaf, node bin,
+    ``[nch, TCL]`` with TCL = tree_chunk·L; tree j of a chunk owns P−Q rows
+    ``j·M .. (j+1)·M`` (M = ``nodes_per_tree``). The traversal layout feeds
+    the kernels: ``nodes [S, 4]`` int32 (feature or −1 at a leaf, node bin,
     left, right — absolute slot indices), ``values [S]`` f32 (w·output at
     leaves, 0 elsewhere), ``roots [T]`` int32."""
 
     n_features: int
     n_grid: int
     tree_chunk: int
+    nodes_per_tree: int
     max_depth: int
     grid: torch.Tensor
     fid_full: torch.Tensor
@@ -98,12 +110,14 @@ class FullPack:
     """One model's device operands for the f32 route, built by
     ``TreeEnsemble.full_pack``: the reference's ``_pack_matmul`` layout
     (``fid_full``/``thr_full`` [nch·TCM], ``PmQc``, ``csQc``, ``plenc``,
-    ``outwc``) for the plain version, and traversal records for the
-    kernel: ``nodes [S, 4]`` int32 (feature or −1, the threshold's f32
-    bits, left, right), ``values [S]``, ``roots [T]``."""
+    ``outwc``; M = ``nodes_per_tree`` P−Q rows a tree) for the plain
+    version, and traversal records for the kernel: ``nodes [S, 4]`` int32
+    (feature or −1, the threshold's f32 bits, left, right), ``values [S]``,
+    ``roots [T]``."""
 
     n_features: int
     tree_chunk: int
+    nodes_per_tree: int
     max_depth: int
     fid_full: torch.Tensor
     thr_full: torch.Tensor
@@ -200,6 +214,21 @@ def forest_eval_full_plain(X, fid_full, thr_full, PmQc, csQc, plenc, outwc,
     return score
 
 
+def forest_eval_pred_plain(predT, PmQc, csQc, plenc, outwc, *,
+                           tree_chunk: int):
+    """Plain version of :func:`forest_eval_pred` (ref ``forest_eval_pallas``
+    on the same operands): :func:`_chunk_leaf_sum` of each chunk's rows of
+    ``predT`` (any 0/1 type), added in chunk order."""
+    nch, TCM, _ = PmQc.shape
+    score = torch.zeros(predT.shape[1], dtype=torch.float32,
+                        device=predT.device)
+    for c in range(nch):
+        pred = predT[c * TCM:(c + 1) * TCM].to(torch.float32)
+        score = score + _chunk_leaf_sum(pred, PmQc[c], plenc[c] - csQc[c],
+                                        outwc[c], tree_chunk)
+    return score
+
+
 def device_bins(X: torch.Tensor, grid: torch.Tensor,
                 n_grid: int) -> torch.Tensor:
     """``X [N, F]`` f32 → int32 ids ``[F, N]``: ``#{grid_f < x}`` over the
@@ -238,6 +267,13 @@ def _kernels() -> ctypes.CDLL:
     lib.forest_eval_bins.restype = _int
     lib.forest_eval_full.argtypes = [_vp, _i64, _int, *walk]
     lib.forest_eval_full.restype = _int
+    for fn in (lib.forest_bins_only_u8, lib.forest_bins_only_i16):
+        fn.argtypes = [_vp, _i64, _int, _vp, _int, _int, _vp, _vp]
+        fn.restype = _int
+    for fn in (lib.forest_eval_pred_u8, lib.forest_eval_pred_bf16):
+        fn.argtypes = [_vp, _i64, _int, _int, _int, _int, _int, _vp, _vp,
+                       _vp, _vp, _vp, _vp]
+        fn.restype = _int
     return lib
 
 
@@ -351,3 +387,109 @@ def forest_eval_full(X: torch.Tensor, pack: FullPack) -> torch.Tensor:
 
 
 forest_eval_full.launches = 0
+
+
+def ids_dtype(n_grid: int) -> torch.dtype:
+    """The narrowest id type the bin-space kernels take for a grid of
+    ``n_grid`` thresholds: uint8 while every id (NaN → n_grid) is below
+    256, else int16."""
+    return torch.uint8 if n_grid < 256 else torch.int16
+
+
+def device_bins_narrow(X: torch.Tensor, pack: ForestPack) -> torch.Tensor:
+    """Ids ``[F, N]`` (:func:`ids_dtype`) of device-resident features ``X
+    [N, F]`` (contiguous f32) against ``pack``'s grid: ``#{grid_f < x}``,
+    NaN → n_grid. The plain version is :func:`device_bins`, narrowed."""
+    name = "device_bins_narrow"
+    dt = ids_dtype(pack.n_grid)
+    if not _check_features(X, pack, name):
+        return device_bins(X, pack.grid, pack.n_grid).to(dt)
+    N, F = X.shape
+    ids = torch.empty((F, N), dtype=dt, device=X.device)
+    if N:
+        lib = _kernels()
+        fn = (lib.forest_bins_only_u8 if dt == torch.uint8
+              else lib.forest_bins_only_i16)
+        with torch.cuda.device(X.device):
+            _raise_on(fn(X.data_ptr(), N, F, pack.grid.data_ptr(),
+                         int(pack.grid.shape[1]), pack.n_grid,
+                         ids.data_ptr(),
+                         torch.cuda.current_stream(X.device).cuda_stream),
+                      name)
+        device_bins_narrow.launches += 1
+    return ids
+
+
+device_bins_narrow.launches = 0
+
+
+def forest_eval_bins_split(X: torch.Tensor, pack: ForestPack) -> torch.Tensor:
+    """Scores ``[N]`` f32 of device-resident features ``X [N, F]`` by the
+    split route: :func:`device_bins_narrow` writes the ids, then
+    :func:`forest_eval_frombins` scores them. Bit-equal to
+    :func:`forest_eval_bins` (the same ids, the same walk)."""
+    return forest_eval_frombins(device_bins_narrow(X, pack), pack)
+
+
+def forest_eval_pred(predT: torch.Tensor,
+                     pack: ForestPack | FullPack) -> torch.Tensor:
+    """Scores ``[N]`` f32 from precomputed node tests (ref
+    ``forest_eval_pallas``): ``predT [nch·TCM, N]`` contiguous 0/1 uint8 or
+    bf16 (chunk-major rows, the node order of ``pack.fid_full``) against
+    ``pack``'s ``PmQc [nch, TCM, TCL]`` (P−Q in {−1, 0, 1}) and
+    ``csQc``/``plenc``/``outwc`` ``[nch, TCL]`` f32. The kernel reads each
+    tree's own ``[M, TCL / tree_chunk]`` block of P−Q, so M
+    (``nodes_per_tree``) comes from the pack that laid P−Q out: any other
+    M would read the wrong block for every tree after the first."""
+    name = "forest_eval_pred"
+    PmQc, csQc, plenc, outwc = pack.PmQc, pack.csQc, pack.plenc, pack.outwc
+    tree_chunk, nodes_per_tree = pack.tree_chunk, pack.nodes_per_tree
+    if PmQc.dim() != 3:
+        raise RankLibError(f"{name}: PmQc must be [nch, TCM, TCL]")
+    nch, TCM, TCL = PmQc.shape
+    if predT.dtype not in (torch.uint8, torch.bfloat16):
+        raise RankLibError(f"{name}: predT must be uint8 or bfloat16, got "
+                           f"{predT.dtype}")
+    if predT.dim() != 2 or predT.shape[0] != nch * TCM:
+        raise RankLibError(f"{name}: predT must be [{nch * TCM}, N], got "
+                           f"{tuple(predT.shape)}")
+    aux = (csQc, plenc, outwc)
+    if any(t.shape != (nch, TCL) for t in aux):
+        raise RankLibError(f"{name}: csQc, plenc and outwc must be "
+                           f"[{nch}, {TCL}]")
+    if any(t.dtype != torch.float32 for t in (PmQc, *aux)):
+        raise RankLibError(f"{name}: PmQc, csQc, plenc and outwc must be "
+                           f"float32")
+    # the packs' layout (gbdt/ensemble.py): TCM = ceil16(tree_chunk · M);
+    # any other M reads the wrong [M, L] block for every tree but the first
+    if (tree_chunk < 1 or nodes_per_tree < 1 or TCL % tree_chunk
+            or (tree_chunk * nodes_per_tree + 15) // 16 * 16 != TCM):
+        raise RankLibError(f"{name}: {tree_chunk} trees of "
+                           f"{nodes_per_tree} nodes do not tile "
+                           f"[{TCM}, {TCL}] chunks")
+    ts = (predT, PmQc, *aux)
+    dev = predT.device
+    if dev.type not in ("cpu", "cuda") or any(t.device != dev for t in ts):
+        raise RankLibError(f"{name}: all tensors must share one cpu or "
+                           f"cuda device")
+    if any(not t.is_contiguous() for t in ts):
+        raise RankLibError(f"{name}: tensors must be contiguous")
+    if dev.type == "cpu":
+        return forest_eval_pred_plain(predT, PmQc, csQc, plenc, outwc,
+                                      tree_chunk=tree_chunk)
+    N = predT.shape[1]
+    out = torch.empty(N, dtype=torch.float32, device=dev)
+    if N:
+        lib = _kernels()
+        fn = (lib.forest_eval_pred_u8 if predT.dtype == torch.uint8
+              else lib.forest_eval_pred_bf16)
+        with torch.cuda.device(dev):
+            _raise_on(fn(predT.data_ptr(), N, nch, TCM, TCL, tree_chunk,
+                         nodes_per_tree, PmQc.data_ptr(), csQc.data_ptr(),
+                         plenc.data_ptr(), outwc.data_ptr(), out.data_ptr(),
+                         torch.cuda.current_stream(dev).cuda_stream), name)
+        forest_eval_pred.launches += 1
+    return out
+
+
+forest_eval_pred.launches = 0

@@ -166,6 +166,18 @@ def test_port_runs_without_jax_or_the_reference(files):
         f"{test!r}, '-save', {str(d / 'nojax_model.txt')!r}])\n"
         "assert rc == 0, rc\n"
         "import os\n"
+        "os.environ['RANKLIB_TPU_FUSED_LAMBDA'] = '1'\n"
+        f"rc = main(['-train', {str(d / 'train.txt')!r}, '-ranker', '6', "
+        f"'-tree', '2', '-leaf', '4', '-metric2t', 'NDCG@10', '-silent', "
+        f"'-save', {str(d / 'nojax_fused.txt')!r}])\n"
+        "assert rc == 0, rc\n"
+        "os.environ['RANKLIB_TPU_SERVE_SPLIT'] = '1'\n"
+        f"rc = main(['-load', {model!r}, '-test', {test!r}])\n"
+        "assert rc == 0, rc\n"
+        "del os.environ['RANKLIB_TPU_FUSED_LAMBDA'], "
+        "os.environ['RANKLIB_TPU_SERVE_SPLIT']\n"
+        "import ranklib_tpu_torch.ops.lambda_kernel\n"
+        "import ranklib_tpu_torch.tools.probes\n"
         f"os.makedirs({str(d / 'nojax_bags')!r}, exist_ok=True)\n"
         f"rc = main(['-train', {str(d / 'train.txt')!r}, '-ranker', '8', "
         f"'-bag', '2', '-leaf', '4', '-save', "
@@ -219,3 +231,36 @@ def test_missing_features_need_missing_zero(tmp_path, files, capsys):
         assert "-missingZero" in capsys.readouterr().out
         assert main(["-load", model, "-test", str(sparse),
                      "-missingZero"]) == 0
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """``fit`` without a device takes the CLI's device rule: the card when
+    one is present, unless RANKLIB_TPU_TORCH_DEVICE says otherwise."""
+    from ranklib_tpu_torch import device as D
+    from ranklib_tpu_torch.models import gbdt as PG
+    from ranklib_tpu_torch.models import rf as PRF
+
+    monkeypatch.delenv("RANKLIB_TPU_TORCH_DEVICE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert D.choose_device(quiet=True) == torch.device("cuda", 0)
+    monkeypatch.setenv("RANKLIB_TPU_TORCH_DEVICE", "cpu")
+    assert D.choose_device(quiet=True) == torch.device("cpu")
+    monkeypatch.delenv("RANKLIB_TPU_TORCH_DEVICE")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert D.choose_device(quiet=True) == torch.device("cpu")
+    seen = []
+    for mod in (PG, PRF):
+        monkeypatch.setattr(mod, "choose_device",
+                            lambda quiet=False: seen.append(quiet)
+                            or torch.device("cpu"))
+    ds = synth_dataset(n_queries=4, n_features=3, seed=1)
+    from ranklib_tpu_torch.data.dataset import Dataset, Query
+    from ranklib_tpu_torch.metrics.base import create_scorer
+
+    port_ds = Dataset([Query(q.qid, q.labels, q.feats, list(q.descs))
+                       for q in ds.queries], ds.n_features)
+    PG.LambdaMART(n_trees=1, n_leaves=2).fit(port_ds, create_scorer("NDCG@5"))
+    PRF.RFRanker(n_bags=1, n_leaves=2).fit(port_ds, create_scorer("NDCG@5"))
+    assert seen == [True, True]
