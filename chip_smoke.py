@@ -64,9 +64,11 @@ Phases, none of whose failures is caught:
    launching the kernel;
 9. training kernels at full width: kernel vs plain device times of the
    histogram (root, and a child with ~10% weights) and the scan
-   ([1|2, 136, 256, 2]), the root histogram's ``index_add_``, the peak
-   device memory, one round's parts timed alone and the device-busy share
-   of a profiled round;
+   ([1|2, 136, 256, 2]), the root histogram's ``index_add_`` and the
+   host time of one histogram call, the peak device memory, one round's
+   parts timed alone, the histogram on the root and the 8 right children
+   of a tree grown there (replayed from its splits; summed per
+   ``grow_tree``) and the device-busy share of a profiled round;
 10. Random Forests at the training width — 300 bags of one 100-leaf MART
     tree, -frate 0.3, -srate 1.0, 256 bins, the port's group size — with
     the multi-bag histogram and split-scan counters at 0: the fit (each
@@ -74,7 +76,9 @@ Phases, none of whose failures is caught:
     text, one group step under ``set_sync_debug_mode("error")``, card vs
     CPU at 4 bags x 8 leaves on 200 queries (-rtype 0 and a small -rtype
     6), and the multi-bag histogram kernel vs plain and its ``index_add_``
-    at the group's width (root and a ~10% child);
+    at the group's width (root and a ~10% child), the host time of a call,
+    and the kernel on the roots and the 98 right children of a group step
+    grown there (replayed from its splits; summed per group step);
 11. the f32 forest route at the serving width: 1,000 trees x 10 leaves
     whose first 8 features carry a 1,024-point threshold grid, 262,144
     documents: kernel vs plain (bit-identical) and vs the f32 traversal,
@@ -203,6 +207,19 @@ def wall_ms(fn, reps: int) -> float:
         fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def host_us(fn, reps: int) -> float:
+    """Median host time of enqueueing fn() (no synchronisation), in µs."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
     return float(np.median(times))
 
 
@@ -775,6 +792,10 @@ def training_kernel_times(fit) -> tuple:
           f"{lib_ms:.4f} ms; bound {out['root_bound'][0]:.4f} ms "
           f"({out['root_bound'][1]})")
     del idx, src
+    out["root_host_us"] = host_us(lambda: H.histogram(binsT, grad, root_w, B),
+                                  200)
+    print(f"  histogram root: host time of a call (enqueue, no sync) "
+          f"{out['root_host_us']:.1f} us")
     fm = data.feat_mask
     scans = {}
     for cn, h in ((1, out["root"][0][None]),
@@ -796,6 +817,52 @@ def training_kernel_times(fit) -> tuple:
     # (node, feature, bin); the best (gain, feature, bin, ok) a node out
     scans["bound"] = bound(nbytes(h) + 2 * 13, 10 * h[..., 0].numel())
     return out, scans
+
+
+def tree_children_times(binsT, grad, dw, arr, B) -> float:
+    """The histogram kernel on the nodes one grown tree really built: the
+    root and the right child of each split but the last (slot 2k + 2 of
+    iteration k, as grow_tree builds them), replayed from the tree's
+    splits. Device ms each (CUDA events, median of 10) and summed per
+    grow_tree; the first child is held to the plain version."""
+    from ranklib_tpu_torch.ops import histogram as H
+
+    assign = torch.zeros(binsT.shape[1], dtype=torch.int32,
+                         device=binsT.device)
+    times = [event_ms(lambda: H.histogram(binsT, grad, dw, B), 10)]
+    weighted = []
+    for k in range(N_LEAVES - 1):
+        parent = torch.nonzero(arr.left == 2 * k + 1).flatten()
+        if parent.numel() == 0:
+            break
+        p = int(parent[0])
+        go_left = binsT[int(arr.feature[p])].to(torch.int32) <= arr.bin[p]
+        in_node = assign == p
+        w_r = dw * (in_node & ~go_left)
+        if k < N_LEAVES - 2:                    # the peeled last split builds none
+            if k == 0:
+                got = H.histogram(binsT, grad, w_r, B)
+                want = H.histogram_plain(binsT, grad, w_r, B)
+                torch.cuda.synchronize()
+                check(torch.equal(got[..., 1], want[..., 1])
+                      and torch.allclose(got[..., 0], want[..., 0],
+                                         **HIST_TOL),
+                      "histogram differs from plain on a real child")
+            times.append(event_ms(lambda: H.histogram(binsT, grad, w_r, B),
+                                  10))
+            weighted.append(int(w_r.count_nonzero()))
+        assign = torch.where(in_node, torch.where(go_left, 2 * k + 1,
+                                                  2 * k + 2),
+                             assign).to(torch.int32)
+    check(torch.equal(assign, arr.node_of_doc),
+          "the replayed splits do not reproduce the tree's leaves")
+    total = sum(times)
+    print(f"  histogram on one grown tree's nodes: root {times[0]:.4f} ms; "
+          f"{len(times) - 1} right children "
+          + ", ".join(f"{t:.4f}" for t in times[1:])
+          + f" ms ({', '.join(map(str, weighted))} weighted docs); summed "
+          f"per grow_tree {total:.4f} ms")
+    return total
 
 
 def round_breakdown(fit, dev) -> dict:
@@ -830,6 +897,8 @@ def round_breakdown(fit, dev) -> dict:
     arr = grow_tree(data.binned_T, lam, n_bins=B, n_leaves=N_LEAVES,
                     doc_mask=data.doc_mask, feature_mask=data.feat_mask)
     out = leaf_outputs(arr.node_of_doc, lam, w, M, True, data.doc_mask)
+    tree_children_times(data.binned_T, lam, data.doc_mask.to(torch.float32),
+                        arr, B)
     child = data.doc_mask & (arr.node_of_doc == arr.node_of_doc[0])
     h1 = H.histogram(data.binned_T, lam, data.doc_mask, B)[None]
     h2 = torch.cat([h1, h1])
@@ -1156,7 +1225,7 @@ def rf_training_phase(dev, train, group: int) -> dict:
         scores, doc_w, fmask, binned_T, labels_d, B, RF_LEAVES, 0.1))
     return {"launches": launches, "peak": peak, "wall": wall, "steps": steps,
             "binned_T": binned_T, "grads": labels_d[None] - scores,
-            "doc_w": doc_w}
+            "doc_w": doc_w, "fmask": fmask}
 
 
 def rf_card_vs_cpu(dev) -> None:
@@ -1254,7 +1323,69 @@ def rf_kernel_times(rf) -> dict:
               f"timed")
     print(f"  multi-bag histogram root bound {out['root_bound'][0]:.4f} ms "
           f"({out['root_bound'][1]})")
+    out["root_host_us"] = host_us(lambda: H.histogram_multi(
+        binned_T, grads, doc_w, 256), 20)
+    print(f"  multi-bag histogram root: host time of a call (enqueue, no "
+          f"sync) {out['root_host_us']:.1f} us")
+    out["step_ms"] = forest_children_times(rf)
     return out
+
+
+def forest_children_times(rf) -> float:
+    """The multi-bag kernel on the nodes one group step really builds: the
+    roots and the right children of every split but the last, each a
+    [bags, N] weight matrix replayed from grow_forest's splits on the
+    group's bags. Device ms of each launch (CUDA events, one timed launch)
+    and their sum per group step; the first child is held to the plain
+    version."""
+    from ranklib_tpu_torch.gbdt.grow import grow_forest
+    from ranklib_tpu_torch.ops import histogram as H
+
+    binned_T, grads, doc_w = rf["binned_T"], rf["grads"], rf["doc_w"]
+    arr = grow_forest(binned_T, grads, 256, RF_LEAVES, 1, doc_w, rf["fmask"])
+    C, N = doc_w.shape
+    cidx = torch.arange(C, device=doc_w.device)
+    assign = torch.zeros((C, N), dtype=torch.int32, device=doc_w.device)
+    times = [event_ms(lambda: H.histogram_multi(binned_T, grads, doc_w, 256),
+                      1)]
+    pairs = []
+    for k in range(RF_LEAVES - 1):
+        hit = arr.left == 2 * k + 1                          # [C, M]
+        valid = hit.any(dim=1)
+        p = hit.to(torch.int32).argmax(dim=1)                # [C] int64
+        f = arr.feature[cidx, p].clamp(min=0).long()
+        go_left = (binned_T.index_select(0, f).to(torch.int32)
+                   <= arr.bin[cidx, p][:, None])
+        in_node = (assign == p[:, None]) & valid[:, None]
+        if k < RF_LEAVES - 2:
+            w_r = doc_w * (in_node & ~go_left)
+            if k == 0:
+                got = H.histogram_multi(binned_T, grads, w_r, 256)
+                want = H.histogram_multi_plain(binned_T, grads, w_r, 256)
+                torch.cuda.synchronize()
+                check(torch.equal(got[..., 1], want[..., 1])
+                      and torch.allclose(got[..., 0], want[..., 0],
+                                         **HIST_TOL),
+                      "multi-bag histogram differs from plain on a real "
+                      "child")
+                del got, want
+            times.append(event_ms(lambda: H.histogram_multi(
+                binned_T, grads, w_r, 256), 1))
+            pairs.append(int(w_r.count_nonzero()))
+            del w_r
+        assign = torch.where(in_node, torch.where(go_left, 2 * k + 1,
+                                                  2 * k + 2),
+                             assign).to(torch.int32)
+    check(torch.equal(assign, arr.node_of_doc),
+          "the replayed splits do not reproduce the forest's leaves")
+    total = sum(times)
+    kids = times[1:]
+    print(f"  multi-bag histogram on one group step's nodes ({C} bags): "
+          f"root {times[0]:.4f} ms; {len(kids)} right children "
+          f"{min(kids):.4f}-{max(kids):.4f} ms (mean {np.mean(kids):.4f}; "
+          f"{pairs[0]} weighted (bag, doc) pairs at the first, {pairs[-1]} "
+          f"at the last); summed per group step {total:.4f} ms")
+    return total
 
 
 def full_route_phase(dev, Xh, Xd) -> dict:
@@ -1901,7 +2032,7 @@ def main() -> int:
     print(" card vs CPU (4 bags x 8 leaves, 200 queries)")
     rf_card_vs_cpu(dev)
     rf_hists = rf_kernel_times(rf)
-    del rf["binned_T"], rf["grads"], rf["doc_w"]
+    del rf["binned_T"], rf["grads"], rf["doc_w"], rf["fmask"]
     print(f"  RF fit {rf['wall']:.3f} s, peak {rf['peak'] / 2**30:.2f} GiB  "
           f"[{smi}]")
 

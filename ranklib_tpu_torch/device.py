@@ -2,8 +2,10 @@
 ranklib_tpu.cli._ensure_backend).
 
 ``RANKLIB_TPU_TORCH_DEVICE`` forces a device (``cpu``, ``cuda``,
-``cuda:1``); otherwise the first CUDA device when one is available, else
-the CPU. The choice is logged on one line and then passed down explicitly;
+``cuda:1``); otherwise the current CUDA device. With no CUDA device and
+the variable unset the entry points refuse to start rather than train on
+the CPU unasked: ``RANKLIB_TPU_TORCH_DEVICE=cpu`` asks for the CPU. The
+choice is logged on one line and then passed down explicitly;
 nothing here is global state.
 """
 
@@ -34,8 +36,11 @@ def choose_device(*, quiet: bool = False) -> torch.device:
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RankLibError(f"{DEVICE_ENV}={forced!r} but CUDA is not "
                                f"available")
+    elif torch.cuda.is_available():
+        dev = torch.device("cuda")
     else:
-        dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        raise RankLibError(f"no CUDA device is available; set {DEVICE_ENV}=cpu "
+                           f"to run on the CPU")
     if dev.type == "cuda":
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())

@@ -46,7 +46,6 @@ from ranklib_tpu_torch.models.base import (
 from ranklib_tpu_torch.models.gbdt import (
     _export, _export_tree, eval_ensemble_dataset, flatten_binned, pad_binned,
 )
-from ranklib_tpu_torch.ops.histogram import multi_tiles
 from ranklib_tpu_torch.utils.errors import RankLibError
 from ranklib_tpu_torch.utils.logging import is_silent, log
 
@@ -88,17 +87,12 @@ def bag_group_size(M: int, F: int, B: int, N: int, n_bags: int,
     """Bags grown in lockstep per group: as many as fit a quarter of the
     card's memory (``_CPU_GROUP_BYTES`` on the CPU) — per bag the
     [M, F, B, 2] f32 node-histogram buffer, its stacked children and
-    scan, and ~16 [N]-sized temporaries — rounded down to whole bag tiles
-    of the multi-bag histogram kernel; at most ``n_bags``. The model does
+    scan, and ~16 [N]-sized temporaries; at most ``n_bags``. The model does
     not depend on it."""
     per_bag = (M + 3) * F * B * 8 + 16 * N * 4
     budget = (torch.cuda.get_device_properties(device).total_memory // 4
               if device.type == "cuda" else _CPU_GROUP_BYTES)
-    cap = max(1, budget // per_bag)
-    tile = multi_tiles(F, B, cap)[1]
-    if cap >= tile:
-        cap -= cap % tile
-    return max(1, min(n_bags, cap))
+    return max(1, min(n_bags, budget // per_bag))
 
 
 @register_ranker

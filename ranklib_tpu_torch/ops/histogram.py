@@ -8,10 +8,11 @@
   over one id matrix in one launch, kernel ``csrc/histogram_multi.cu``.
 
 A CPU tensor takes the plain version (:func:`histogram_plain`,
-:func:`histogram_multi_plain`), a CUDA tensor the kernel (see each .cu
-header for the design and its determinism). The TPU routed only B = 256
-to its kernels, a width gate of its compiler; the port takes any B on both
-routes.
+:func:`histogram_multi_plain`), a CUDA tensor the kernel. Both kernels are
+one design, lane-owned histogram columns (``csrc/histogram_common.cuh``
+describes it, its determinism and what bounds it); :func:`plan` lays out
+either launch. The TPU routed only B = 256 to its kernels, a width gate of
+its compiler; the port takes any B on both routes.
 
 The wrappers launch on the current stream, allocate their outputs and
 scratch with ``torch.empty``, raise on a failed launch and count launches
@@ -23,26 +24,30 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from ranklib_tpu_torch.utils.errors import RankLibError
 
-# docs per block of the CUDA kernel, and the shared-memory budget of the
-# per-feature histograms a block keeps (the kernel adds 8 B per doc of
-# staging)
-HIST_CHUNK = 4096
-_HIST_SMEM = 64 * 1024
-_MAX_SMEM = 232448                   # what one H100 block can use
-_MAX_FEATS_PER_BLOCK = 32            # four features for each of 8 warps
-# the multi-bag kernel: docs staged per step, the shared-memory budget of a
-# block (its [feats, bags, B, 2] histograms and [bags, sub] staged g·w and
-# w; two blocks fit an SM), one feature per warp, and the blocks that fill
-# the card twice over
-HIST_MULTI_SUB = 512
-_MULTI_SMEM = 80 * 1024
-_MULTI_FEATS = 8
-_MULTI_TARGET_BLOCKS = 4 * 132
+# what one H100 offers a block and an SM (bytes of shared memory, the
+# SM's less the 1 KB it keeps for each resident block), its SMs, and the
+# kernel's fixed shapes (csrc/histogram_common.cuh: one 32-lane warp a
+# block, at most 256 bins a warp, steps of 128 id bytes a lane, so slices
+# are whole multiples of 128 documents, and a [32][33] float2 write-out
+# tile that the lanes' id rows share)
+_MAX_SMEM = 232448
+_SM_SMEM = 233472
+_BLOCK_RESERVED = 1024
+_SMS = 132
+_MAX_BLOCKS_PER_SM = 32
+_LANES = 32
+_WARP_BINS = 256
+_TPOSE_BYTES = _LANES * (_LANES + 1) * 8
+_STEP_DOCS = 128
+# the least documents a slice takes, so slice partials stay a small part
+# of the traffic
+_MIN_SLICE = 2048
 
 
 def histogram_plain(binned_T: torch.Tensor, grad: torch.Tensor,
@@ -88,8 +93,8 @@ def _kernels() -> ctypes.CDLL:
     lib = _build.kernel_library("histogram")
     for t in _TYPES.values():
         fn = getattr(lib, f"histogram_{t}")
-        fn.argtypes = [_vp, _vp, _vp, _i64, _int, _int, _int, _int, _vp,
-                       _vp, _vp, _vp]
+        fn.argtypes = [_vp, _vp, _vp, _i64, _int, _int, _int, _int, _i64,
+                       _int, _int, _vp, _vp, _vp]
         fn.restype = _int
     return lib
 
@@ -125,10 +130,71 @@ def _check_devices(name: str, *tensors) -> torch.device:
     return dev
 
 
-def feats_per_block(F: int, B: int) -> int:
-    """Features one CUDA block histograms: as many [B, 2] f32 histograms
-    as fit the budget, at most four per warp; at least one."""
-    return max(1, min(F, _MAX_FEATS_PER_BLOCK, _HIST_SMEM // (B * 8)))
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class HistPlan(NamedTuple):
+    """One launch of the lane-owned column kernel: a block is one warp
+    owning 32 features of one bag over ``warp_bins`` bins, one of
+    ``ranges`` bin ranges and one of ``slices`` document slices of
+    ``slice_len`` documents; ``grid`` is (slices, feature groups x ranges,
+    bags) and ``smem`` the block's shared-memory bytes."""
+
+    warp_bins: int
+    ranges: int
+    slice_len: int
+    slices: int
+    grid: tuple
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan(F: int, B: int, C: int, N: int) -> HistPlan:
+    """Lay out a histogram launch of ``C`` bags (1 for :func:`histogram`)
+    over ``[F, N]`` ids and ``B`` bins.
+
+    A warp covers min(B, 256) bins (more bins take more ranges, so any B
+    fits). Document slices are added until the warps fill every SM once,
+    none under ``_MIN_SLICE`` documents and each a whole number of
+    128-document steps. Shared memory (csrc/histogram_common.cuh
+    ``smem_bytes``): the warp's [bins][32] float2 histograms, then the
+    write-out tile (the lanes' id rows fit in it)."""
+    warp_bins = max(1, min(B, _WARP_BINS))
+    ranges = _cdiv(max(B, 1), warp_bins)
+    smem = warp_bins * _LANES * 8 + _TPOSE_BYTES
+    blocks = _cdiv(max(F, 1), _LANES) * ranges * max(C, 1)
+    per_sm = max(1, min(_MAX_BLOCKS_PER_SM,
+                        _SM_SMEM // (smem + _BLOCK_RESERVED)))
+    slices = max(1, min(_cdiv(_SMS * per_sm, blocks), _cdiv(N, _MIN_SLICE)))
+    slice_len = _cdiv(_cdiv(max(N, 1), slices), _STEP_DOCS) * _STEP_DOCS
+    slices = _cdiv(max(N, 1), slice_len)
+    return HistPlan(warp_bins, ranges, slice_len, slices,
+                    (slices, blocks // max(C, 1), max(C, 1)), smem)
+
+
+def _launch(fn, name: str, binned_T, grads, w, C: int, B: int,
+            out: torch.Tensor, multi: bool) -> None:
+    """One launch of ``fn`` on the current stream of ``out``'s device."""
+    F, N = binned_T.shape
+    p = plan(F, B, C, N)
+    dev = out.device
+    partial = (torch.empty(p.slices * out.numel(), dtype=torch.float32,
+                           device=dev) if p.slices > 1 else out)
+    ids = binned_T.data_ptr()
+    # id rows 16-byte aligned: 16-byte loads (else one id a load)
+    vec = int(ids % 16 == 0 and N * binned_T.element_size() % 16 == 0)
+    shape = (F, B, C) if multi else (F, B)
+    args = (ids, grads.data_ptr(), w.data_ptr(), N, *shape, p.warp_bins,
+            p.ranges, p.slice_len, p.slices, vec, partial.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args)
+    if rc != 0:
+        raise RankLibError(f"{name}: CUDA launch failed with error {rc}")
 
 
 def histogram(binned_T: torch.Tensor, grad: torch.Tensor, mask: torch.Tensor,
@@ -150,46 +216,18 @@ def histogram(binned_T: torch.Tensor, grad: torch.Tensor, mask: torch.Tensor,
     B = int(n_bins)
     if dev.type == "cpu":
         return histogram_plain(binned_T, grad, mask, B)
-    feats = feats_per_block(F, B)
-    smem = (2 * HIST_CHUNK + feats * B * 2) * 4
-    if smem > _MAX_SMEM:
-        raise RankLibError(f"{name}: {B} bins need {smem} bytes of shared "
-                           f"memory a block, over the card's {_MAX_SMEM}")
     out = torch.empty((F, B, 2), dtype=torch.float32, device=dev)
-    if N == 0 or F == 0:
+    if N == 0 or F == 0 or B == 0:
         return out.zero_()
-    n_chunks = (N + HIST_CHUNK - 1) // HIST_CHUNK
-    partial = torch.empty(n_chunks * F * B * 2, dtype=torch.float32,
-                          device=dev)
-    nonempty = torch.empty(n_chunks, dtype=torch.int32, device=dev)
-    w = mask.to(torch.float32).contiguous()
-    g = grad.contiguous()
-    fn = getattr(_kernels(), f"histogram_{_TYPES[binned_T.dtype]}")
-    with torch.cuda.device(dev):
-        rc = fn(binned_T.data_ptr(), g.data_ptr(), w.data_ptr(), N, F, B,
-                HIST_CHUNK, feats, partial.data_ptr(), nonempty.data_ptr(),
-                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RankLibError(f"{name}: CUDA launch failed with error {rc}")
+    w = mask if mask.dtype == torch.float32 else mask.to(torch.float32)
+    _launch(getattr(_kernels(), f"histogram_{_TYPES[binned_T.dtype]}"),
+            name, binned_T, grad.contiguous(), w.contiguous(), 1, B, out,
+            multi=False)
     histogram.launches += 1
     return out
 
 
 histogram.launches = 0
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def multi_tiles(F: int, B: int, C: int) -> tuple:
-    """(features, bags) one block of the multi-bag kernel histograms: at
-    most one feature per warp, and as many bags as the block's budget
-    holds (per bag: [feats, B, 2] f32 histograms and [sub] staged g·w and
-    w); at least one of each."""
-    stage = 8 * HIST_MULTI_SUB
-    feats = max(1, min(F, _MULTI_FEATS, (_MULTI_SMEM - stage) // (B * 8)))
-    return feats, max(1, min(C, _MULTI_SMEM // (stage + feats * B * 8)))
 
 
 def histogram_multi(binned_T: torch.Tensor, grads: torch.Tensor,
@@ -217,33 +255,15 @@ def histogram_multi(binned_T: torch.Tensor, grads: torch.Tensor,
     if dev.type == "cpu":
         return histogram_multi_plain(binned_T, grads, weights, B)
     C = grads.shape[0]
-    feats, bags = multi_tiles(F, B, C)
-    smem = (2 * bags * HIST_MULTI_SUB + feats * bags * B * 2) * 4
-    if smem > _MAX_SMEM:
-        raise RankLibError(f"{name}: {B} bins need {smem} bytes of shared "
-                           f"memory a block, over the card's {_MAX_SMEM}")
     out = torch.empty((C, F, B, 2), dtype=torch.float32, device=dev)
-    if N == 0 or F == 0 or C == 0:
+    if N == 0 or F == 0 or C == 0 or B == 0:
         return out.zero_()
-    # document slices: enough blocks to fill the card, none under 2,048
-    # docs, each a whole number of 32-doc steps
-    blocks = _cdiv(F, feats) * _cdiv(C, bags)
-    n_slices = max(1, min(_cdiv(_MULTI_TARGET_BLOCKS, blocks), _cdiv(N, 2048)))
-    slice_len = _cdiv(_cdiv(N, n_slices), 32) * 32
-    n_slices = _cdiv(N, slice_len)
-    partial = (torch.empty(n_slices * C * F * B * 2, dtype=torch.float32,
-                           device=dev) if n_slices > 1 else out)
-    w = weights.to(torch.float32).contiguous()
-    g = grads.contiguous()
-    fn = getattr(_multi_kernels(),
-                 f"histogram_multi_{_TYPES[binned_T.dtype]}")
-    with torch.cuda.device(dev):
-        rc = fn(binned_T.data_ptr(), g.data_ptr(), w.data_ptr(), N, F, B, C,
-                feats, bags, slice_len, n_slices, HIST_MULTI_SUB,
-                partial.data_ptr(), out.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RankLibError(f"{name}: CUDA launch failed with error {rc}")
+    w = (weights if weights.dtype == torch.float32
+         else weights.to(torch.float32))
+    _launch(getattr(_multi_kernels(),
+                    f"histogram_multi_{_TYPES[binned_T.dtype]}"),
+            name, binned_T, grads.contiguous(), w.contiguous(), C, B, out,
+            multi=True)
     histogram_multi.launches += 1
     return out
 

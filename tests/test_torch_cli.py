@@ -22,6 +22,7 @@ from ranklib_tpu.cli import main as ref_main
 from ranklib_tpu.models.base import load_ranker_file as ref_load
 from ranklib_tpu_torch.cli import main as port_main
 from ranklib_tpu_torch.models.base import load_ranker_file as port_load
+from ranklib_tpu_torch.utils.errors import RankLibError
 from tests.fixtures import synth_dataset, write_letor_text
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -152,6 +153,24 @@ def test_errors_exit_1(files, tmp_path, capsys, monkeypatch):
     assert port_main(["-load", model, "-test", test]) == 1
 
 
+def test_train_without_a_card_refuses(files, capsys, monkeypatch):
+    """``-train`` with no CUDA device and no RANKLIB_TPU_TORCH_DEVICE exits 1
+    with the device error before it reads anything; with the variable set
+    to cpu the same command trains."""
+    d, _, test = files
+    monkeypatch.delenv("RANKLIB_TPU_TORCH_DEVICE")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ["-train", str(d / "train.txt"), "-ranker", "6", "-tree",
+            "2", "-leaf", "3", "-metric2t", "NDCG@5"]
+    assert port_main(args) == 1
+    out = capsys.readouterr().out
+    assert "no CUDA device is available" in out
+    assert "RANKLIB_TPU_TORCH_DEVICE=cpu" in out
+    monkeypatch.setenv("RANKLIB_TPU_TORCH_DEVICE", "cpu")
+    assert port_main(args) == 0
+    assert "Device: cpu" in capsys.readouterr().out
+
+
 def test_port_runs_without_jax_or_the_reference(files):
     d, model, test = files
     code = (
@@ -235,7 +254,8 @@ def test_missing_features_need_missing_zero(tmp_path, files, capsys):
 
 def test_entry_points_default_to_the_card(monkeypatch):
     """``fit`` without a device takes the CLI's device rule: the card when
-    one is present, unless RANKLIB_TPU_TORCH_DEVICE says otherwise."""
+    one is present, unless RANKLIB_TPU_TORCH_DEVICE says otherwise; with no
+    card and no variable it refuses to start (never a silent CPU run)."""
     from ranklib_tpu_torch import device as D
     from ranklib_tpu_torch.models import gbdt as PG
     from ranklib_tpu_torch.models import rf as PRF
@@ -249,7 +269,11 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert D.choose_device(quiet=True) == torch.device("cpu")
     monkeypatch.delenv("RANKLIB_TPU_TORCH_DEVICE")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RankLibError, match="RANKLIB_TPU_TORCH_DEVICE=cpu"):
+        D.choose_device(quiet=True)
+    monkeypatch.setenv("RANKLIB_TPU_TORCH_DEVICE", "cpu")
     assert D.choose_device(quiet=True) == torch.device("cpu")
+    monkeypatch.delenv("RANKLIB_TPU_TORCH_DEVICE")
     seen = []
     for mod in (PG, PRF):
         monkeypatch.setattr(mod, "choose_device",

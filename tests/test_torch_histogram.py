@@ -17,7 +17,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from ranklib_tpu.ops.histogram import hist_pallas_radix, hist_xla
 from ranklib_tpu_torch.ops.histogram import (
-    feats_per_block, histogram, histogram_plain,
+    histogram, histogram_plain, plan,
 )
 from ranklib_tpu_torch.utils.errors import RankLibError
 
@@ -106,13 +106,107 @@ def test_wrapper_checks_its_inputs():
 
 
 def test_feature_grouping_fits_shared_memory():
-    """The CUDA launch's feature groups: ≤ 32 features, ≤ 64 KB of
-    histograms a block, at least one feature."""
-    assert feats_per_block(136, 256) == 32
-    assert feats_per_block(136, 8) == 32
-    assert feats_per_block(5, 8) == 5
-    assert feats_per_block(136, 1024) == 8
-    assert feats_per_block(3, 40000) == 1
+    """The CUDA launch's plan for one weight vector: a warp of 32 features
+    over all 256 bins at the training width, in enough document slices
+    that three warps on each of 132 SMs are busy; narrow bins take less
+    shared memory, wide bins more ranges, and every plan fits a block's
+    232,448 bytes."""
+    p = plan(136, 256, 1, 180224)
+    assert (p.warp_bins, p.ranges, p.slices, p.slice_len) == (256, 1, 79,
+                                                              2304)
+    assert p.grid == (79, 5, 1) and p.smem == 73984
+    assert plan(136, 8, 1, 180224).smem < plan(136, 256, 1, 180224).smem
+    assert plan(5, 8, 1, 300).grid == (1, 1, 1)
+    assert plan(136, 1024, 1, 180224).ranges == 4
+    p = plan(3, 40000, 1, 100)
+    assert (p.warp_bins, p.ranges, p.smem) == (256, 157, 73984)
+
+
+def _slices(p, N):
+    return [(x * p.slice_len, min(N, (x + 1) * p.slice_len))
+            for x in range(p.slices)]
+
+
+def emulate(binned, grads, w, B, p):
+    """numpy emulation of the column kernel's summation order under plan
+    ``p``: per slice, each (bag, feature) column adds its weighted
+    documents' (g·w, w) in document order (f32, ids outside [0, B)
+    skipped); the slices' partials are added in slice order. ``grads`` and
+    ``w`` are [C, N]."""
+    F, N = binned.shape
+    C = grads.shape[0]
+    out = np.zeros((C, F, B, 2), np.float32)
+    for lo, hi in _slices(p, N):
+        part = np.zeros((C, F, B, 2), np.float32)
+        for c in range(C):
+            d = np.arange(lo, hi)
+            d = d[w[c, lo:hi] != 0]
+            gw = (grads[c, d] * w[c, d]).astype(np.float32)
+            for f in range(F):
+                ids = binned[f, d].astype(np.int64)
+                keep = (ids >= 0) & (ids < B)
+                # np.add.at adds in index order: the lane's document order
+                np.add.at(part[c, f, :, 0], ids[keep], gw[keep])
+                np.add.at(part[c, f, :, 1], ids[keep], w[c, d][keep])
+        out += part
+    return out
+
+
+def lane_sums(bins_col, gw, w, n_bins, unroll=4):
+    """One lane's column as the kernel sums it: items four at a time, cells
+    loaded together, an item whose bin equals an earlier one of the four
+    taking that one's running sum, cells stored in order."""
+    h = np.zeros((n_bins, 2), np.float32)
+    for k in range(0, len(bins_col), unroll):
+        b = [int(x) if 0 <= x < n_bins else -1
+             for x in bins_col[k:k + unroll]]
+        v = [h[max(x, 0)].copy() for x in b]
+        for u in range(len(b)):
+            for j in range(u):
+                if b[j] == b[u]:
+                    v[u] = v[j].copy()
+            v[u][0] = np.float32(v[u][0] + gw[k + u])
+            v[u][1] = np.float32(v[u][1] + w[k + u])
+        for u, x in enumerate(b):
+            if x >= 0:
+                h[x] = v[u]
+    return h
+
+
+def test_forwarded_groups_equal_the_sequential_sum():
+    """The four-at-a-time read-modify-write with forwarding gives the bits
+    of adding one document at a time, on bins that repeat inside a group."""
+    rng = np.random.default_rng(3)
+    bins_col = rng.integers(-1, 6, size=203)
+    gw = rng.normal(size=203).astype(np.float32)
+    w = rng.integers(1, 4, size=203).astype(np.float32)
+    want = np.zeros((5, 2), np.float32)
+    keep = (bins_col >= 0) & (bins_col < 5)
+    np.add.at(want[:, 0], bins_col[keep], gw[keep])
+    np.add.at(want[:, 1], bins_col[keep], w[keep])
+    np.testing.assert_array_equal(lane_sums(bins_col, gw, w, 5), want)
+
+
+@pytest.mark.parametrize("N,F,B,dtype,weights", [
+    (5000, 13, 256, np.uint8, "bool"), (9000, 5, 11, np.int16, "mult"),
+    (4100, 9, 512, np.int32, "bool"), (300, 6, 8, np.uint8, "mult"),
+])
+def test_kernel_summation_order_matches_plain_and_reference(N, F, B, dtype,
+                                                            weights):
+    """The kernel's order (slices of the plan, documents in order within
+    a slice) against the plain version and the reference's hist_xla:
+    counts exact, sums within the card's tolerance (atol 2e-4, rtol
+    1e-5)."""
+    binned, grad, w = _case(N, F, B, seed=N + B, dtype=dtype,
+                            weights=weights, over=3)
+    w = w.astype(np.float32)
+    p = plan(F, B, 1, N)
+    got = emulate(binned, grad[None], w[None], B, p)[0]
+    for want in (_port(binned, grad, w, B),
+                 np.asarray(hist_xla(jnp.asarray(binned), grad, w, B))):
+        np.testing.assert_array_equal(got[..., 1], want[..., 1])
+        np.testing.assert_allclose(got[..., 0], want[..., 0], atol=2e-4,
+                                   rtol=1e-5)
 
 
 def test_subtraction_trick():

@@ -19,6 +19,7 @@ from jax.experimental.pallas import tpu as pltpu
 from ranklib_tpu.ops.histogram import hist_multi_pallas, hist_multi_xla
 from ranklib_tpu_torch.ops import histogram as H
 from ranklib_tpu_torch.utils.errors import RankLibError
+from tests.test_torch_histogram import emulate
 
 
 def _case(N, F, B, C, seed, dtype=np.int32, over=0):
@@ -79,15 +80,76 @@ def test_bags_are_independent_single_histograms():
 
 
 def test_multi_tiles_fit_the_shared_memory_budget():
-    assert H.multi_tiles(136, 256, 64) == (8, 4)
-    assert H.multi_tiles(6, 256, 2) == (6, 2)
-    assert H.multi_tiles(136, 4096, 64) == (2, 1)
-    assert H.multi_tiles(9, 11, 64) == (8, 17)
+    """The multi-bag plan: a warp a (bag, 32-feature group) at 256 bins,
+    one slice when the warps fill the card, more ranges for wide bins;
+    every plan fits a block."""
+    p = H.plan(136, 256, 300, 180224)
+    assert (p.ranges, p.slices, p.grid) == (1, 1, (1, 5, 300))
+    assert H.plan(6, 256, 2, 300).grid == (1, 1, 2)
+    assert H.plan(136, 4096, 64, 180224).ranges == 16
+    assert H.plan(9, 11, 64, 300).warp_bins == 11
     for F, B, C in [(136, 256, 300), (3, 11, 1), (40, 1024, 9),
                     (9, 11, 64)]:
-        feats, bags = H.multi_tiles(F, B, C)
-        assert 1 <= feats <= min(F, 8) and 1 <= bags <= C
-        assert bags * (8 * H.HIST_MULTI_SUB + feats * B * 8) <= 80 * 1024
+        assert H.plan(F, B, C, 5000).smem <= 232448
+
+
+def _coverage(p, F, B, C, N):
+    """How often the kernel's grid (as csrc/histogram_common.cuh indexes
+    it) covers each bag, feature, bin and document. The grid is a product
+    of (slice) x (feature group, range) x (bag) with 32 lanes a feature
+    group, so each factor is counted apart."""
+    bags = np.zeros(C, int)
+    for z in range(p.grid[2]):
+        if z < C:
+            bags[z] += 1
+    feats = np.zeros(F, int)
+    bins = np.zeros(B, int)
+    for y in range(p.grid[1]):
+        r, fg = y % p.ranges, y // p.ranges
+        if fg == 0:
+            lo = r * p.warp_bins
+            bins[lo:lo + min(p.warp_bins, B - lo)] += 1
+        if r == 0:
+            feats[fg * 32:min(F, fg * 32 + 32)] += 1
+    docs = np.zeros(N, int)
+    for x in range(p.grid[0]):
+        docs[x * p.slice_len:min(N, (x + 1) * p.slice_len)] += 1
+    return bags, feats, bins, docs
+
+
+@pytest.mark.parametrize("C", [1, 3, 32, 300, 312])
+@pytest.mark.parametrize("B", [1, 8, 11, 256, 512, 1024, 40000])
+def test_plan_covers_every_cell_once_and_fits(B, C):
+    """Every (bag, feature, bin, document) is covered exactly once, for
+    any B and C, and the block fits the card's 232,448 bytes."""
+    F, N = 37, 5000
+    p = H.plan(F, B, C, N)
+    assert p.smem <= 232448
+    assert p.slice_len % 128 == 0 and p.warp_bins <= 256
+    for counts in _coverage(p, F, B, C, N):
+        assert (counts == 1).all()
+
+
+@pytest.mark.parametrize("N,F,B,C,dtype", [
+    (5000, 7, 256, 5, np.uint8), (3000, 40, 11, 3, np.int16),
+    (2100, 5, 300, 4, np.int32),
+])
+def test_kernel_summation_order_matches_plain_and_reference(N, F, B, C,
+                                                            dtype):
+    """The kernel's order (each bag's weighted documents in order within
+    a slice, slices in order) against the plain version and the
+    reference's hist_multi_xla: counts exact, sums within the card's
+    tolerance (atol 2e-4, rtol 1e-5)."""
+    binned, grads, w = _case(N, F, B, C, seed=N + C, dtype=dtype, over=3)
+    p = H.plan(F, B, C, N)
+    got = emulate(binned, grads, w, B, p)
+    for want in (_port(binned, grads, w, B),
+                 np.asarray(hist_multi_xla(jnp.asarray(binned),
+                                           jnp.asarray(grads),
+                                           jnp.asarray(w), B))):
+        np.testing.assert_array_equal(got[..., 1], want[..., 1])
+        np.testing.assert_allclose(got[..., 0], want[..., 0], atol=2e-4,
+                                   rtol=1e-5)
 
 
 def test_wrapper_checks_inputs_and_counts_only_kernel_launches():

@@ -219,8 +219,9 @@ def test_model_does_not_depend_on_the_grouping(monkeypatch):
 
 
 def test_bag_group_size_rounds_to_the_kernel_bag_tile():
-    # RF defaults at the bench's width: ~67.7 MB a bag, 2 GiB on the CPU
-    assert PRF.bag_group_size(199, 136, 256, 180224, 300, CPU) == 28
+    # RF defaults at the bench's width: ~67.7 MB a bag, 2 GiB on the CPU;
+    # the kernel takes one bag a block, so no rounding is left
+    assert PRF.bag_group_size(199, 136, 256, 180224, 300, CPU) == 31
     assert PRF.bag_group_size(199, 136, 256, 180224, 5, CPU) == 5
     assert PRF.bag_group_size(19, 6, 32, 256, 300, CPU) == 300
     assert PRF.bag_group_size(10**6, 136, 256, 10**6, 300, CPU) == 1
