@@ -17,12 +17,16 @@ Phases, none of whose failures is caught:
 2. each CUDA kernel against its plain PyTorch version on the card, small
    cases. Forest kernels: odd shapes, uint8 and int16 ids, n_grid == 256,
    documents on thresholds, NaN and ±inf features, a one-leaf tree (atol =
-   rtol = 1e-5), and the plain f32 traversal. Histogram: odd (N, F, B),
-   uint8/int16/int32 ids with some ≥ B, bool masks, f32 multiplicities and
-   all-zero weights (counts exact, sums atol 2e-4 / rtol 1e-5, two launches
-   bit-identical). Split scan: Cn 1 and 2, B 8/11/256/512, feature masks,
+   rtol = 1e-5; the frombins kernel bit-equal), heap-shaped trees of 150
+   leaves whose chunks are too large to stage, and the plain f32
+   traversal. Histogram: odd (N, F, B), uint8/int16/int32 ids with some ≥
+   B, bool masks, f32 multiplicities and all-zero weights (counts exact,
+   sums atol 2e-4 / rtol 1e-5, two launches bit-identical), and int16/int32
+   ids in [-3, B + 4) through both histogram kernels (counts exact: ids < 0
+   add nothing). Split scan: Cn 1 and 2, B 8/11/256/512/1100, feature masks,
    -mls 0 with empty sides (integer histograms with planted ties exactly
-   equal; float histograms to rtol 1e-5). Multi-bag histogram: the same
+   equal; float histograms to rtol 1e-5; two launches and the pair form
+   identical). Multi-bag histogram: the same
    id types and odd B with ids >= B, C 1/3/8/the RF group size, an
    all-zero bag and multiplicities up to 3 (counts exact, two launches
    bit-identical). f32 forest route: odd shapes, NaN/±inf features, more
@@ -42,8 +46,10 @@ Phases, none of whose failures is caught:
    CLI's ``-load -test -idv`` and ``-load -rank -score`` flows on a LETOR
    file of 200 queries; then the counters are read;
 4. serving checks and times: each forest kernel against its plain version
-   on the same device inputs, the CLI's outputs against the plain
-   version, and median times of each route;
+   on the same device inputs (the frombins kernel bit-equal), the CLI's
+   outputs against the plain version, and median times of each route;
+   the frombins kernel on a second 1,000-tree x 10-leaf model of
+   heap-shaped trees (bit-equal, timed);
 5. the training path at the bench's width — 1,500 queries of 80-160 docs
    x 136 features, labels 0-4 (~180K docs), LambdaMART 50 trees x 10
    leaves, NDCG@10 — with the histogram and split-scan counters at 0: fit
@@ -64,7 +70,9 @@ Phases, none of whose failures is caught:
    launching the kernel;
 9. training kernels at full width: kernel vs plain device times of the
    histogram (root, and a child with ~10% weights) and the scan
-   ([1|2, 136, 256, 2]), the root histogram's ``index_add_`` and the
+   ([1|2, 136, 256, 2], the pair form at 2; exact on integer-valued
+   histograms; the kernel's own time by 20 back-to-back bare launches,
+   and its wrapper's host time), the root histogram's ``index_add_`` and the
    host time of one histogram call, the peak device memory, one round's
    parts timed alone, the histogram on the root and the 8 right children
    of a tree grown there (replayed from its splits; summed per
@@ -77,7 +85,9 @@ Phases, none of whose failures is caught:
     CPU at 4 bags x 8 leaves on 200 queries (-rtype 0 and a small -rtype
     6), and the multi-bag histogram kernel vs plain and its ``index_add_``
     at the group's width (root and a ~10% child), the host time of a call,
-    and the kernel on the roots and the 98 right children of a group step
+    the split scan on those two as the pair growth passes ([600, 136, 256,
+    2] under the bags' feature masks: kernel vs plain, its own time), and
+    the kernel on the roots and the 98 right children of a group step
     grown there (replayed from its splits; summed per group step);
 11. the f32 forest route at the serving width: 1,000 trees x 10 leaves
     whose first 8 features carry a 1,024-point threshold grid, 262,144
@@ -165,6 +175,27 @@ def synthetic_ensemble(n_trees, n_leaves, n_features, rng):
         output = rng.normal(size=M).astype(np.float32)
         for i in range(n_leaves - 1):
             left[2 * i], right[2 * i], is_leaf[2 * i] = 2 * i + 1, 2 * i + 2, 0
+        ens.add(Tree(feature, threshold, left, right, is_leaf, output), 0.1)
+    return ens
+
+
+def balanced_ensemble(n_trees, n_leaves, n_features, rng):
+    """Random trees in heap shape (node i splits into 2i+1 and 2i+2, the
+    first n_leaves - 1 nodes internal: 10 leaves at depth 3 and 4), weight
+    0.1 — the walk's other extreme beside the chains."""
+    from ranklib_tpu_torch.gbdt.ensemble import Tree, TreeEnsemble
+
+    ens = TreeEnsemble()
+    M = 2 * n_leaves - 1
+    for _ in range(n_trees):
+        feature = rng.integers(0, n_features, size=M).astype(np.int32)
+        threshold = rng.normal(size=M).astype(np.float32)
+        output = rng.normal(size=M).astype(np.float32)
+        left = np.full(M, -1, np.int32)
+        right = np.full(M, -1, np.int32)
+        is_leaf = np.ones(M, bool)
+        for i in range(n_leaves - 1):
+            left[i], right[i], is_leaf[i] = 2 * i + 1, 2 * i + 2, 0
         ens.add(Tree(feature, threshold, left, right, is_leaf, output), 0.1)
     return ens
 
@@ -267,6 +298,41 @@ def pack_bytes(pack) -> int:
     return nbytes(pack.nodes, pack.values, pack.roots)
 
 
+def split_bytes(pack) -> int:
+    """Bytes of the split records the frombins kernel reads."""
+    return nbytes(pack.splits, pack.split_roots, pack.chunk_starts)
+
+
+def heap_model_times(Xd, smi) -> dict:
+    """The frombins kernel on a 1,000-tree x 10-leaf model of heap-shaped
+    trees (seed 0) over the serving documents: bit-equal to the plain
+    version, device times and bound, so the walk is not judged on chains
+    alone."""
+    from ranklib_tpu_torch.ops import forest_eval as fe
+
+    ens = balanced_ensemble(N_TREES, N_LEAVES, N_FEATURES,
+                            np.random.default_rng(0))
+    pack = ens.forest_pack(N_FEATURES, Xd.device)
+    binsT = fe.device_bins(Xd, pack.grid, pack.n_grid).to(
+        fe.ids_dtype(pack.n_grid)).contiguous()
+    plain = fe.forest_eval_frombins_plain(binsT, *pack.matmul_operands(),
+                                          tree_chunk=pack.tree_chunk)
+    got = fe.forest_eval_frombins(binsT, pack)
+    torch.cuda.synchronize()
+    check(torch.equal(got, plain), "frombins kernel not bit-equal to plain "
+                                   "on the heap-shaped model")
+    ms = event_ms(lambda: fe.forest_eval_frombins(binsT, pack), 20)
+    plain_ms = event_ms(lambda: fe.forest_eval_frombins_plain(
+        binsT, *pack.matmul_operands(), tree_chunk=pack.tree_chunk), 5)
+    walk = walk_ops(ens, Xd)
+    bnd = bound(nbytes(binsT, plain) + split_bytes(pack), walk)
+    print(f"  heap-shaped model ({N_TREES} trees x {N_LEAVES} leaves, "
+          f"max_depth {pack.max_depth}, {binsT.dtype} ids): frombins kernel "
+          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bit-equal; bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}, {walk} operations)  [{smi}]")
+    return {"ms": ms, "plain_ms": plain_ms, "bound": bnd}
+
+
 def pred_matrix(fpack, Xd, rows: int = 1024) -> torch.Tensor:
     """The predicate epilogue's input: 0/1 node tests ``x[fid] <= thr``
     ``[nch·TCM, N]`` uint8 of an f32 pack (NaN tests 0), built on the card
@@ -286,9 +352,10 @@ def small_case_checks(dev) -> None:
     from ranklib_tpu_torch.ops import forest_eval as fe
 
     def case(name, n_trees, n_leaves, F, N, seed, grid256=False,
-             lone_leaf=False):
+             lone_leaf=False, heap=False):
         rng = np.random.default_rng(seed)
-        ens = synthetic_ensemble(n_trees, n_leaves, F, rng)
+        ens = (balanced_ensemble if heap else synthetic_ensemble)(
+            n_trees, n_leaves, F, rng)
         if grid256:                       # 256 distinct thresholds on f0
             pool = np.linspace(-2.0, 2.0, 256).astype(np.float32)
             i = 0
@@ -328,6 +395,8 @@ def small_case_checks(dev) -> None:
             fb_p = fe.forest_eval_frombins_plain(
                 binsT, *pack.matmul_operands(), tree_chunk=pack.tree_chunk)
             max_err(fb_k, fb_p, f"frombins kernel ({dt}) vs plain")
+            check(torch.equal(fb_k, fb_p), f"case {name}: frombins kernel "
+                                           f"({dt}) not bit-equal to plain")
             max_err(fb_k, walk, f"frombins kernel ({dt}) vs f32 traversal")
         narrow = fe.device_bins_narrow(Xd, pack)
         torch.cuda.synchronize()
@@ -357,6 +426,9 @@ def small_case_checks(dev) -> None:
     case("B-odd", 23, 7, 13, 257, seed=11, lone_leaf=True)
     case("C-grid256", 60, 6, 12, 400, seed=5, grid256=True)
     case("D-one-doc", 7, 3, 5, 1, seed=3)
+    # chunks of 25 x 149 split records, too large to stage: the frombins
+    # kernel's walk through the read-only cache
+    case("E-big-trees", 30, 150, 40, 300, seed=9, heap=True)
 
 
 def lambda_small_checks(dev) -> float:
@@ -458,6 +530,35 @@ def hist_small_checks(dev) -> float:
                 worst = max(worst, float((got - want).abs().max()))
         print(f"  histogram ({N}, {F}, {B}) x uint8/int16/int32 x "
               f"bool/mult/zero: ok")
+    # ids < 0 add nothing, in the kernels and the plain versions alike;
+    # feature 0 included (its flat index would be negative)
+    N, F, B, C = 900, 7, 256, 3
+    grads = torch.from_numpy(rng.normal(size=(C, N)).astype(np.float32)).to(
+        dev)
+    w = torch.from_numpy(rng.integers(0, 4, (C, N)).astype(np.float32)).to(
+        dev)
+    for dt in (torch.int16, torch.int32):
+        ids = rng.integers(-3, B + 4, size=(F, N))
+        ids[0, :50] = -1
+        binsT = torch.from_numpy(ids).to(dt).contiguous().to(dev)
+        got = H.histogram(binsT, grads[0], w[0], B)
+        want = H.histogram_plain(binsT, grads[0], w[0], B)
+        mgot = H.histogram_multi(binsT, grads, w, B)
+        mwant = H.histogram_multi_plain(binsT, grads, w, B)
+        torch.cuda.synchronize()
+        kept = ((torch.from_numpy(ids) >= 0) & (torch.from_numpy(ids) < B))
+        check(torch.equal(got[..., 1], want[..., 1])
+              and torch.equal(mgot[..., 1], mwant[..., 1])
+              and float(want[..., 1].sum()) == float(
+                  (kept.to(dev) * w[0]).sum()),
+              f"negative {dt} ids: counts differ from plain")
+        check(torch.allclose(got[..., 0], want[..., 0], **HIST_TOL)
+              and torch.allclose(mgot[..., 0], mwant[..., 0], **HIST_TOL),
+              f"negative {dt} ids: sums differ from plain")
+        worst = max(worst, float((got - want).abs().max()),
+                    float((mgot - mwant).abs().max()))
+    print("  histogram and multi-bag histogram, int16/int32 ids in [-3, "
+          "B + 4): counts exact")
     print(f"  histogram small cases: max_abs_err={worst:.3e}, counts exact, "
           f"bit-reproducible")
     return worst
@@ -484,7 +585,7 @@ def scan_small_checks(dev) -> float:
     rng = np.random.default_rng(23)
     worst = 0.0
     for Cn in (1, 2):
-        for B in (8, 11, 256, 512):
+        for B in (8, 11, 256, 512, 1100):
             F = 9
             counts = rng.integers(0, 4, (Cn, F, B)).astype(np.float32)
             counts[:, :, 0] = 0                      # empty left sides
@@ -501,8 +602,19 @@ def scan_small_checks(dev) -> float:
                             rng.random((Cn, F)) > 0.3).to(dev)):
                         got = SS.best_splits(hist.contiguous(), mls, fm)
                         want = SS.best_splits_plain(hist, mls, fm)
+                        again = SS.best_splits(hist.contiguous(), mls, fm)
+                        pair = SS.best_splits(
+                            (hist[:1].contiguous(), hist[1:].contiguous())
+                            if Cn == 2 else (hist[:0].contiguous(),
+                                             hist.contiguous()), mls, fm)
                         torch.cuda.synchronize()
                         what = f"scan Cn={Cn} B={B} {kind} mls={mls}"
+                        check(all(torch.equal(a, b) for a, b in
+                                  zip(got, again)), f"{what}: two launches "
+                                                    f"differ")
+                        check(all(torch.equal(a, b) for a, b in
+                                  zip(got, pair)), f"{what}: the pair form "
+                                                   f"differs")
                         if kind == "int":
                             for a, b in zip(got, want):
                                 check(torch.equal(a.cpu(), b.cpu()),
@@ -529,7 +641,8 @@ def scan_small_checks(dev) -> float:
                         worst = max(worst, float(
                             (gk[fin] - gp[fin]).abs().max())
                             if fin.any() else 0.0)
-            print(f"  scan Cn={Cn} B={B}: int exact, float ok")
+            print(f"  scan Cn={Cn} B={B}: int exact, float ok, two launches "
+                  f"and the pair form identical")
     print(f"  split-scan small cases: max_abs_err (float) {worst:.3e}")
     return worst
 
@@ -801,22 +914,77 @@ def training_kernel_times(fit) -> tuple:
     for cn, h in ((1, out["root"][0][None]),
                   (2, torch.stack([out["root"][0], out["child"][0]]))):
         fmc = fm.expand(cn, F)
-        got = SS.best_splits(h, 1.0, fmc)
-        want = SS.best_splits_plain(h, 1.0, fmc)
-        torch.cuda.synchronize()
-        fin = torch.isfinite(want[0])
-        err = float((got[0][fin] - want[0][fin]).abs().max())
-        check(torch.allclose(got[0][fin], want[0][fin], rtol=1e-5, atol=0.0),
-              "split-scan gains differ at full width")
-        scans[cn] = (err, event_ms(lambda: SS.best_splits(h, 1.0, fmc), 50),
-                     event_ms(lambda: SS.best_splits_plain(h, 1.0, fmc), 10))
-        print(f"  split scan [{cn}, {F}, {B}, 2]: kernel route "
-              f"{scans[cn][1]:.4f} ms vs plain {scans[cn][2]:.4f} ms; "
-              f"max_abs_err {err:.3e}")
+        scans[cn] = scan_times(h, fmc, f"[{cn}, {F}, {B}, 2]",
+                               pair=None if cn == 1 else tuple(
+                                   x[None] for x in (out["root"][0],
+                                                     out["child"][0])))
     # inclusive prefix sums of both channels and the gain, ~10 operations a
-    # (node, feature, bin); the best (gain, feature, bin, ok) a node out
-    scans["bound"] = bound(nbytes(h) + 2 * 13, 10 * h[..., 0].numel())
+    # (node, feature, bin) of an unmasked row; its bytes read once and the
+    # best (gain, feature, bin, ok) of each node written
+    scans["bound"] = scan_bound(h, fm.expand(2, F))
     return out, scans
+
+
+def scan_bound(h, fmask) -> tuple:
+    """The split scan's bound on ``h [Cn, F, B, 2]`` under ``fmask``: the
+    unmasked rows read once (masked ones are never read), the mask, and 13
+    bytes a node out; ~10 operations a bin of an unmasked row."""
+    rows = int(fmask.sum())
+    row_bytes = h.shape[2] * 2 * 4
+    return bound(rows * row_bytes + fmask.shape[0] * fmask.shape[1]
+                 + 13 * h.shape[0], 10 * rows * h.shape[2])
+
+
+def scan_times(h, fmask, what: str, pair=None) -> tuple:
+    """Split scan on ``h [Cn, F, B, 2]`` (or the ``pair`` whose nodes it
+    stacks) against the plain version: gains to rtol 1e-5 on these float
+    histograms, every output exactly on their integer-valued rounding, two
+    launches and the pair form identical. Returns (max_abs_err, the
+    kernel's own device ms — CUDA events around 20 back-to-back launches
+    of the bare ctypes call, divided by 20 —, the plain version's ms, the
+    wrapper's ms by CUDA events, its host µs a call)."""
+    from ranklib_tpu_torch.ops import split_scan as SS
+
+    arg = h if pair is None else pair
+    got = SS.best_splits(arg, 1.0, fmask)
+    want = SS.best_splits_plain(h, 1.0, fmask)
+    again = SS.best_splits(arg, 1.0, fmask)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want[0])
+    check(torch.equal(got[3], want[3]), f"split scan {what}: ok flags differ")
+    check(torch.allclose(got[0][fin], want[0][fin], rtol=1e-5, atol=0.0),
+          f"split-scan gains differ at {what}")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"split scan {what}: two launches differ")
+    err = float((got[0][fin] - want[0][fin]).abs().max()) if fin.any() \
+        else 0.0
+    ints = h.round()
+    iarg = ints if pair is None else tuple(p.round() for p in pair)
+    for a, b in zip(SS.best_splits(iarg, 1.0, fmask),
+                    SS.best_splits_plain(ints, 1.0, fmask)):
+        check(torch.equal(a, b), f"split scan {what}: not exact on an "
+                                 f"integer-valued histogram")
+    if pair is not None:
+        check(all(torch.equal(a, b) for a, b in
+                  zip(got, SS.best_splits(h, 1.0, fmask))),
+              f"split scan {what}: pair and stacked forms differ")
+    args, _ = SS.launch_args(arg, 1.0, fmask)
+    fn = SS._kernels().split_scan
+    check(fn(*args) == 0, f"split scan {what}: launch failed")
+
+    def alone():
+        for _ in range(20):
+            fn(*args)
+
+    ms = event_ms(alone, 20) / 20
+    plain_ms = event_ms(lambda: SS.best_splits_plain(h, 1.0, fmask), 10)
+    route_ms = event_ms(lambda: SS.best_splits(arg, 1.0, fmask), 50)
+    host = host_us(lambda: SS.best_splits(arg, 1.0, fmask), 200)
+    print(f"  split scan {what}{' as a pair' if pair else ''}: kernel "
+          f"{ms:.5f} ms (device, 20 launches) vs plain {plain_ms:.4f} ms; "
+          f"the wrapper {route_ms:.5f} ms by events, {host:.1f} us of host "
+          f"time a call; max_abs_err {err:.3e}; exact on integer values")
+    return err, ms, plain_ms, route_ms, host
 
 
 def tree_children_times(binsT, grad, dw, arr, B) -> float:
@@ -901,7 +1069,6 @@ def round_breakdown(fit, dev) -> dict:
                         arr, B)
     child = data.doc_mask & (arr.node_of_doc == arr.node_of_doc[0])
     h1 = H.histogram(data.binned_T, lam, data.doc_mask, B)[None]
-    h2 = torch.cat([h1, h1])
     fm1, fm2 = data.feat_mask[None], data.feat_mask.expand(2, -1)
     vb = data.vbinned
 
@@ -930,7 +1097,8 @@ def round_breakdown(fit, dev) -> dict:
         "  histogram child": wall_ms(lambda: H.histogram(
             data.binned_T, lam, child, B), 10),
         "  scan [1]": wall_ms(lambda: SS.best_splits(h1, 1.0, fm1), 10),
-        "  scan [2]": wall_ms(lambda: SS.best_splits(h2, 1.0, fm2), 10),
+        "  scan [2]": wall_ms(lambda: SS.best_splits((h1, h1), 1.0, fm2),
+                              10),
         "leaf_outputs": wall_ms(lambda: leaf_outputs(
             arr.node_of_doc, lam, w, M, True, data.doc_mask), 10),
         "score update": wall_ms(lambda: scores[:-1] + 0.1 * out.index_select(
@@ -1329,6 +1497,27 @@ def rf_kernel_times(rf) -> dict:
           f"sync) {out['root_host_us']:.1f} us")
     out["step_ms"] = forest_children_times(rf)
     return out
+
+
+def rf_scan_times(rf) -> tuple:
+    """The split scan at the Random Forest's width: the group's root
+    histograms and a ~10% child's, as the pair growth passes it
+    ([2 x bags, 136, 256, 2]), under the bags' feature masks."""
+    from ranklib_tpu_torch.ops import histogram as H
+
+    binned_T, grads, doc_w = rf["binned_T"], rf["grads"], rf["doc_w"]
+    keep = np.random.default_rng(15).random(tuple(doc_w.shape)) < 0.1
+    child_w = doc_w * torch.from_numpy(keep).to(doc_w.device)
+    pair = (H.histogram_multi(binned_T, grads, doc_w, 256),
+            H.histogram_multi(binned_T, grads, child_w, 256))
+    h = torch.cat(pair)
+    fm = torch.cat([rf["fmask"], rf["fmask"]])
+    res = scan_times(h, fm, f"[{h.shape[0]}, {h.shape[1]}, 256, 2]", pair)
+    bnd = scan_bound(h, fm)
+    print(f"  split scan at the RF width: bound {bnd[0]:.4f} ms ({bnd[1]}; "
+          f"{int(fm.sum())} of {fm.numel()} rows unmasked; all rows "
+          f"{nbytes(h) / HBM_BYTES_S * 1e3:.4f} ms)")
+    return res + (bnd,)
 
 
 def forest_children_times(rf) -> float:
@@ -1931,8 +2120,10 @@ def main() -> int:
     plain_b = fe.forest_eval_bins_plain(
         Xd, pack.grid, *pack.matmul_operands(), n_grid=pack.n_grid,
         tree_chunk=pack.tree_chunk)
-    err_fb = max_err(fe.forest_eval_frombins(binsT, pack), plain_fb,
-                     "frombins kernel vs plain (262144 docs)")
+    fb = fe.forest_eval_frombins(binsT, pack)
+    err_fb = max_err(fb, plain_fb, "frombins kernel vs plain (262144 docs)")
+    check(torch.equal(fb, plain_fb), "the frombins kernel is not bit-equal "
+                                     "to its plain version at full width")
     err_b = max_err(fe.forest_eval_bins(Xd, pack), plain_b,
                     "bins kernel vs plain (262144 docs)")
     max_err(torch.from_numpy(scores_host), plain_b.cpu(),
@@ -1995,12 +2186,13 @@ def main() -> int:
     # kernel's binary search a value)
     walk = walk_ops(ens, Xd)
     steps = int(np.ceil(np.log2(pack.n_grid + 1)))
-    bound_fb = bound(nbytes(binsT, plain_fb) + pack_bytes(pack), walk)
+    bound_fb = bound(nbytes(binsT, plain_fb) + split_bytes(pack), walk)
     bound_b = bound(nbytes(Xd, pack.grid, plain_b) + pack_bytes(pack),
                     walk + Xd.numel() * steps)
     print(f"  bounds: frombins {bound_fb[0]:.4f} ms ({bound_fb[1]}), bins "
           f"{bound_b[0]:.4f} ms ({bound_b[1]}); {walk} operations of the "
           f"walk")
+    heap_model_times(Xd, smi)
 
     print("== phase 5: training path at full width "
           f"({FIT_QUERIES} queries x {N_FEATURES} features, LambdaMART "
@@ -2032,6 +2224,7 @@ def main() -> int:
     print(" card vs CPU (4 bags x 8 leaves, 200 queries)")
     rf_card_vs_cpu(dev)
     rf_hists = rf_kernel_times(rf)
+    rf_scan_times(rf)
     del rf["binned_T"], rf["grads"], rf["doc_w"], rf["fmask"]
     print(f"  RF fit {rf['wall']:.3f} s, peak {rf['peak'] / 2**30:.2f} GiB  "
           f"[{smi}]")

@@ -21,24 +21,43 @@
 //
 // How: the TPU kernels turn the walk into one-hot selection and path
 // matmuls because the MXU is the only fast unit there. Here one thread
-// walks one document through every tree from the root, over per-node
-// records (feature or -1 at a leaf, node test, left, right) packed once per
-// model (gbdt/ensemble.py _pack_walk); the node test is the node bin, or
-// the threshold's f32 bits on the f32 route. Scores add in f32 in tree
-// order, one partial per chunk of `tree_chunk` trees, the order the plain
-// PyTorch versions use, so kernel and plain version agree bit for bit.
+// walks one document through every tree from the root. Scores add in f32
+// in tree order, one partial per chunk of `tree_chunk` trees, the order
+// the plain PyTorch versions use, so kernel and plain version agree bit for
+// bit.
 //
-// What bounds it on the H100: per document, ~depth dependent loads per
-// tree (node record, then the document's bin or value of that node's
-// feature). The node records of a 1,000-tree model (~19K x 16 B) stay in
-// L1/L2 and are read by every warp, so the walk is bound by load latency
-// and warp divergence, not by HBM. The documents' bins are staged once per
-// block in shared memory (int16, feature-major), so the walk's bin reads
-// never leave the SM; the staging reads of binsT / X are coalesced.
-// Binning on the device is a binary search per value over at most 256 grid
-// entries. The f32 route stages f32 values the same way up to a 48 KB
-// budget (every feature at 136 features); features past it are read from
-// the document's row in global memory, so any width runs.
+// The bins and f32 kernels walk per-slot records (feature or -1 at a leaf,
+// node test, left, right; gbdt/ensemble.py _pack_walk), the node test being
+// the node bin or the threshold's f32 bits, with leaf values in a second
+// array: per tree ~depth + 1 dependent loads of a 16-byte record from L1/L2
+// (a 1,000-tree model's ~19K records do not fit L1 beside the staged
+// inputs), each followed by the document's bin or value of that feature.
+// The documents' bins are staged once per block in shared memory (int16,
+// feature-major), so those reads never leave the SM; the staging reads of
+// binsT / X are coalesced. Binning on the device is a binary search per
+// value over at most 256 grid entries. The f32 route stages f32 values the
+// same way up to a 48 KB budget (every feature at 136 features); features
+// past it are read from the document's row in global memory, so any width
+// runs.
+//
+// The frombins kernel (the default serving route, and the selection half
+// of the split route) walks split records instead (_pack_splits): one
+// 16-byte record an internal node that carries both children, a child
+// being a leaf's w*output itself, so a tree costs one record per test and
+// no leaf visit; a chunk of tree_chunk trees is one contiguous run of
+// records (9 a 10-leaf tree, ~3.6 KB a chunk), which every block copies
+// into shared memory with cp.async, double-buffered, the next chunk landing
+// while its warps walk this one; uint8 ids are staged as bytes (34.8 KB
+// for 256 documents x 136 features), so five blocks of 256 documents fit
+// an SM. A warp walks each tree in lockstep, so its lanes read one record
+// or a few, and the same feature's ids. What bounds it: the dependent
+// shared-memory loads and the instructions of each test, repeated to the
+// deepest walk of the warp's 32 documents (on the H100 it was measured
+// against variants: records read through L1 instead, 2 trees in flight a
+// thread, lanes running through a chunk at their own pace, int16 staging,
+// 64/128 documents a block, id rows padded against bank conflicts;
+// PERF.md). Chunks too large to stage (more than 64 KB for both buffers)
+// are walked from the read-only cache.
 //
 // The split route's binning pass (bins_only_kernel) transposes X [N, F]
 // through a 32 x 32 shared-memory tile, so both its f32 reads and its id
@@ -117,23 +136,103 @@ __device__ __forceinline__ int bin_of(const float* __restrict__ row, int n,
   return lo;
 }
 
-template <typename BinT>
-__global__ void frombins_kernel(const BinT* __restrict__ binsT,
-                                int64_t n_docs, int n_features, Forest forest,
-                                float* __restrict__ out) {
-  extern __shared__ int16_t sbins[];             // [n_features][blockDim.x]
+// ---- the frombins kernel: split records staged a tree chunk at a time ----
+
+// The split records of gbdt/ensemble.py _pack_splits: one int4 an internal
+// node (feature, node bin | left-is-leaf << 16 | right-is-leaf << 17, left,
+// right), a child being a leaf's w*output bits or a record index counted
+// from the first record of its chunk of tree_chunk trees.
+struct SplitForest {
+  const int4* recs;
+  const int* roots;          // [n_trees], within the tree's chunk
+  const int* starts;         // [n_chunks + 1], the chunks' first records
+  int n_trees, tree_chunk, max_tests, chunk_splits;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+// Copies chunk c's records into dst (every thread of the block takes part).
+__device__ __forceinline__ void stage_chunk(int4* dst, const SplitForest& s,
+                                            int c) {
+  const int lo = __ldg(s.starts + c);
+  const int n = __ldg(s.starts + c + 1) - lo;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    cp_async16(dst + i, s.recs + lo + i);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// One tree from record `node` of the chunk `cr` for the document whose ids
+// are ids[f * stride]: the leaf's w*output, or 0 if no leaf is reached in
+// max_tests tests (a malformed pack; the old walk added 0 there too).
+template <bool kStaged, typename IdT>
+__device__ __forceinline__ float walk_splits(const int4* cr, int node,
+                                             const IdT* ids, int stride,
+                                             int max_tests) {
+  for (int d = 0; d < max_tests; ++d) {
+    const int4 r = kStaged ? cr[node] : __ldg(cr + node);
+    const int right = static_cast<int>(ids[r.x * stride]) > (r.y & 0xFFFF);
+    const int next = right ? r.w : r.z;
+    if ((r.y >> (16 + right)) & 1) return __int_as_float(next);
+    node = next;
+  }
+  return 0.0f;
+}
+
+template <typename IdT, bool kStaged>
+__global__ void frombins_kernel(const IdT* __restrict__ binsT,
+                                int64_t n_docs, int n_features,
+                                SplitForest s, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int tb = blockDim.x;
+  // [2][chunk_splits] staged records (kStaged), then [n_features][tb] ids
+  // of the block's documents, as they came (bytes when uint8)
+  int4* srec = reinterpret_cast<int4*>(smem);
+  IdT* sids = reinterpret_cast<IdT*>(
+      smem + (kStaged ? 2 * static_cast<size_t>(s.chunk_splits) * 16 : 0));
   const int64_t doc0 = static_cast<int64_t>(blockIdx.x) * tb;
+  const int n_chunks = (s.n_trees + s.tree_chunk - 1) / s.tree_chunk;
+  if constexpr (kStaged) stage_chunk(srec, s, 0);   // lands while ids load
   for (int i = threadIdx.x; i < n_features * tb; i += tb) {
     const int f = i / tb;
-    const int64_t doc = doc0 + (i - f * tb);
-    sbins[i] = doc < n_docs
-        ? static_cast<int16_t>(binsT[static_cast<int64_t>(f) * n_docs + doc])
-        : int16_t{0};
+    const int d = i - f * tb;
+    const int64_t doc = doc0 + d;
+    sids[f * tb + d] =
+        doc < n_docs ? binsT[static_cast<int64_t>(f) * n_docs + doc] : IdT{0};
   }
-  __syncthreads();
+  if constexpr (!kStaged) __syncthreads();
+  const IdT* ids = sids + threadIdx.x;
+  float score = 0.0f;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int t0 = c * s.tree_chunk;
+    const int t1 = min(t0 + s.tree_chunk, s.n_trees);
+    const int4* cr;
+    if constexpr (kStaged) {
+      if (c + 1 < n_chunks) {        // the next chunk into the other buffer
+        stage_chunk(srec + ((c + 1) & 1) * s.chunk_splits, s, c + 1);
+        asm volatile("cp.async.wait_group 1;\n" ::);
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::);
+      }
+      __syncthreads();
+      cr = srec + (c & 1) * s.chunk_splits;
+    } else {
+      cr = s.recs + __ldg(s.starts + c);
+    }
+    float partial = 0.0f;
+    for (int t = t0; t < t1; ++t) {
+      partial += walk_splits<kStaged>(cr, __ldg(s.roots + t), ids, tb,
+                                      s.max_tests);
+    }
+    score += partial;
+    if constexpr (kStaged) __syncthreads();  // before its buffer is refilled
+  }
   const int64_t doc = doc0 + threadIdx.x;
-  if (doc < n_docs) out[doc] = walk_bins(sbins + threadIdx.x, tb, forest);
+  if (doc < n_docs) out[doc] = score;
 }
 
 __global__ void bins_kernel(const float* __restrict__ X, int64_t n_docs,
@@ -299,20 +398,44 @@ Forest make_forest(const void* nodes, const void* values, const void* roots,
                 tree_chunk};
 }
 
-template <typename BinT>
+// The frombins launch. Documents a block: of 256, 128, 64 and 32, the
+// count that keeps the most threads resident on an SM (at most 2,048
+// threads and 32 blocks, 233,472 bytes of shared memory less 1 KB a block;
+// the larger count on a tie). A chunk's records are staged
+// (double-buffered) when both buffers take at most kMaxStagedRecords bytes
+// and fit beside the ids; else the walk reads them through the read-only
+// cache.
+constexpr size_t kMaxStagedRecords = 64 * 1024;
+constexpr size_t kMaxSmem = 232448;
+constexpr size_t kSmSmem = 233472;
+
+template <typename IdT>
 int launch_frombins(const void* binsT, int64_t n_docs, int n_features,
-                    const void* nodes, const void* values, const void* roots,
-                    int n_trees, int max_depth, int tree_chunk, void* out,
-                    void* stream) {
+                    const SplitForest& s, void* out, void* stream) {
+  const size_t recs = 2 * static_cast<size_t>(s.chunk_splits) * 16;
+  int tb = 0, resident = 0;
+  bool staged = false;
   size_t smem = 0;
-  const int tb = docs_per_block(n_features, &smem);
-  cudaError_t err = allow_smem(frombins_kernel<BinT>, smem);
+  for (int docs = 256; docs >= 32; docs >>= 1) {
+    const size_t ids = static_cast<size_t>(n_features) * docs * sizeof(IdT);
+    if (ids > kMaxSmem) continue;
+    const bool stage = recs <= kMaxStagedRecords && ids + recs <= kMaxSmem;
+    const size_t bytes = ids + (stage ? recs : 0);
+    const int blocks = std::min({2048 / docs, 32,
+                                 static_cast<int>(kSmSmem / (bytes + 1024))});
+    if (blocks * docs > resident) {
+      tb = docs, resident = blocks * docs;
+      staged = stage, smem = bytes;
+    }
+  }
+  if (tb == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = staged ? frombins_kernel<IdT, true>
+                             : frombins_kernel<IdT, false>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = static_cast<unsigned>((n_docs + tb - 1) / tb);
-  frombins_kernel<BinT><<<blocks, tb, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const BinT*>(binsT), n_docs, n_features,
-      make_forest(nodes, values, roots, n_trees, max_depth, tree_chunk),
+  kernel<<<blocks, tb, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const IdT*>(binsT), n_docs, n_features, s,
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
@@ -355,26 +478,38 @@ int launch_pred(const void* predT, int64_t n_docs, int n_chunks, int tcm,
 // is the caller's cudaStream_t. Nothing here allocates or synchronises.
 // Each returns the cudaError_t of the launch (0 = success).
 
+// frombins: binsT [n_features, n_docs] uint8 or int16 ids; the split
+// records of _pack_splits (splits [S, 4], roots [n_trees] and starts
+// [n_chunks + 1] int32), max_tests the most tests on a root-to-leaf path
+// (at least 1), chunk_splits the most records in a chunk.
 extern "C" int forest_eval_frombins_u8(const void* binsT, int64_t n_docs,
-                                       int n_features, const void* nodes,
-                                       const void* values, const void* roots,
-                                       int n_trees, int max_depth,
-                                       int tree_chunk, void* out,
-                                       void* stream) {
-  return launch_frombins<uint8_t>(binsT, n_docs, n_features, nodes, values,
-                                  roots, n_trees, max_depth, tree_chunk, out,
-                                  stream);
+                                       int n_features, const void* splits,
+                                       const void* roots, const void* starts,
+                                       int n_trees, int tree_chunk,
+                                       int max_tests, int chunk_splits,
+                                       void* out, void* stream) {
+  return launch_frombins<uint8_t>(
+      binsT, n_docs, n_features,
+      SplitForest{static_cast<const int4*>(splits),
+                  static_cast<const int*>(roots),
+                  static_cast<const int*>(starts), n_trees, tree_chunk,
+                  max_tests, chunk_splits},
+      out, stream);
 }
 
 extern "C" int forest_eval_frombins_i16(const void* binsT, int64_t n_docs,
-                                        int n_features, const void* nodes,
-                                        const void* values, const void* roots,
-                                        int n_trees, int max_depth,
-                                        int tree_chunk, void* out,
-                                        void* stream) {
-  return launch_frombins<int16_t>(binsT, n_docs, n_features, nodes, values,
-                                  roots, n_trees, max_depth, tree_chunk, out,
-                                  stream);
+                                        int n_features, const void* splits,
+                                        const void* roots, const void* starts,
+                                        int n_trees, int tree_chunk,
+                                        int max_tests, int chunk_splits,
+                                        void* out, void* stream) {
+  return launch_frombins<int16_t>(
+      binsT, n_docs, n_features,
+      SplitForest{static_cast<const int4*>(splits),
+                  static_cast<const int*>(roots),
+                  static_cast<const int*>(starts), n_trees, tree_chunk,
+                  max_tests, chunk_splits},
+      out, stream);
 }
 
 extern "C" int forest_eval_bins(const void* X, int64_t n_docs, int n_features,

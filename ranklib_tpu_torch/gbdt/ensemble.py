@@ -102,6 +102,7 @@ class TreeEnsemble:
         self._mm = None
         self._mmb = None
         self._walk = None
+        self._splits = None
         self._bins_meta = None
         self._gridnp = None
         self._dev_packs = {}
@@ -257,6 +258,63 @@ class TreeEnsemble:
                                 np.asarray(roots, np.int32), max_depth))
         return self._walk[1]
 
+    def _pack_splits(self, n_features: int):
+        """(splits [S, 4] int32, roots [T] int32, chunk_starts [nch + 1]
+        int32): the split records the frombins kernel walks, one per
+        internal node and none for leaves, derived from :meth:`_pack_walk`
+        (the same node bins, the same leaf values to the bit). A record is
+        (feature, node bin | left-is-leaf << 16 | right-is-leaf << 17, left,
+        right); a child is a leaf's w·output as f32 bits, else its record's
+        index counted from the first record of the tree's chunk of
+        ``_TREE_CHUNK`` trees, and ``roots`` count the same way, so a chunk
+        is one contiguous run ``chunk_starts[c] .. chunk_starts[c + 1]``. A
+        one-leaf tree is one record whose node bin 0xFFFF sends every
+        document left, to its leaf."""
+        key = ("splits", n_features)
+        if self._splits is None or self._splits[0] != key:
+            nodes, values, roots, _ = self._pack_walk(n_features)
+            vbits = values.view(np.int32)
+            ends = np.append(roots[1:], len(nodes))
+            recs, troots, starts = [], np.zeros(len(roots), np.int32), []
+            n = 0
+            for t, (lo, hi) in enumerate(zip(roots, ends)):
+                if t % self._TREE_CHUNK == 0:
+                    starts.append(n)
+                base = n - starts[-1]
+                rec = nodes[lo:hi]
+                split = rec[:, 0] >= 0
+                troots[t] = base
+                if not split[0]:                  # a one-leaf tree
+                    leaf = vbits[lo]
+                    recs.append(np.array([[0, 0xFFFF | 3 << 16, leaf, leaf]],
+                                         np.int32))
+                    n += 1
+                    continue
+                idx = np.cumsum(split) - 1 + base  # record of each split slot
+
+                def child(slots):
+                    rel = slots - lo
+                    return np.where(split[rel], idx[rel], vbits[slots]), \
+                        ~split[rel]
+
+                s = rec[split]
+                left, lleaf = child(s[:, 2])
+                right, rleaf = child(s[:, 3])
+                out = np.empty((len(s), 4), np.int32)
+                out[:, 0] = s[:, 0]
+                if np.any(s[:, 1] > 0xFFFF):
+                    raise RankLibError(f"tree {t + 1}: a node bin past "
+                                       f"65535 does not fit a split record")
+                out[:, 1] = s[:, 1] | lleaf << 16 | rleaf << 17
+                out[:, 2] = left
+                out[:, 3] = right
+                recs.append(out)
+                n += len(s)
+            starts.append(n)
+            self._splits = (key, (np.concatenate(recs), troots,
+                                  np.asarray(starts, np.int32)))
+        return self._splits[1]
+
     def _pack(self):
         """[T, M] traversal arrays of :func:`_ensemble_eval` (ref
         ``_pack``, :251): feat, thr, left, right, leaf, out, weights, depth."""
@@ -325,16 +383,20 @@ class TreeEnsemble:
             *mm, n_grid = self._pack_matmul_bins(n_features)
             grid, fid_full, nodebin, PmQc, csQc, plenc, outwc = mm
             nodes, values, roots, max_depth = self._pack_walk(n_features)
+            splits, split_roots, chunk_starts = self._pack_splits(n_features)
             dev = functools.partial(_upload, device=device)
             self._dev_packs[key] = ForestPack(
                 n_features=n_features, n_grid=int(n_grid),
                 tree_chunk=self._TREE_CHUNK,
                 nodes_per_tree=self._nodes_per_tree(),
                 max_depth=int(max_depth),
+                chunk_splits=int(np.diff(chunk_starts).max()),
                 grid=dev(grid), fid_full=dev(fid_full),
                 nodebin_full=dev(nodebin), PmQc=dev(PmQc), csQc=dev(csQc),
                 plenc=dev(plenc), outwc=dev(outwc), nodes=dev(nodes),
-                values=dev(values), roots=dev(roots))
+                values=dev(values), roots=dev(roots), splits=dev(splits),
+                split_roots=dev(split_roots),
+                chunk_starts=dev(chunk_starts))
         return self._dev_packs[key]
 
     def full_pack(self, n_features: int, device: torch.device) -> FullPack:

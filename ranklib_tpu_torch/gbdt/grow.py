@@ -9,8 +9,8 @@ learning/tree/RegressionTree.java:~60, FeatureHistogram.findBestSplit:~300).
   (feature-major) max on ties.
 * Children by subtraction: the right child's histogram is built directly,
   the left one is parent − right (ref: FeatureHistogram
-  construct-from-parent/sibling:~150), and both are scanned in ONE stacked
-  ``[2, F, B, 2]`` call.
+  construct-from-parent/sibling:~150), and both are scanned in ONE call
+  that takes the two as a pair (no stacked copy).
 
 The tree lives in ``M = 2·n_leaves − 1`` fixed slots; the last iteration,
 whose children can never be popped, is peeled and builds no histograms.
@@ -153,8 +153,8 @@ def grow_tree(binned_T: torch.Tensor, grad: torch.Tensor, n_bins: int,
             C_r = hist_r[0, :, 1].sum()
             SQ_r = (w_r * grad * grad).sum()
             S_l, SQ_l, C_l = st[0] - S_r, st[1] - SQ_r, st[2] - C_r
-            hist_lr = torch.stack([hist_l, hist_r])
-            g2, f2, b2, ok2 = best_splits(hist_lr, mls, fm2)
+            g2, f2, b2, ok2 = best_splits((hist_l[None], hist_r[None]), mls,
+                                          fm2)
             _upd(hist, la, hist_l[None], valid)
             _upd(hist, ra, hist_r[None], valid)
             _upd(stats, la, torch.stack([S_l, SQ_l, C_l])[None], valid)
@@ -234,7 +234,8 @@ def grow_forest(binned_T: torch.Tensor, grads: torch.Tensor, n_bins: int,
 
     As in the reference: node statistics (S, SQ, C) are sums over the doc
     axis, not histogram rows; both children of every bag go through one
-    stacked ``[2·Cb, F, B, 2]`` scan; node histograms live in an
+    scan of the pair (left ``[Cb, F, B, 2]``, right ``[Cb, F, B, 2]``),
+    2·Cb nodes, with no stacked copy; node histograms live in an
     iteration-indexed buffer — iteration k writes its children at rows
     2k+1 and 2k+2 and ``hidx`` maps each bag's slot to its row (rows a
     slot never maps are never read, so the buffer starts uninitialised)."""
@@ -320,8 +321,7 @@ def grow_forest(binned_T: torch.Tensor, grads: torch.Tensor, n_bins: int,
             S_l = pstats[:, 0] - S_r
             SQ_l = pstats[:, 1] - SQ_r
             C_l = pstats[:, 2] - C_r
-            g2, f2, b2, ok2 = best_splits(torch.cat([hist_l, hist_r]), mls,
-                                          fm2)
+            g2, f2, b2, ok2 = best_splits((hist_l, hist_r), mls, fm2)
             # unconditional row writes: a row an invalid bag never maps
             # is never read
             hist[:, 2 * k + 1] = hist_l

@@ -29,10 +29,11 @@ The bin-space kernels route a document left iff ``bin <= nodebin``, the
 f32 kernel iff ``x <= t`` (NaN goes right); all sum ``w·leaf``. The TPU
 kernels express that as one-hot selection and path matmuls for the MXU
 (the f32 one through three exact bf16 planes); the CUDA kernels walk each
-tree from the root, one thread per document, over per-node records packed
-once per model (bound on the H100 by dependent L1/L2 loads and warp
-divergence, not HBM; the document's bins or values are staged in shared
-memory once per block — see the .cu header).
+tree from the root, one thread per document, over records packed once per
+model, with the document's ids or values staged in shared memory once per
+block. The frombins kernel walks split records (a leaf's value inside its
+parent's record) staged a tree chunk at a time in shared memory; the
+others walk per-slot records from L1/L2 (see the .cu header).
 
 Beside each kernel, a plain PyTorch version of the same function takes the
 reference's ``_pack_matmul_bins`` (or ``_pack_matmul``) operands and
@@ -75,15 +76,21 @@ class ForestPack:
     ``[nch·TCM]``, ``PmQc [nch, TCM, TCL]``, ``csQc``/``plenc``/``outwc``
     ``[nch, TCL]`` with TCL = tree_chunk·L; tree j of a chunk owns P−Q rows
     ``j·M .. (j+1)·M`` (M = ``nodes_per_tree``). The traversal layout feeds
-    the kernels: ``nodes [S, 4]`` int32 (feature or −1 at a leaf, node bin,
-    left, right — absolute slot indices), ``values [S]`` f32 (w·output at
-    leaves, 0 elsewhere), ``roots [T]`` int32."""
+    the bins kernel: ``nodes [S, 4]`` int32 (feature or −1 at a leaf, node
+    bin, left, right — absolute slot indices), ``values [S]`` f32 (w·output
+    at leaves, 0 elsewhere), ``roots [T]`` int32. The frombins kernel walks
+    split records (``TreeEnsemble._pack_splits``): ``splits [S', 4]`` int32
+    (feature, node bin | leaf flags, left, right; a child is a leaf's
+    w·output bits or a record index within the tree's chunk),
+    ``split_roots [T]`` int32 (within the chunk), ``chunk_starts [nch +
+    1]`` int32, and ``chunk_splits``, the most records in a chunk."""
 
     n_features: int
     n_grid: int
     tree_chunk: int
     nodes_per_tree: int
     max_depth: int
+    chunk_splits: int
     grid: torch.Tensor
     fid_full: torch.Tensor
     nodebin_full: torch.Tensor
@@ -94,6 +101,9 @@ class ForestPack:
     nodes: torch.Tensor
     values: torch.Tensor
     roots: torch.Tensor
+    splits: torch.Tensor
+    split_roots: torch.Tensor
+    chunk_starts: torch.Tensor
 
     @property
     def device(self) -> torch.device:
@@ -261,7 +271,8 @@ def _kernels() -> ctypes.CDLL:
     lib = _build.kernel_library("forest_eval")
     walk = [_vp, _vp, _vp, _int, _int, _int, _vp, _vp]
     for fn in (lib.forest_eval_frombins_u8, lib.forest_eval_frombins_i16):
-        fn.argtypes = [_vp, _i64, _int, *walk]
+        fn.argtypes = [_vp, _i64, _int, _vp, _vp, _vp, _int, _int, _int,
+                       _int, _vp, _vp]
         fn.restype = _int
     lib.forest_eval_bins.argtypes = [_vp, _i64, _int, _vp, _int, _int, *walk]
     lib.forest_eval_bins.restype = _int
@@ -322,7 +333,13 @@ def forest_eval_frombins(binsT: torch.Tensor, pack: ForestPack) -> torch.Tensor:
         fn = (lib.forest_eval_frombins_u8 if binsT.dtype == torch.uint8
               else lib.forest_eval_frombins_i16)
         with torch.cuda.device(binsT.device):
-            _raise_on(fn(binsT.data_ptr(), N, F, *_walk_args(pack, out)),
+            _raise_on(fn(binsT.data_ptr(), N, F, pack.splits.data_ptr(),
+                         pack.split_roots.data_ptr(),
+                         pack.chunk_starts.data_ptr(),
+                         int(pack.split_roots.shape[0]), pack.tree_chunk,
+                         max(pack.max_depth, 1), pack.chunk_splits,
+                         out.data_ptr(),
+                         torch.cuda.current_stream(out.device).cuda_stream),
                       name)
         forest_eval_frombins.launches += 1
     return out

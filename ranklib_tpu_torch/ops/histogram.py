@@ -55,14 +55,16 @@ def histogram_plain(binned_T: torch.Tensor, grad: torch.Tensor,
     """The reference's ``hist_xla`` as one flat ``index_add_``:
     ``binned_T [F, N]`` integer ids (upcast to int64 first: a uint8
     compare against 256 wraps), ``grad [N]`` f32, ``mask [N]`` bool or f32
-    weights → ``[F, B, 2]`` f32 (Σw·g, Σw). Ids ≥ B add nothing."""
+    weights → ``[F, B, 2]`` f32 (Σw·g, Σw). Ids < 0 or ≥ B add nothing, as
+    in the kernels and the reference's radix kernel; the index is clamped
+    at both ends, so a dropped id never lands in a neighbouring feature."""
     F, N = binned_T.shape
     B = int(n_bins)
     binned = binned_T.to(torch.int64)
     m = mask.to(torch.float32)
     ids = (torch.arange(F, device=binned.device)[:, None] * B
-           + torch.clamp(binned, max=B - 1)).reshape(-1)
-    keep = (binned < B).reshape(-1)
+           + torch.clamp(binned, min=0, max=B - 1)).reshape(-1)
+    keep = ((binned >= 0) & (binned < B)).reshape(-1)
     data = torch.stack([(grad * m).expand(F, N).reshape(-1),
                         m.expand(F, N).reshape(-1)], dim=-1)
     data = torch.where(keep[:, None], data, 0.0)
@@ -201,7 +203,7 @@ def histogram(binned_T: torch.Tensor, grad: torch.Tensor, mask: torch.Tensor,
               n_bins: int) -> torch.Tensor:
     """``[F, B, 2]`` f32 (Σw·g, Σw) histogram of ``binned_T [F, N]``
     (contiguous uint8/int16/int32 ids) under ``grad [N]`` f32 and ``mask
-    [N]`` bool or f32 weights; ids ≥ B add nothing."""
+    [N]`` bool or f32 weights; ids < 0 or ≥ B add nothing."""
     name = "histogram"
     _check_ids(name, binned_T)
     F, N = binned_T.shape
@@ -235,8 +237,8 @@ def histogram_multi(binned_T: torch.Tensor, grads: torch.Tensor,
     """``[C, F, B, 2]`` f32 (Σw_c·g_c, Σw_c) histograms of C bags over one
     id matrix ``binned_T [F, N]`` (contiguous uint8/int16/int32):
     ``grads [C, N]`` f32 pseudo-responses, ``weights [C, N]`` bool or f32
-    doc weights (integer multiplicities ≥ 0). Ids ≥ B add nothing. One
-    launch serves every bag."""
+    doc weights (integer multiplicities ≥ 0). Ids < 0 or ≥ B add nothing.
+    One launch serves every bag."""
     name = "histogram_multi"
     _check_ids(name, binned_T)
     F, N = binned_T.shape

@@ -205,6 +205,86 @@ def test_kernel_walk_over_the_pack_equals_plain_bitwise(which):
                                rtol=0)
 
 
+def _emulate_split_walk(pack, binsT):
+    """What the frombins kernel computes, in torch, in its order: chunk by
+    chunk (a contiguous run of split records), the warp's documents walk
+    each tree of the chunk in turn from its root record — right iff id >
+    node bin, the child's leaf flag ending the walk with the leaf's value
+    from the record itself — at most max(max_depth, 1) tests; one f32
+    partial a chunk, trees added in order."""
+    bins = binsT.to(torch.int64)
+    N = bins.shape[1]
+    docs = torch.arange(N)
+    recs = pack.splits.to(torch.int64)
+    starts, roots = pack.chunk_starts, pack.split_roots
+    T = roots.shape[0]
+    score = torch.zeros(N)
+    for c, t0 in enumerate(range(0, T, pack.tree_chunk)):
+        cr = recs[int(starts[c]):int(starts[c + 1])]
+        assert cr.shape[0] <= pack.chunk_splits
+        partial = torch.zeros(N)
+        for t in range(t0, min(t0 + pack.tree_chunk, T)):
+            node = torch.full((N,), int(roots[t]), dtype=torch.int64)
+            live = torch.ones(N, dtype=torch.bool)
+            value = torch.zeros(N)
+            for _ in range(max(pack.max_depth, 1)):
+                r = cr[node]
+                right = bins[r[:, 0], docs] > (r[:, 1] & 0xFFFF)
+                nxt = torch.where(right, r[:, 3], r[:, 2])
+                leaf = ((r[:, 1] >> (16 + right.to(torch.int64))) & 1) == 1
+                value = torch.where(live & leaf, nxt.to(torch.int32).view(
+                    torch.float32), value)
+                live = live & ~leaf
+                node = torch.where(live, nxt, node)
+            assert not live.any()
+            partial = partial + value
+        score = score + partial
+    return score
+
+
+@pytest.mark.parametrize("which", ["odd", "grid256", "one-leaf"])
+def test_split_records_walked_in_kernel_order_equal_plain_bitwise(which):
+    """The frombins kernel's pack and order against the plain version,
+    atol 0: odd shapes with hostile features and a one-leaf tree, int16
+    ids at n_grid 256, and a forest of one-leaf trees only."""
+    if which == "odd":
+        ref, port, X, rng = _case(23, 7, 13, 257, seed=11)
+        X = _hostile(ref, X, rng)
+        port.add(Tree([0], [0.0], [-1], [-1], [True], [0.75]), 0.5)
+    elif which == "grid256":
+        _, port, X = _grid256_case()
+    else:
+        _, port, X, _ = _case(1, 2, 5, 40, seed=2)
+        port.truncate(0)
+        for v in (0.75, -1.5, 3.0):
+            port.add(Tree([0], [0.0], [-1], [-1], [True], [v]), 0.5)
+    F = X.shape[1]
+    pack = port.forest_pack(F, CPU)
+    internal = sum(max(int((~t.is_leaf).sum()), 1) for t in port.trees)
+    assert pack.splits.shape == (internal, 4)
+    assert int(pack.chunk_starts[-1]) == internal
+    ids = fe.device_bins(_t(X), pack.grid, pack.n_grid)
+    dt = torch.int16 if pack.n_grid >= 256 else torch.uint8
+    plain = fe.forest_eval_frombins(ids.to(dt).contiguous(), pack)
+    torch.testing.assert_close(_emulate_split_walk(pack, ids), plain,
+                               atol=0, rtol=0)
+
+
+def test_walk_packs_refuse_bad_features_and_links():
+    """A split on a feature past the input's width or a child outside its
+    tree would make the kernels read out of bounds: both packs raise."""
+    for field, bad in (("feature", 6), ("left", 40)):
+        _, port, _, _ = _case(3, 4, 6, 8, seed=1)
+        tree = port.trees[1]
+        n = int(np.flatnonzero(~tree.is_leaf)[0])
+        getattr(tree, field)[n] = bad
+        port._invalidate()
+        with pytest.raises(RankLibError, match="outside"):
+            port._pack_walk(6)
+        with pytest.raises(RankLibError, match="outside"):
+            port._pack_splits(6)
+
+
 def test_wrappers_check_inputs_and_count_only_kernel_launches():
     _, port, X, _ = _case(5, 4, 6, 40, seed=1)
     pack = port.forest_pack(6, CPU)

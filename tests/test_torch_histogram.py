@@ -17,7 +17,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from ranklib_tpu.ops.histogram import hist_pallas_radix, hist_xla
 from ranklib_tpu_torch.ops.histogram import (
-    histogram, histogram_plain, plan,
+    histogram, histogram_multi_plain, histogram_plain, plan,
 )
 from ranklib_tpu_torch.utils.errors import RankLibError
 
@@ -71,6 +71,42 @@ def test_plain_matches_radix_kernel(N, F):
     np.testing.assert_array_equal(got[..., 1], want[..., 1])
     np.testing.assert_allclose(got[..., 0], want[..., 0], atol=2e-4,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("weights", ["bool", "mult"])
+def test_negative_ids_add_nothing_as_in_the_radix_kernel(weights):
+    """int32 ids in [-3, 260) at B = 256, feature 0 included (where a
+    negative flat index once made ``index_add_`` raise): the plain
+    versions drop ids < 0 as the reference's radix kernel does in
+    interpret mode (its ``hist_xla`` would move them into the previous
+    feature's top bins)."""
+    rng = np.random.default_rng(41)
+    N, F, B = 600, 5, 256
+    binned = rng.integers(-3, 260, size=(F, N)).astype(np.int32)
+    binned[0, :40] = -1
+    _, grad, w = _case(N, F, B, seed=43, weights=weights)
+    w = w.astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(hist_pallas_radix(jnp.asarray(binned), grad, w, B))
+    got = _port(binned, grad, w, B)
+    np.testing.assert_array_equal(got[..., 1], want[..., 1])
+    np.testing.assert_allclose(got[..., 0], want[..., 0], atol=2e-4,
+                               rtol=1e-5)
+    keep = (binned >= 0) & (binned < B)
+    np.testing.assert_array_equal(got[..., 1].sum(axis=1),
+                                  (keep * w[None]).sum(axis=1))
+    grads = np.stack([grad, -grad]).astype(np.float32)
+    ws = np.stack([w, w[::-1]]).astype(np.float32)
+    multi = histogram_multi_plain(torch.from_numpy(binned),
+                                  torch.from_numpy(grads),
+                                  torch.from_numpy(ws), B).numpy()
+    for c in range(2):
+        with pltpu.force_tpu_interpret_mode():
+            want = np.asarray(hist_pallas_radix(jnp.asarray(binned),
+                                                grads[c], ws[c], B))
+        np.testing.assert_array_equal(multi[c, ..., 1], want[..., 1])
+        np.testing.assert_allclose(multi[c, ..., 0], want[..., 0],
+                                   atol=2e-4, rtol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.int16, np.int32])
