@@ -16,23 +16,25 @@ Phases, none of whose failures is caught:
    started together) and their ptxas reports;
 2. each CUDA kernel against its plain PyTorch version on the card, small
    cases. Forest kernels: odd shapes, uint8 and int16 ids, n_grid == 256,
-   documents on thresholds, NaN and ±inf features, a one-leaf tree (atol =
-   rtol = 1e-5; the frombins kernel bit-equal), heap-shaped trees of 150
-   leaves whose chunks are too large to stage, and the plain f32
-   traversal. Histogram: odd (N, F, B), uint8/int16/int32 ids with some ≥
-   B, bool masks, f32 multiplicities and all-zero weights (counts exact,
-   sums atol 2e-4 / rtol 1e-5, two launches bit-identical), and int16/int32
-   ids in [-3, B + 4) through both histogram kernels (counts exact: ids < 0
-   add nothing). Split scan: Cn 1 and 2, B 8/11/256/512/1100, feature masks,
-   -mls 0 with empty sides (integer histograms with planted ties exactly
-   equal; float histograms to rtol 1e-5; two launches and the pair form
-   identical). Multi-bag histogram: the same
-   id types and odd B with ids >= B, C 1/3/8/the RF group size, an
-   all-zero bag and multiplicities up to 3 (counts exact, two launches
-   bit-identical). f32 forest route: odd shapes, NaN/±inf features, more
-   than 256 thresholds on a feature, thresholds near ±3.4e38 and an input
-   wider than MAX_FEATURES (kernel and plain bit-identical, both within
-   1e-5 of the f32 traversal). On the forest cases also the split route's
+   documents on thresholds, NaN and ±inf features, a one-leaf tree (the
+   bins and frombins kernels bit-equal to their plain versions; atol =
+   rtol = 1e-5 against the plain f32 traversal), heap-shaped trees of 150
+   leaves whose chunks are too large to stage. Histogram: odd (N, F, B),
+   uint8/int16/int32 ids with some ≥ B, bool masks, f32 multiplicities
+   and all-zero weights (counts exact, sums atol 2e-4 / rtol 1e-5, two
+   launches bit-identical), and int16/int32 ids in [-3, B + 4) through
+   both histogram kernels (counts exact: ids < 0 add nothing). Split
+   scan: Cn 1 and 2, B 8/11/256/512/1100, feature masks, -mls 0 with
+   empty sides (integer histograms with planted ties exactly equal; float
+   histograms to rtol 1e-5; two launches and the pair form identical).
+   Multi-bag histogram: the same id types and odd B with ids >= B, C
+   1/3/8/the RF group size, an all-zero bag and multiplicities up to 3
+   (counts exact, two launches bit-identical). f32 forest route: odd
+   shapes, NaN/±inf features, more than 256 thresholds on a feature,
+   thresholds near ±3.4e38, an input wider than MAX_FEATURES, one
+   document, a one-leaf tree and 150-leaf trees whose chunks are too
+   large to stage (kernel and plain bit-identical, both within 1e-5 of
+   the f32 traversal). On the forest cases also the split route's
    binning kernel (ids equal to ``device_bins``, scores bit-equal to the
    bins kernel) and the predicate epilogue on uint8 and bf16 node tests
    (bit-equal to its plain version); the fused lambda kernel on ranked
@@ -48,8 +50,8 @@ Phases, none of whose failures is caught:
 4. serving checks and times: each forest kernel against its plain version
    on the same device inputs (the frombins kernel bit-equal), the CLI's
    outputs against the plain version, and median times of each route;
-   the frombins kernel on a second 1,000-tree x 10-leaf model of
-   heap-shaped trees (bit-equal, timed);
+   the frombins, bins and f32 kernels on a second 1,000-tree x 10-leaf
+   model of heap-shaped trees (each bit-equal, timed);
 5. the training path at the bench's width — 1,500 queries of 80-160 docs
    x 136 features, labels 0-4 (~180K docs), LambdaMART 50 trees x 10
    leaves, NDCG@10 — with the histogram and split-scan counters at 0: fit
@@ -294,43 +296,64 @@ def walk_ops(ens, X) -> int:
 
 
 def pack_bytes(pack) -> int:
-    """Bytes of the traversal records a forest kernel reads."""
-    return nbytes(pack.nodes, pack.values, pack.roots)
-
-
-def split_bytes(pack) -> int:
-    """Bytes of the split records the frombins kernel reads."""
+    """Bytes of the split records a forest kernel reads."""
     return nbytes(pack.splits, pack.split_roots, pack.chunk_starts)
 
 
+def bin_search_ops(X, pack) -> int:
+    """Compares of the bins kernel's binary search: one per halving of the
+    model's grid, for each value."""
+    return X.numel() * int(np.ceil(np.log2(pack.n_grid + 1)))
+
+
 def heap_model_times(Xd, smi) -> dict:
-    """The frombins kernel on a 1,000-tree x 10-leaf model of heap-shaped
-    trees (seed 0) over the serving documents: bit-equal to the plain
-    version, device times and bound, so the walk is not judged on chains
-    alone."""
+    """The three forest walks (frombins, bins, f32) on a 1,000-tree x
+    10-leaf model of heap-shaped trees (seed 0) over the serving
+    documents: each bit-equal to its plain version, device times and
+    bounds, so the walks are not judged on chains alone."""
     from ranklib_tpu_torch.ops import forest_eval as fe
 
     ens = balanced_ensemble(N_TREES, N_LEAVES, N_FEATURES,
                             np.random.default_rng(0))
     pack = ens.forest_pack(N_FEATURES, Xd.device)
+    fpack = ens.full_pack(N_FEATURES, Xd.device)
     binsT = fe.device_bins(Xd, pack.grid, pack.n_grid).to(
         fe.ids_dtype(pack.n_grid)).contiguous()
-    plain = fe.forest_eval_frombins_plain(binsT, *pack.matmul_operands(),
-                                          tree_chunk=pack.tree_chunk)
-    got = fe.forest_eval_frombins(binsT, pack)
-    torch.cuda.synchronize()
-    check(torch.equal(got, plain), "frombins kernel not bit-equal to plain "
-                                   "on the heap-shaped model")
-    ms = event_ms(lambda: fe.forest_eval_frombins(binsT, pack), 20)
-    plain_ms = event_ms(lambda: fe.forest_eval_frombins_plain(
-        binsT, *pack.matmul_operands(), tree_chunk=pack.tree_chunk), 5)
     walk = walk_ops(ens, Xd)
-    bnd = bound(nbytes(binsT, plain) + split_bytes(pack), walk)
-    print(f"  heap-shaped model ({N_TREES} trees x {N_LEAVES} leaves, "
-          f"max_depth {pack.max_depth}, {binsT.dtype} ids): frombins kernel "
-          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bit-equal; bound "
-          f"{bnd[0]:.4f} ms ({bnd[1]}, {walk} operations)  [{smi}]")
-    return {"ms": ms, "plain_ms": plain_ms, "bound": bnd}
+    ops_mm = pack.matmul_operands()
+    runs = {
+        "frombins": (lambda: fe.forest_eval_frombins(binsT, pack),
+                     lambda: fe.forest_eval_frombins_plain(
+                         binsT, *ops_mm, tree_chunk=pack.tree_chunk),
+                     nbytes(binsT) + pack_bytes(pack), walk),
+        "bins": (lambda: fe.forest_eval_bins(Xd, pack),
+                 lambda: fe.forest_eval_bins_plain(
+                     Xd, pack.grid, *ops_mm, n_grid=pack.n_grid,
+                     tree_chunk=pack.tree_chunk),
+                 nbytes(Xd, pack.grid) + pack_bytes(pack),
+                 walk + bin_search_ops(Xd, pack)),
+        "full": (lambda: fe.forest_eval_full(Xd, fpack),
+                 lambda: fe.forest_eval_full_plain(
+                     Xd, *fpack.matmul_operands(),
+                     tree_chunk=fpack.tree_chunk),
+                 nbytes(Xd) + pack_bytes(fpack), walk),
+    }
+    out = {}
+    for name, (kernel, plain_fn, in_bytes, ops) in runs.items():
+        plain = plain_fn()
+        got = kernel()
+        torch.cuda.synchronize()
+        check(torch.equal(got, plain), f"{name} kernel not bit-equal to "
+                                       f"plain on the heap-shaped model")
+        ms = event_ms(kernel, 20)
+        plain_ms = event_ms(plain_fn, 3)
+        bnd = bound(in_bytes + nbytes(plain), ops)
+        print(f"  heap-shaped model ({N_TREES} trees x {N_LEAVES} leaves, "
+              f"max_depth {pack.max_depth}): {name} kernel {ms:.4f} ms vs "
+              f"plain {plain_ms:.4f} ms, bit-equal; bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}, {ops} operations)  [{smi}]")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound": bnd}
+    return out
 
 
 def pred_matrix(fpack, Xd, rows: int = 1024) -> torch.Tensor:
@@ -385,6 +408,8 @@ def small_case_checks(dev) -> None:
         print(f" case {name}: {n_trees} trees x {n_leaves} leaves, F={F}, "
               f"N={N}, n_grid={pack.n_grid}")
         max_err(bins_k, bins_p, "bins kernel vs plain")
+        check(torch.equal(bins_k, bins_p), f"case {name}: bins kernel not "
+                                           f"bit-equal to plain")
         max_err(bins_k, walk, "bins kernel vs f32 traversal")
         ids = fe.device_bins(Xd, pack.grid, pack.n_grid)
         dtypes = [torch.int16] if pack.n_grid >= 256 else [torch.uint8,
@@ -1212,21 +1237,26 @@ def traversal(ens, X):
 def full_small_checks(dev) -> float:
     """f32 forest route: kernel vs plain (bit-identical) and vs the f32
     traversal, on hostile inputs and models."""
+    from ranklib_tpu_torch.gbdt.ensemble import Tree
     from ranklib_tpu_torch.ops import forest_eval as fe
 
     extreme = np.array([FMAX, 3.2e38, 3.0e38, -3.1e38, -FMAX], np.float32)
     worst = 0.0
 
-    def case(name, n_trees, n_leaves, F, N, seed, wide=0, far=False):
+    def case(name, n_trees, n_leaves, F, N, seed, wide=0, far=False,
+             lone_leaf=False, heap=False):
         nonlocal worst
         rng = np.random.default_rng(seed)
-        ens = synthetic_ensemble(n_trees, n_leaves, F, rng)
+        ens = (balanced_ensemble if heap else synthetic_ensemble)(
+            n_trees, n_leaves, F, rng)
         if wide:                        # `wide` thresholds on feature 0
             widen_grid(ens, 1, wide, wide)
         if far:            # some thresholds past the TPU kernel's clamp
             for i, t in enumerate(ens.trees):
                 for j, n in enumerate(np.flatnonzero(~t.is_leaf)[::4]):
                     t.threshold[n] = extreme[(i + j) % len(extreme)]
+        if lone_leaf:
+            ens.add(Tree([0], [0.0], [-1], [-1], [True], [0.75]), 0.5)
         X = rng.normal(size=(N, F)).astype(np.float32)
         thrs = np.concatenate([t.threshold[~t.is_leaf] for t in ens.trees])
         flat = X.reshape(-1)
@@ -1263,6 +1293,11 @@ def full_small_checks(dev) -> float:
     check(case("wide-input", 20, 6, fe.MAX_FEATURES + 9, 300, 4) == "f32",
           "an input wider than MAX_FEATURES did not take the f32 route")
     case("one-doc", 7, 3, 5, 1, 3)
+    check(case("one-leaf-tree", 60, 7, 13, 257, 12, wide=300, lone_leaf=True)
+          == "f32", "the one-leaf case did not take the f32 route")
+    # chunks of 25 x 149 split records, too large to stage: the walk
+    # through the read-only cache
+    case("big-trees", 30, 150, 40, 300, 9, heap=True)
     return worst
 
 
@@ -1606,9 +1641,20 @@ def full_route_phase(dev, Xh, Xd) -> dict:
             "eval_matrix (f32 route) vs plain")
     e2e = wall_ms(lambda: ens.eval_matrix(Xh, dev), 3)
     bnd = bound(nbytes(Xd, got) + pack_bytes(pack), walk_ops(ens, Xd))
+    # the design the f32 kernel was held against: int16 ids binned on the
+    # card against the model's own grid and walked by the bins kernel,
+    # exact only while every feature's thresholds fit 16-bit node bins
+    alt_pack = ens.forest_pack(N_FEATURES, dev)
+    alt = fe.forest_eval_bins(Xd, alt_pack)
+    torch.cuda.synchronize()
+    check(torch.equal(alt, plain), "int16 ids against the model grid: not "
+                                   "bit-equal to the f32 plain version")
+    alt_ms = event_ms(lambda: fe.forest_eval_bins(Xd, alt_pack), 20)
     print(f"  device time (CUDA events, median): f32 kernel {ms:.4f} ms vs "
           f"plain {plain_ms:.4f} ms (bound {bnd[0]:.4f} ms, {bnd[1]}); "
-          f"eval_matrix wall {e2e:.3f} ms")
+          f"int16 ids against the {alt_pack.n_grid}-threshold grid through "
+          f"the bins kernel {alt_ms:.4f} ms, bit-equal; eval_matrix wall "
+          f"{e2e:.3f} ms")
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bnd}
 
 
@@ -1866,9 +1912,7 @@ def split_serving_phase(dev, ens, pack, Xh, Xd, plain_b, paths, smi) -> dict:
                         .to(torch.uint8), 5)
     lib_ms = event_ms(lambda: torch.searchsorted(grid_n, XT), 20)
     split_ms = event_ms(lambda: fe.forest_eval_bins_split(Xd, pack), 20)
-    # a binary search per value over n_grid sorted thresholds
-    steps = int(np.ceil(np.log2(pack.n_grid + 1)))
-    bnd = bound(nbytes(Xd, ids_k, pack.grid), Xd.numel() * steps)
+    bnd = bound(nbytes(Xd, ids_k, pack.grid), bin_search_ops(Xd, pack))
     print(f"  device time (CUDA events, median): binning kernel {ms:.4f} ms "
           f"vs plain {plain_ms:.4f} ms vs torch.searchsorted on X^T "
           f"{lib_ms:.4f} ms (bound {bnd[0]:.4f} ms, {bnd[1]}); split route "
@@ -2069,7 +2113,8 @@ def main() -> int:
     Xd = torch.from_numpy(Xh).to(dev)
     pack = ens.forest_pack(N_FEATURES, dev)
     print(f"pack: n_grid={pack.n_grid}, max_depth={pack.max_depth}, "
-          f"{pack.nodes.shape[0]} node records")
+          f"{pack.splits.shape[0]} split records, at most "
+          f"{pack.chunk_splits} a chunk")
     # the CLI's input: 200 queries of 80-160 docs, graded labels 0-4
     rng = np.random.default_rng(2)
     sizes = rng.integers(80, 161, size=200)
@@ -2124,8 +2169,11 @@ def main() -> int:
     err_fb = max_err(fb, plain_fb, "frombins kernel vs plain (262144 docs)")
     check(torch.equal(fb, plain_fb), "the frombins kernel is not bit-equal "
                                      "to its plain version at full width")
-    err_b = max_err(fe.forest_eval_bins(Xd, pack), plain_b,
-                    "bins kernel vs plain (262144 docs)")
+    bins_full = fe.forest_eval_bins(Xd, pack)
+    err_b = max_err(bins_full, plain_b, "bins kernel vs plain (262144 docs)")
+    check(torch.equal(bins_full, plain_b), "the bins kernel is not "
+                                           "bit-equal to its plain version "
+                                           "at full width")
     max_err(torch.from_numpy(scores_host), plain_b.cpu(),
             "eval_matrix (host-binned route) vs plain")
     max_err(scores_dev, plain_b, "device-resident route vs plain")
@@ -2181,14 +2229,13 @@ def main() -> int:
     print(f"  wall time (median, synchronised): eval_matrix host-binned "
           f"route {e2e_host:.3f} ms; device-resident route {e2e_dev:.3f} "
           f"ms; plain version {e2e_plain:.3f} ms  [{smi}]")
-    # bounds: the ids or features, the scores and the node records read
+    # bounds: the ids or features, the scores and the split records read
     # once; one compare a node visited and one add a tree (plus the bins
     # kernel's binary search a value)
     walk = walk_ops(ens, Xd)
-    steps = int(np.ceil(np.log2(pack.n_grid + 1)))
-    bound_fb = bound(nbytes(binsT, plain_fb) + split_bytes(pack), walk)
+    bound_fb = bound(nbytes(binsT, plain_fb) + pack_bytes(pack), walk)
     bound_b = bound(nbytes(Xd, pack.grid, plain_b) + pack_bytes(pack),
-                    walk + Xd.numel() * steps)
+                    walk + bin_search_ops(Xd, pack))
     print(f"  bounds: frombins {bound_fb[0]:.4f} ms ({bound_fb[1]}), bins "
           f"{bound_b[0]:.4f} ms ({bound_b[1]}); {walk} operations of the "
           f"walk")

@@ -15,9 +15,9 @@
 // f32 route (models with more than 256 thresholds on a feature, or inputs
 // wider than the bin kernels' staging) makes that test directly: x <= t in
 // f32, so NaN goes right, -inf left, +inf right of every finite
-// threshold, and thresholds near +-3.4e38 compare like any other. The
-// TPU's 3-plane bf16 split, its +-3e38 clamp and the band gate that guards
-// it were MXU workarounds and have no counterpart here.
+// threshold, -0.0 equals +0.0, and thresholds near +-3.4e38 compare like
+// any other. The TPU's 3-plane bf16 split, its +-3e38 clamp and the band
+// gate that guards it were MXU workarounds and have no counterpart here.
 //
 // How: the TPU kernels turn the walk into one-hot selection and path
 // matmuls because the MXU is the only fast unit there. Here one thread
@@ -26,38 +26,42 @@
 // the plain PyTorch versions use, so kernel and plain version agree bit for
 // bit.
 //
-// The bins and f32 kernels walk per-slot records (feature or -1 at a leaf,
-// node test, left, right; gbdt/ensemble.py _pack_walk), the node test being
-// the node bin or the threshold's f32 bits, with leaf values in a second
-// array: per tree ~depth + 1 dependent loads of a 16-byte record from L1/L2
-// (a 1,000-tree model's ~19K records do not fit L1 beside the staged
-// inputs), each followed by the document's bin or value of that feature.
-// The documents' bins are staged once per block in shared memory (int16,
-// feature-major), so those reads never leave the SM; the staging reads of
-// binsT / X are coalesced. Binning on the device is a binary search per
-// value over at most 256 grid entries. The f32 route stages f32 values the
-// same way up to a 48 KB budget (every feature at 136 features); features
-// past it are read from the document's row in global memory, so any width
-// runs.
+// The three forest walks (frombins_kernel, bins_kernel, full_kernel) run
+// one chunk loop (walk_chunks) over split records (gbdt/ensemble.py
+// _pack_splits): one 16-byte record an internal node that carries both
+// children, a child being a leaf's w*output itself, so a tree costs one
+// record per test and no leaf visit. A bin-space record holds the node bin
+// and the two leaf flags in its second word; an f32 record holds the
+// threshold's bits there and the flags in the top two bits of its feature
+// word. A chunk of tree_chunk trees is one contiguous run of records (9 a
+// 10-leaf tree, ~3.6 KB a chunk), which every block copies into shared
+// memory with cp.async, double-buffered, the next chunk landing while its
+// warps walk this one. While chunk 0 lands, the block stages its
+// documents once, feature-major: frombins_kernel its ids as they came
+// (uint8 as bytes), bins_kernel the ids it bins from f32 features (uint8,
+// int16 at n_grid 256), full_kernel the f32 values themselves. The last two
+// read row-major X through stage_docs: a warp reads 32-byte runs of four
+// documents' rows and transposes 8 x 8 blocks by shuffles, so its loads
+// are coalesced and then each lane holds one document; a warp's binary
+// searches (bin_of, over at most 256 grid entries) read one grid row, and
+// its stores hit distinct banks. Documents a block (plan_walk): of 256,
+// 128, 64 and 32, the count that keeps the most threads resident; at 136
+// features, five blocks of 256 for uint8 ids, but f32 values take 4x the
+// bytes (544 a document), so five blocks of 64 for the f32 walk. It stages
+// the features that fit beside 32 documents and reads any later one from
+// the document's row of X, so any width runs.
 //
-// The frombins kernel (the default serving route, and the selection half
-// of the split route) walks split records instead (_pack_splits): one
-// 16-byte record an internal node that carries both children, a child
-// being a leaf's w*output itself, so a tree costs one record per test and
-// no leaf visit; a chunk of tree_chunk trees is one contiguous run of
-// records (9 a 10-leaf tree, ~3.6 KB a chunk), which every block copies
-// into shared memory with cp.async, double-buffered, the next chunk landing
-// while its warps walk this one; uint8 ids are staged as bytes (34.8 KB
-// for 256 documents x 136 features), so five blocks of 256 documents fit
-// an SM. A warp walks each tree in lockstep, so its lanes read one record
-// or a few, and the same feature's ids. What bounds it: the dependent
+// A warp walks each tree in lockstep, so its lanes read one record or a
+// few, and the same feature's ids or values. What bounds it: the dependent
 // shared-memory loads and the instructions of each test, repeated to the
 // deepest walk of the warp's 32 documents (on the H100 it was measured
 // against variants: records read through L1 instead, 2 trees in flight a
 // thread, lanes running through a chunk at their own pace, int16 staging,
 // 64/128 documents a block, id rows padded against bank conflicts;
-// PERF.md). Chunks too large to stage (more than 64 KB for both buffers)
-// are walked from the read-only cache.
+// PERF.md), and for the f32 walk the few threads its staging leaves
+// resident. Chunks too large to stage (more than 64 KB for both buffers)
+// are walked from the read-only cache: a compile-time choice of the
+// launch that computes the same thing bit for bit.
 //
 // The split route's binning pass (bins_only_kernel) transposes X [N, F]
 // through a 32 x 32 shared-memory tile, so both its f32 reads and its id
@@ -84,45 +88,6 @@ namespace {
 constexpr int kMaxDocsPerBlock = 128;
 constexpr size_t kDefaultSmem = 48 * 1024;
 
-struct Forest {
-  const int4* nodes;
-  const float* values;
-  const int* roots;
-  int n_trees, max_depth, tree_chunk;
-};
-
-// Walks every tree for one document; go_left(rec) is the node test of a
-// record (feature, test, left, right) at a split.
-template <typename GoLeft>
-__device__ __forceinline__ float walk_forest(GoLeft go_left,
-                                             const Forest& forest) {
-  float score = 0.0f;
-  for (int t0 = 0; t0 < forest.n_trees; t0 += forest.tree_chunk) {
-    const int t1 = min(t0 + forest.tree_chunk, forest.n_trees);
-    float partial = 0.0f;
-    for (int t = t0; t < t1; ++t) {
-      int node = __ldg(forest.roots + t);
-      int4 rec = __ldg(forest.nodes + node);
-      for (int d = 0; d < forest.max_depth && rec.x >= 0; ++d) {
-        node = go_left(rec) ? rec.z : rec.w;
-        rec = __ldg(forest.nodes + node);
-      }
-      partial += __ldg(forest.values + node);
-    }
-    score += partial;
-  }
-  return score;
-}
-
-// Walks one document whose bin ids are sbins[f * stride] (int compare: no
-// wrap).
-__device__ __forceinline__ float walk_bins(const int16_t* sbins, int stride,
-                                           const Forest& forest) {
-  return walk_forest(
-      [&](const int4& rec) { return sbins[rec.x * stride] <= rec.y; },
-      forest);
-}
-
 // Bin of x in a sorted grid row: #{row[i] < x} over the first n entries
 // (+inf pads compare false); NaN -> n_grid, past every node bin.
 __device__ __forceinline__ int bin_of(const float* __restrict__ row, int n,
@@ -136,17 +101,49 @@ __device__ __forceinline__ int bin_of(const float* __restrict__ row, int n,
   return lo;
 }
 
-// ---- the frombins kernel: split records staged a tree chunk at a time ----
+// ---- the forest walks: split records staged a tree chunk at a time ----
 
 // The split records of gbdt/ensemble.py _pack_splits: one int4 an internal
-// node (feature, node bin | left-is-leaf << 16 | right-is-leaf << 17, left,
-// right), a child being a leaf's w*output bits or a record index counted
+// node, a child being a leaf's w*output bits or a record index counted
 // from the first record of its chunk of tree_chunk trees.
 struct SplitForest {
   const int4* recs;
   const int* roots;          // [n_trees], within the tree's chunk
   const int* starts;         // [n_chunks + 1], the chunks' first records
   int n_trees, tree_chunk, max_tests, chunk_splits;
+};
+
+// A bin-space record (feature, node bin | left-is-leaf << 16 |
+// right-is-leaf << 17, left, right) against the document's ids
+// ids[f * stride] (an int compare: no wrap).
+template <typename IdT>
+struct BinTest {
+  const IdT* ids;
+  int stride;
+  __device__ __forceinline__ int right(const int4& r) const {
+    return static_cast<int>(ids[r.x * stride]) > (r.y & 0xFFFF);
+  }
+  __device__ __forceinline__ int leaf(const int4& r, int right) const {
+    return (r.y >> (16 + right)) & 1;
+  }
+};
+
+// An f32 record (feature | left-is-leaf << 30 | right-is-leaf << 31, the
+// threshold's bits, left, right): left iff x <= t (NaN <= t is false). The
+// first `staged` features come from shared memory (xs[f * stride]), later
+// ones from the document's row of X.
+struct F32Test {
+  const float* xs;
+  int stride, staged;
+  const float* row;
+  __device__ __forceinline__ int right(const int4& r) const {
+    const int f = r.x & 0x3FFFFFFF;
+    const float x = f < staged ? xs[f * stride] : __ldg(row + f);
+    return !(x <= __int_as_float(r.y));
+  }
+  __device__ __forceinline__ int leaf(const int4& r, int right) const {
+    return (static_cast<unsigned>(r.x) >> (30 + right)) & 1u;
+  }
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -166,46 +163,37 @@ __device__ __forceinline__ void stage_chunk(int4* dst, const SplitForest& s,
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// One tree from record `node` of the chunk `cr` for the document whose ids
-// are ids[f * stride]: the leaf's w*output, or 0 if no leaf is reached in
-// max_tests tests (a malformed pack; the old walk added 0 there too).
-template <bool kStaged, typename IdT>
-__device__ __forceinline__ float walk_splits(const int4* cr, int node,
-                                             const IdT* ids, int stride,
-                                             int max_tests) {
+// Shared memory of a walk: [2][chunk_splits] staged records (kStaged),
+// then the block's documents.
+template <bool kStaged>
+__device__ __forceinline__ size_t records_bytes(const SplitForest& s) {
+  return kStaged ? 2 * static_cast<size_t>(s.chunk_splits) * 16 : 0;
+}
+
+// One tree from record `node` of the chunk `cr`: the leaf's w*output, or 0
+// if no leaf is reached in max_tests tests (a malformed pack).
+template <bool kStaged, typename Test>
+__device__ __forceinline__ float walk_tree(const int4* cr, int node,
+                                           const Test& test, int max_tests) {
   for (int d = 0; d < max_tests; ++d) {
     const int4 r = kStaged ? cr[node] : __ldg(cr + node);
-    const int right = static_cast<int>(ids[r.x * stride]) > (r.y & 0xFFFF);
+    const int right = test.right(r);
     const int next = right ? r.w : r.z;
-    if ((r.y >> (16 + right)) & 1) return __int_as_float(next);
+    if (test.leaf(r, right)) return __int_as_float(next);
     node = next;
   }
   return 0.0f;
 }
 
-template <typename IdT, bool kStaged>
-__global__ void frombins_kernel(const IdT* __restrict__ binsT,
-                                int64_t n_docs, int n_features,
-                                SplitForest s, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tb = blockDim.x;
-  // [2][chunk_splits] staged records (kStaged), then [n_features][tb] ids
-  // of the block's documents, as they came (bytes when uint8)
-  int4* srec = reinterpret_cast<int4*>(smem);
-  IdT* sids = reinterpret_cast<IdT*>(
-      smem + (kStaged ? 2 * static_cast<size_t>(s.chunk_splits) * 16 : 0));
-  const int64_t doc0 = static_cast<int64_t>(blockIdx.x) * tb;
+// The chunk loop of every forest walk: the thread's document through every
+// tree, one f32 partial a chunk. With kStaged the caller has started chunk
+// 0's copy into srec (stage_chunk) before staging its documents; the
+// __syncthreads after each chunk's wait also publishes those documents.
+template <bool kStaged, typename Test>
+__device__ __forceinline__ float walk_chunks(int4* srec, const SplitForest& s,
+                                             const Test& test) {
   const int n_chunks = (s.n_trees + s.tree_chunk - 1) / s.tree_chunk;
-  if constexpr (kStaged) stage_chunk(srec, s, 0);   // lands while ids load
-  for (int i = threadIdx.x; i < n_features * tb; i += tb) {
-    const int f = i / tb;
-    const int d = i - f * tb;
-    const int64_t doc = doc0 + d;
-    sids[f * tb + d] =
-        doc < n_docs ? binsT[static_cast<int64_t>(f) * n_docs + doc] : IdT{0};
-  }
   if constexpr (!kStaged) __syncthreads();
-  const IdT* ids = sids + threadIdx.x;
   float score = 0.0f;
   for (int c = 0; c < n_chunks; ++c) {
     const int t0 = c * s.tree_chunk;
@@ -225,66 +213,126 @@ __global__ void frombins_kernel(const IdT* __restrict__ binsT,
     }
     float partial = 0.0f;
     for (int t = t0; t < t1; ++t) {
-      partial += walk_splits<kStaged>(cr, __ldg(s.roots + t), ids, tb,
-                                      s.max_tests);
+      partial += walk_tree<kStaged>(cr, __ldg(s.roots + t), test,
+                                    s.max_tests);
     }
     score += partial;
     if constexpr (kStaged) __syncthreads();  // before its buffer is refilled
   }
+  return score;
+}
+
+// Hands put(f, d, x) every x = X[doc0 + d, f] of the block's documents d
+// and features f < n_cols (0 past n_docs). A warp takes its 32 documents 8
+// features at a time: lane l reads feature f0 + l % 8 of documents
+// 4 s + l / 8, s < 8 (a 32-byte run of each row), then an 8 x 8 transpose
+// by shuffles within each 8 lanes leaves lane l the 8 features of document
+// 4 (l % 8) + l / 8, which put takes one feature at a time.
+template <typename Put>
+__device__ __forceinline__ void stage_docs(const float* __restrict__ X,
+                                           int64_t n_docs, int n_features,
+                                           int n_cols, int64_t doc0,
+                                           Put put) {
+  const int lane = threadIdx.x & 31;
+  const int p = lane & 7, q = lane >> 3;
+  const int w0 = threadIdx.x - lane;
+  const int d = w0 + 4 * p + q;
+  for (int f0 = 0; f0 < n_cols; f0 += 8) {
+    const int f = f0 + p;
+    float v[8];
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const int64_t doc = doc0 + w0 + 4 * s + q;
+      v[s] = doc < n_docs && f < n_cols ? X[doc * n_features + f] : 0.0f;
+    }
+    // swap bit b of the lane's p with bit b of the register index
+#pragma unroll
+    for (int b = 1; b < 8; b <<= 1) {
+      const bool up = p & b;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        if (r & b) continue;
+        const float got =
+            __shfl_xor_sync(0xffffffffu, up ? v[r] : v[r | b], b);
+        if (up) v[r] = got; else v[r | b] = got;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (f0 + k < n_cols) put(f0 + k, d, v[k]);
+    }
+  }
+}
+
+// Host-binned ids binsT [n_features, n_docs] (uint8 or int16).
+template <typename IdT, bool kStaged>
+__global__ void frombins_kernel(const IdT* __restrict__ binsT,
+                                int64_t n_docs, int n_features,
+                                SplitForest s, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tb = blockDim.x;
+  int4* srec = reinterpret_cast<int4*>(smem);
+  IdT* sids = reinterpret_cast<IdT*>(smem + records_bytes<kStaged>(s));
+  const int64_t doc0 = static_cast<int64_t>(blockIdx.x) * tb;
+  if constexpr (kStaged) stage_chunk(srec, s, 0);   // lands while ids load
+  for (int i = threadIdx.x; i < n_features * tb; i += tb) {
+    const int f = i / tb;
+    const int d = i - f * tb;
+    const int64_t doc = doc0 + d;
+    sids[f * tb + d] =
+        doc < n_docs ? binsT[static_cast<int64_t>(f) * n_docs + doc] : IdT{0};
+  }
+  const float score =
+      walk_chunks<kStaged>(srec, s, BinTest<IdT>{sids + threadIdx.x, tb});
   const int64_t doc = doc0 + threadIdx.x;
   if (doc < n_docs) out[doc] = score;
 }
 
+// Device-resident X [n_docs, n_features] f32, binned against the model grid
+// [n_features, grid_stride] into staged ids (uint8 or int16).
+template <typename IdT, bool kStaged>
 __global__ void bins_kernel(const float* __restrict__ X, int64_t n_docs,
                             int n_features, const float* __restrict__ grid,
-                            int grid_stride, int n_grid, Forest forest,
+                            int grid_stride, int n_grid, SplitForest s,
                             float* __restrict__ out) {
-  extern __shared__ int16_t sbins[];             // [n_features][blockDim.x]
+  extern __shared__ __align__(16) unsigned char smem[];
   const int tb = blockDim.x;
+  int4* srec = reinterpret_cast<int4*>(smem);
+  IdT* sids = reinterpret_cast<IdT*>(smem + records_bytes<kStaged>(s));
   const int64_t doc0 = static_cast<int64_t>(blockIdx.x) * tb;
-  // consecutive threads read consecutive X elements (row-major [N, F])
-  for (int i = threadIdx.x; i < n_features * tb; i += tb) {
-    const int j = i / n_features;
-    const int f = i - j * n_features;
-    const int64_t doc = doc0 + j;
-    int b = 0;
-    if (doc < n_docs) {
-      b = bin_of(grid + static_cast<int64_t>(f) * grid_stride, n_grid,
-                 X[doc * n_features + f], n_grid);
-    }
-    sbins[f * tb + j] = static_cast<int16_t>(b);
-  }
-  __syncthreads();
+  if constexpr (kStaged) stage_chunk(srec, s, 0);   // lands while X bins
+  stage_docs(X, n_docs, n_features, n_features, doc0,
+             [&](int f, int d, float x) {
+               sids[f * tb + d] = static_cast<IdT>(bin_of(
+                   grid + static_cast<int64_t>(f) * grid_stride, n_grid, x,
+                   n_grid));
+             });
+  const float score =
+      walk_chunks<kStaged>(srec, s, BinTest<IdT>{sids + threadIdx.x, tb});
   const int64_t doc = doc0 + threadIdx.x;
-  if (doc < n_docs) out[doc] = walk_bins(sbins + threadIdx.x, tb, forest);
+  if (doc < n_docs) out[doc] = score;
 }
 
 // f32 route: the first `staged` features of the block's documents are
-// staged in shared memory (feature-major); a node on a later feature reads
-// the document's row of X.
+// staged (feature-major); a node on a later feature reads the document's
+// row of X.
+template <bool kStaged>
 __global__ void full_kernel(const float* __restrict__ X, int64_t n_docs,
-                            int n_features, int staged, Forest forest,
+                            int n_features, int staged, SplitForest s,
                             float* __restrict__ out) {
-  extern __shared__ float sx[];                  // [staged][blockDim.x]
+  extern __shared__ __align__(16) unsigned char smem[];
   const int tb = blockDim.x;
+  int4* srec = reinterpret_cast<int4*>(smem);
+  float* sx = reinterpret_cast<float*>(smem + records_bytes<kStaged>(s));
   const int64_t doc0 = static_cast<int64_t>(blockIdx.x) * tb;
-  for (int i = threadIdx.x; i < staged * tb; i += tb) {
-    const int j = i / staged;
-    const int f = i - j * staged;
-    const int64_t doc = doc0 + j;
-    sx[f * tb + j] = doc < n_docs ? X[doc * n_features + f] : 0.0f;
-  }
-  __syncthreads();
+  if constexpr (kStaged) stage_chunk(srec, s, 0);   // lands while X stages
+  stage_docs(X, n_docs, n_features, staged, doc0,
+             [&](int f, int d, float x) { sx[f * tb + d] = x; });
   const int64_t doc = doc0 + threadIdx.x;
-  if (doc >= n_docs) return;
-  const float* sxd = sx + threadIdx.x;
-  const float* row = X + doc * n_features;
-  out[doc] = walk_forest(
-      [&](const int4& rec) {
-        const float x = rec.x < staged ? sxd[rec.x * tb] : __ldg(row + rec.x);
-        return x <= __int_as_float(rec.y);       // NaN <= t is false
-      },
-      forest);
+  const float* row = X + (doc < n_docs ? doc : n_docs - 1) * n_features;
+  const float score = walk_chunks<kStaged>(
+      srec, s, F32Test{sx + threadIdx.x, tb, staged, row});
+  if (doc < n_docs) out[doc] = score;
 }
 
 // Split route, binning pass: ids[f, doc] = bin_of(x[doc, f]) through a
@@ -370,18 +418,6 @@ __global__ void pred_epilogue_kernel(const PredT* __restrict__ predT,
   out[doc] = score;
 }
 
-// Docs per block: 128, halved while the staged bins exceed the default
-// 48 KB; past that (very wide inputs) the block asks for up to 227 KB.
-int docs_per_block(int n_features, size_t* smem) {
-  int tb = kMaxDocsPerBlock;
-  while (tb > 32 && static_cast<size_t>(n_features) * tb * sizeof(int16_t) >
-                        kDefaultSmem) {
-    tb >>= 1;
-  }
-  *smem = static_cast<size_t>(n_features) * tb * sizeof(int16_t);
-  return tb;
-}
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= kDefaultSmem) return cudaSuccess;
@@ -390,54 +426,92 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-Forest make_forest(const void* nodes, const void* values, const void* roots,
-                   int n_trees, int max_depth, int tree_chunk) {
-  return Forest{static_cast<const int4*>(nodes),
-                static_cast<const float*>(values),
-                static_cast<const int*>(roots), n_trees, max_depth,
-                tree_chunk};
-}
-
-// The frombins launch. Documents a block: of 256, 128, 64 and 32, the
-// count that keeps the most threads resident on an SM (at most 2,048
-// threads and 32 blocks, 233,472 bytes of shared memory less 1 KB a block;
-// the larger count on a tie). A chunk's records are staged
-// (double-buffered) when both buffers take at most kMaxStagedRecords bytes
-// and fit beside the ids; else the walk reads them through the read-only
-// cache.
+// The launch of a forest walk whose documents take `value_bytes` a staged
+// feature. Documents a block: of 256, 128, 64 and 32, the count that keeps
+// the most threads resident on an SM (at most 2,048 threads and 32 blocks,
+// 233,472 bytes of shared memory less 1 KB a block; the larger count on a
+// tie), every feature staged. With `partial` (the f32 walk), 32 documents
+// stage as many leading features as fit when not all do. A chunk's
+// records are staged (double-buffered) when both buffers take at most
+// kMaxStagedRecords bytes and fit beside the documents; else the walk
+// reads them through the read-only cache. tb == 0: no count fits.
 constexpr size_t kMaxStagedRecords = 64 * 1024;
 constexpr size_t kMaxSmem = 232448;
 constexpr size_t kSmSmem = 233472;
 
-template <typename IdT>
-int launch_frombins(const void* binsT, int64_t n_docs, int n_features,
-                    const SplitForest& s, void* out, void* stream) {
-  const size_t recs = 2 * static_cast<size_t>(s.chunk_splits) * 16;
-  int tb = 0, resident = 0;
-  bool staged = false;
+struct WalkPlan {
+  int tb = 0;                // documents (threads) a block
+  int cols = 0;              // features staged
+  bool staged = false;       // records staged
   size_t smem = 0;
+};
+
+WalkPlan plan_walk(int n_features, size_t value_bytes, bool partial,
+                   const SplitForest& s) {
+  const size_t recs = 2 * static_cast<size_t>(s.chunk_splits) * 16;
+  WalkPlan best;
+  int resident = 0;
   for (int docs = 256; docs >= 32; docs >>= 1) {
-    const size_t ids = static_cast<size_t>(n_features) * docs * sizeof(IdT);
-    if (ids > kMaxSmem) continue;
-    const bool stage = recs <= kMaxStagedRecords && ids + recs <= kMaxSmem;
-    const size_t bytes = ids + (stage ? recs : 0);
+    const size_t col = value_bytes * docs;
+    int cols = n_features;
+    if (cols * col > kMaxSmem) {
+      if (!partial || docs > 32) continue;
+      cols = static_cast<int>(kMaxSmem / col);
+    }
+    const size_t vals = cols * col;
+    const bool stage = recs <= kMaxStagedRecords && vals + recs <= kMaxSmem;
+    const size_t bytes = vals + (stage ? recs : 0);
     const int blocks = std::min({2048 / docs, 32,
                                  static_cast<int>(kSmSmem / (bytes + 1024))});
     if (blocks * docs > resident) {
-      tb = docs, resident = blocks * docs;
-      staged = stage, smem = bytes;
+      resident = blocks * docs;
+      best = WalkPlan{docs, cols, stage, bytes};
     }
   }
-  if (tb == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = staged ? frombins_kernel<IdT, true>
-                             : frombins_kernel<IdT, false>;
-  cudaError_t err = allow_smem(kernel, smem);
+  return best;
+}
+
+template <typename Kernel, typename... Args>
+int launch_walk(Kernel kernel, const WalkPlan& p, int64_t n_docs,
+                void* stream, Args... args) {
+  if (p.tb == 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(kernel, p.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = static_cast<unsigned>((n_docs + tb - 1) / tb);
-  kernel<<<blocks, tb, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const IdT*>(binsT), n_docs, n_features, s,
-      static_cast<float*>(out));
+  const unsigned blocks = static_cast<unsigned>((n_docs + p.tb - 1) / p.tb);
+  kernel<<<blocks, p.tb, p.smem, static_cast<cudaStream_t>(stream)>>>(
+      args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename IdT>
+int launch_frombins(const void* binsT, int64_t n_docs, int n_features,
+                    const SplitForest& s, void* out, void* stream) {
+  const WalkPlan p = plan_walk(n_features, sizeof(IdT), false, s);
+  return launch_walk(p.staged ? frombins_kernel<IdT, true>
+                              : frombins_kernel<IdT, false>,
+                     p, n_docs, stream, static_cast<const IdT*>(binsT),
+                     n_docs, n_features, s, static_cast<float*>(out));
+}
+
+template <typename IdT>
+int launch_bins(const void* X, int64_t n_docs, int n_features,
+                const void* grid, int grid_stride, int n_grid,
+                const SplitForest& s, void* out, void* stream) {
+  const WalkPlan p = plan_walk(n_features, sizeof(IdT), false, s);
+  return launch_walk(p.staged ? bins_kernel<IdT, true>
+                              : bins_kernel<IdT, false>,
+                     p, n_docs, stream, static_cast<const float*>(X),
+                     n_docs, n_features, static_cast<const float*>(grid),
+                     grid_stride, n_grid, s, static_cast<float*>(out));
+}
+
+SplitForest split_forest(const void* splits, const void* roots,
+                         const void* starts, int n_trees, int tree_chunk,
+                         int max_tests, int chunk_splits) {
+  return SplitForest{static_cast<const int4*>(splits),
+                     static_cast<const int*>(roots),
+                     static_cast<const int*>(starts), n_trees, tree_chunk,
+                     max_tests, chunk_splits};
 }
 
 template <typename IdT>
@@ -477,11 +551,13 @@ int launch_pred(const void* predT, int64_t n_docs, int n_chunks, int tcm,
 // Plain C interface for ctypes. Every pointer is a device pointer; `stream`
 // is the caller's cudaStream_t. Nothing here allocates or synchronises.
 // Each returns the cudaError_t of the launch (0 = success).
+//
+// The forest walks take the split records of _pack_splits: splits [S, 4],
+// roots [n_trees] and starts [n_chunks + 1] int32, max_tests the most
+// tests on a root-to-leaf path (at least 1), chunk_splits the most records
+// in a chunk.
 
-// frombins: binsT [n_features, n_docs] uint8 or int16 ids; the split
-// records of _pack_splits (splits [S, 4], roots [n_trees] and starts
-// [n_chunks + 1] int32), max_tests the most tests on a root-to-leaf path
-// (at least 1), chunk_splits the most records in a chunk.
+// frombins: binsT [n_features, n_docs] uint8 or int16 ids.
 extern "C" int forest_eval_frombins_u8(const void* binsT, int64_t n_docs,
                                        int n_features, const void* splits,
                                        const void* roots, const void* starts,
@@ -490,10 +566,8 @@ extern "C" int forest_eval_frombins_u8(const void* binsT, int64_t n_docs,
                                        void* out, void* stream) {
   return launch_frombins<uint8_t>(
       binsT, n_docs, n_features,
-      SplitForest{static_cast<const int4*>(splits),
-                  static_cast<const int*>(roots),
-                  static_cast<const int*>(starts), n_trees, tree_chunk,
-                  max_tests, chunk_splits},
+      split_forest(splits, roots, starts, n_trees, tree_chunk, max_tests,
+                   chunk_splits),
       out, stream);
 }
 
@@ -505,52 +579,42 @@ extern "C" int forest_eval_frombins_i16(const void* binsT, int64_t n_docs,
                                         void* out, void* stream) {
   return launch_frombins<int16_t>(
       binsT, n_docs, n_features,
-      SplitForest{static_cast<const int4*>(splits),
-                  static_cast<const int*>(roots),
-                  static_cast<const int*>(starts), n_trees, tree_chunk,
-                  max_tests, chunk_splits},
+      split_forest(splits, roots, starts, n_trees, tree_chunk, max_tests,
+                   chunk_splits),
       out, stream);
 }
 
+// bins: X [n_docs, n_features] f32 row-major, binned against grid
+// [n_features, grid_stride] (sorted rows, n_grid thresholds used) into
+// staged uint8 ids, int16 when n_grid reaches 256.
 extern "C" int forest_eval_bins(const void* X, int64_t n_docs, int n_features,
                                 const void* grid, int grid_stride, int n_grid,
-                                const void* nodes, const void* values,
-                                const void* roots, int n_trees, int max_depth,
-                                int tree_chunk, void* out, void* stream) {
-  size_t smem = 0;
-  const int tb = docs_per_block(n_features, &smem);
-  cudaError_t err = allow_smem(bins_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = static_cast<unsigned>((n_docs + tb - 1) / tb);
-  bins_kernel<<<blocks, tb, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(X), n_docs, n_features,
-      static_cast<const float*>(grid), grid_stride, n_grid,
-      make_forest(nodes, values, roots, n_trees, max_depth, tree_chunk),
-      static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+                                const void* splits, const void* roots,
+                                const void* starts, int n_trees,
+                                int tree_chunk, int max_tests,
+                                int chunk_splits, void* out, void* stream) {
+  const SplitForest s = split_forest(splits, roots, starts, n_trees,
+                                     tree_chunk, max_tests, chunk_splits);
+  return n_grid < 256
+             ? launch_bins<uint8_t>(X, n_docs, n_features, grid, grid_stride,
+                                    n_grid, s, out, stream)
+             : launch_bins<int16_t>(X, n_docs, n_features, grid, grid_stride,
+                                    n_grid, s, out, stream);
 }
 
-// f32 route: X [n_docs, n_features] f32 row-major; node records carry the
-// threshold's f32 bits. Docs per block: 128, halved (to 32) while their
-// f32 rows exceed 48 KB; as many leading features as fit 48 KB are staged.
+// f32 route: X [n_docs, n_features] f32 row-major; f32 split records
+// (_pack_splits(f32=True)), any width.
 extern "C" int forest_eval_full(const void* X, int64_t n_docs, int n_features,
-                                const void* nodes, const void* values,
-                                const void* roots, int n_trees, int max_depth,
-                                int tree_chunk, void* out, void* stream) {
-  int tb = kMaxDocsPerBlock;
-  while (tb > 32 &&
-         static_cast<size_t>(n_features) * tb * sizeof(float) > kDefaultSmem) {
-    tb >>= 1;
-  }
-  const int staged = static_cast<int>(std::min(
-      static_cast<size_t>(n_features), kDefaultSmem / (tb * sizeof(float))));
-  const size_t smem = static_cast<size_t>(staged) * tb * sizeof(float);
-  const unsigned blocks = static_cast<unsigned>((n_docs + tb - 1) / tb);
-  full_kernel<<<blocks, tb, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(X), n_docs, n_features, staged,
-      make_forest(nodes, values, roots, n_trees, max_depth, tree_chunk),
-      static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+                                const void* splits, const void* roots,
+                                const void* starts, int n_trees,
+                                int tree_chunk, int max_tests,
+                                int chunk_splits, void* out, void* stream) {
+  const SplitForest s = split_forest(splits, roots, starts, n_trees,
+                                     tree_chunk, max_tests, chunk_splits);
+  const WalkPlan p = plan_walk(n_features, sizeof(float), true, s);
+  return launch_walk(p.staged ? full_kernel<true> : full_kernel<false>, p,
+                     n_docs, stream, static_cast<const float*>(X), n_docs,
+                     n_features, p.cols, s, static_cast<float*>(out));
 }
 
 // Split route, binning pass: X [n_docs, n_features] f32 row-major -> ids

@@ -213,14 +213,15 @@ class TreeEnsemble:
 
     def _pack_walk(self, n_features: int, f32: bool = False):
         """(nodes [S, 4] int32, values [S] f32, roots [T] int32, max_depth):
-        the traversal pack the CUDA kernels walk. Every tree's slots are
-        concatenated; a record is (feature or −1 at a leaf, node test,
-        left, right) with absolute child slots. The node test is the node
-        bin, or with ``f32`` the threshold's f32 bits. Node bins and leaf
-        values come from the same expressions as the matmul packs, so
-        kernel and plain version route and add identically. Raises when a
-        split reads a feature at or past ``n_features`` or links outside
-        its tree (the kernel would read out of bounds)."""
+        the per-slot traversal pack that :meth:`_pack_splits` turns into
+        the kernels' split records. Every tree's slots are concatenated; a
+        record is (feature or −1 at a leaf, node test, left, right) with
+        absolute child slots. The node test is the node bin, or with
+        ``f32`` the threshold's f32 bits. Node bins and leaf values come
+        from the same expressions as the matmul packs, so kernel and plain
+        version route and add identically. Raises when a split reads a
+        feature at or past ``n_features`` or links outside its tree (the
+        kernel would read out of bounds)."""
         key = ("walk", n_features, f32)
         if self._walk is None or self._walk[0] != key:
             grid = None if f32 else self._model_grid_np(n_features)
@@ -258,21 +259,24 @@ class TreeEnsemble:
                                 np.asarray(roots, np.int32), max_depth))
         return self._walk[1]
 
-    def _pack_splits(self, n_features: int):
+    def _pack_splits(self, n_features: int, f32: bool = False):
         """(splits [S, 4] int32, roots [T] int32, chunk_starts [nch + 1]
-        int32): the split records the frombins kernel walks, one per
+        int32): the split records every forest kernel walks, one per
         internal node and none for leaves, derived from :meth:`_pack_walk`
-        (the same node bins, the same leaf values to the bit). A record is
-        (feature, node bin | left-is-leaf << 16 | right-is-leaf << 17, left,
-        right); a child is a leaf's w·output as f32 bits, else its record's
-        index counted from the first record of the tree's chunk of
-        ``_TREE_CHUNK`` trees, and ``roots`` count the same way, so a chunk
-        is one contiguous run ``chunk_starts[c] .. chunk_starts[c + 1]``. A
-        one-leaf tree is one record whose node bin 0xFFFF sends every
-        document left, to its leaf."""
-        key = ("splits", n_features)
+        (the same node tests, the same leaf values to the bit). A bin-space
+        record is (feature, node bin | left-is-leaf << 16 | right-is-leaf <<
+        17, left, right); with ``f32`` it is (feature | left-is-leaf << 30 |
+        right-is-leaf << 31, the threshold's f32 bits, left, right), the
+        test needing all 32 bits of its word. A child is a leaf's w·output
+        as f32 bits, else its record's index counted from the first record
+        of the tree's chunk of ``_TREE_CHUNK`` trees, and ``roots`` count
+        the same way, so a chunk is one contiguous run ``chunk_starts[c] ..
+        chunk_starts[c + 1]``. A one-leaf tree is one record whose children
+        are both its leaf, both flagged, so any outcome of the test (NaN
+        included) reaches it."""
+        key = ("splits", n_features, f32)
         if self._splits is None or self._splits[0] != key:
-            nodes, values, roots, _ = self._pack_walk(n_features)
+            nodes, values, roots, _ = self._pack_walk(n_features, f32=f32)
             vbits = values.view(np.int32)
             ends = np.append(roots[1:], len(nodes))
             recs, troots, starts = [], np.zeros(len(roots), np.int32), []
@@ -285,9 +289,12 @@ class TreeEnsemble:
                 split = rec[:, 0] >= 0
                 troots[t] = base
                 if not split[0]:                  # a one-leaf tree
-                    leaf = vbits[lo]
-                    recs.append(np.array([[0, 0xFFFF | 3 << 16, leaf, leaf]],
-                                         np.int32))
+                    rec = np.array([[0, 0 if f32 else 0xFFFF, -1, -1]],
+                                   np.int32)
+                    leaf = np.array([vbits[lo]])
+                    flags = np.array([True])
+                    recs.append(_split_records(rec, leaf, flags, leaf, flags,
+                                               f32, t))
                     n += 1
                     continue
                 idx = np.cumsum(split) - 1 + base  # record of each split slot
@@ -298,17 +305,8 @@ class TreeEnsemble:
                         ~split[rel]
 
                 s = rec[split]
-                left, lleaf = child(s[:, 2])
-                right, rleaf = child(s[:, 3])
-                out = np.empty((len(s), 4), np.int32)
-                out[:, 0] = s[:, 0]
-                if np.any(s[:, 1] > 0xFFFF):
-                    raise RankLibError(f"tree {t + 1}: a node bin past "
-                                       f"65535 does not fit a split record")
-                out[:, 1] = s[:, 1] | lleaf << 16 | rleaf << 17
-                out[:, 2] = left
-                out[:, 3] = right
-                recs.append(out)
+                recs.append(_split_records(s, *child(s[:, 2]),
+                                           *child(s[:, 3]), f32, t))
                 n += len(s)
             starts.append(n)
             self._splits = (key, (np.concatenate(recs), troots,
@@ -382,21 +380,15 @@ class TreeEnsemble:
         if key not in self._dev_packs:
             *mm, n_grid = self._pack_matmul_bins(n_features)
             grid, fid_full, nodebin, PmQc, csQc, plenc, outwc = mm
-            nodes, values, roots, max_depth = self._pack_walk(n_features)
-            splits, split_roots, chunk_starts = self._pack_splits(n_features)
             dev = functools.partial(_upload, device=device)
             self._dev_packs[key] = ForestPack(
                 n_features=n_features, n_grid=int(n_grid),
                 tree_chunk=self._TREE_CHUNK,
                 nodes_per_tree=self._nodes_per_tree(),
-                max_depth=int(max_depth),
-                chunk_splits=int(np.diff(chunk_starts).max()),
                 grid=dev(grid), fid_full=dev(fid_full),
                 nodebin_full=dev(nodebin), PmQc=dev(PmQc), csQc=dev(csQc),
-                plenc=dev(plenc), outwc=dev(outwc), nodes=dev(nodes),
-                values=dev(values), roots=dev(roots), splits=dev(splits),
-                split_roots=dev(split_roots),
-                chunk_starts=dev(chunk_starts))
+                plenc=dev(plenc), outwc=dev(outwc),
+                **self._split_fields(n_features, False, dev))
         return self._dev_packs[key]
 
     def full_pack(self, n_features: int, device: torch.device) -> FullPack:
@@ -407,16 +399,21 @@ class TreeEnsemble:
             dev = functools.partial(_upload, device=device)
             fid_full, thr_full, PmQc, csQc, plenc, outwc = (
                 self._pack_matmul(n_features))
-            nodes, values, roots, max_depth = self._pack_walk(n_features,
-                                                              f32=True)
             self._dev_packs[key] = FullPack(
                 n_features=n_features, tree_chunk=self._TREE_CHUNK,
                 nodes_per_tree=self._nodes_per_tree(),
-                max_depth=int(max_depth), fid_full=dev(fid_full),
-                thr_full=dev(thr_full), PmQc=dev(PmQc), csQc=dev(csQc),
-                plenc=dev(plenc), outwc=dev(outwc), nodes=dev(nodes),
-                values=dev(values), roots=dev(roots))
+                fid_full=dev(fid_full), thr_full=dev(thr_full),
+                PmQc=dev(PmQc), csQc=dev(csQc), plenc=dev(plenc),
+                outwc=dev(outwc), **self._split_fields(n_features, True, dev))
         return self._dev_packs[key]
+
+    def _split_fields(self, n_features: int, f32: bool, dev) -> dict:
+        """The split-record fields both packs share, uploaded by ``dev``."""
+        splits, roots, starts = self._pack_splits(n_features, f32=f32)
+        return {"max_depth": int(self._pack_walk(n_features, f32=f32)[3]),
+                "chunk_splits": int(np.diff(starts).max()),
+                "splits": dev(splits), "split_roots": dev(roots),
+                "chunk_starts": dev(starts)}
 
     def serving_route(self, n_features: int, device_type: str):
         """(route, docs per call) of the device-resident route for this
@@ -527,6 +524,32 @@ class TreeEnsemble:
             _parse_split(split, nodes)
             ens.add(Tree(*map(list, zip(*nodes))), weight)
         return ens
+
+
+def _split_records(s, left, lleaf, right, rleaf, f32: bool,
+                   t: int) -> np.ndarray:
+    """[n, 4] int32 split records of tree ``t``'s internal slot records
+    ``s`` (feature, node test, ·, ·) with their children and leaf flags,
+    in the bin-space or the f32 layout of :meth:`TreeEnsemble._pack_splits`.
+    Raises when a field does not fit its bits."""
+    out = np.empty((len(s), 4), np.int32)
+    if f32:
+        if np.any(s[:, 0] >= 1 << 30):
+            raise RankLibError(f"tree {t + 1}: a feature past 2^30 - 1 does "
+                               f"not fit an f32 split record")
+        u = np.uint32
+        out[:, 0] = (s[:, 0].astype(u) | lleaf.astype(u) << u(30)
+                     | rleaf.astype(u) << u(31)).view(np.int32)
+        out[:, 1] = s[:, 1]
+    else:
+        if np.any(s[:, 1] > 0xFFFF):
+            raise RankLibError(f"tree {t + 1}: a node bin past 65535 does "
+                               f"not fit a split record")
+        out[:, 0] = s[:, 0]
+        out[:, 1] = s[:, 1] | lleaf << 16 | rleaf << 17
+    out[:, 2] = left
+    out[:, 3] = right
+    return out
 
 
 def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:

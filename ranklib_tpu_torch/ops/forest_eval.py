@@ -29,11 +29,12 @@ The bin-space kernels route a document left iff ``bin <= nodebin``, the
 f32 kernel iff ``x <= t`` (NaN goes right); all sum ``w·leaf``. The TPU
 kernels express that as one-hot selection and path matmuls for the MXU
 (the f32 one through three exact bf16 planes); the CUDA kernels walk each
-tree from the root, one thread per document, over records packed once per
-model, with the document's ids or values staged in shared memory once per
-block. The frombins kernel walks split records (a leaf's value inside its
-parent's record) staged a tree chunk at a time in shared memory; the
-others walk per-slot records from L1/L2 (see the .cu header).
+tree from the root, one thread per document, with the document's ids or
+values staged in shared memory once per block. Every forest walk runs on
+split records packed once per model (``TreeEnsemble._pack_splits``: one
+record an internal node, a leaf's value inside its parent's record),
+staged a tree chunk at a time in shared memory, through one chunk loop
+(see the .cu header).
 
 Beside each kernel, a plain PyTorch version of the same function takes the
 reference's ``_pack_matmul_bins`` (or ``_pack_matmul``) operands and
@@ -75,15 +76,13 @@ class ForestPack:
     ``grid [F, Bm]`` f32 (+inf padded), ``fid_full``/``nodebin_full``
     ``[nch·TCM]``, ``PmQc [nch, TCM, TCL]``, ``csQc``/``plenc``/``outwc``
     ``[nch, TCL]`` with TCL = tree_chunk·L; tree j of a chunk owns P−Q rows
-    ``j·M .. (j+1)·M`` (M = ``nodes_per_tree``). The traversal layout feeds
-    the bins kernel: ``nodes [S, 4]`` int32 (feature or −1 at a leaf, node
-    bin, left, right — absolute slot indices), ``values [S]`` f32 (w·output
-    at leaves, 0 elsewhere), ``roots [T]`` int32. The frombins kernel walks
-    split records (``TreeEnsemble._pack_splits``): ``splits [S', 4]`` int32
+    ``j·M .. (j+1)·M`` (M = ``nodes_per_tree``). The kernels walk split
+    records (``TreeEnsemble._pack_splits``): ``splits [S, 4]`` int32
     (feature, node bin | leaf flags, left, right; a child is a leaf's
     w·output bits or a record index within the tree's chunk),
     ``split_roots [T]`` int32 (within the chunk), ``chunk_starts [nch +
-    1]`` int32, and ``chunk_splits``, the most records in a chunk."""
+    1]`` int32, ``chunk_splits``, the most records in a chunk, and
+    ``max_depth``, the most tests on a root-to-leaf path."""
 
     n_features: int
     n_grid: int
@@ -98,16 +97,13 @@ class ForestPack:
     csQc: torch.Tensor
     plenc: torch.Tensor
     outwc: torch.Tensor
-    nodes: torch.Tensor
-    values: torch.Tensor
-    roots: torch.Tensor
     splits: torch.Tensor
     split_roots: torch.Tensor
     chunk_starts: torch.Tensor
 
     @property
     def device(self) -> torch.device:
-        return self.nodes.device
+        return self.splits.device
 
     def matmul_operands(self):
         """(fid_full, nodebin_full, PmQc, csQc, plenc, outwc)."""
@@ -121,27 +117,30 @@ class FullPack:
     ``TreeEnsemble.full_pack``: the reference's ``_pack_matmul`` layout
     (``fid_full``/``thr_full`` [nch·TCM], ``PmQc``, ``csQc``, ``plenc``,
     ``outwc``; M = ``nodes_per_tree`` P−Q rows a tree) for the plain
-    version, and traversal records for the kernel: ``nodes [S, 4]`` int32
-    (feature or −1, the threshold's f32 bits, left, right), ``values [S]``,
-    ``roots [T]``."""
+    version and the predicate epilogue, and f32 split records for the
+    kernel: ``splits [S, 4]`` int32 (feature | left-is-leaf << 30 |
+    right-is-leaf << 31, the threshold's f32 bits, left, right), with
+    ``split_roots``, ``chunk_starts``, ``chunk_splits`` and ``max_depth``
+    as in :class:`ForestPack`."""
 
     n_features: int
     tree_chunk: int
     nodes_per_tree: int
     max_depth: int
+    chunk_splits: int
     fid_full: torch.Tensor
     thr_full: torch.Tensor
     PmQc: torch.Tensor
     csQc: torch.Tensor
     plenc: torch.Tensor
     outwc: torch.Tensor
-    nodes: torch.Tensor
-    values: torch.Tensor
-    roots: torch.Tensor
+    splits: torch.Tensor
+    split_roots: torch.Tensor
+    chunk_starts: torch.Tensor
 
     @property
     def device(self) -> torch.device:
-        return self.nodes.device
+        return self.splits.device
 
     def matmul_operands(self):
         """(fid_full, thr_full, PmQc, csQc, plenc, outwc)."""
@@ -269,10 +268,9 @@ def _kernels() -> ctypes.CDLL:
     from ranklib_tpu_torch.ops import _build
 
     lib = _build.kernel_library("forest_eval")
-    walk = [_vp, _vp, _vp, _int, _int, _int, _vp, _vp]
+    walk = [_vp, _vp, _vp, _int, _int, _int, _int, _vp, _vp]
     for fn in (lib.forest_eval_frombins_u8, lib.forest_eval_frombins_i16):
-        fn.argtypes = [_vp, _i64, _int, _vp, _vp, _vp, _int, _int, _int,
-                       _int, _vp, _vp]
+        fn.argtypes = [_vp, _i64, _int, *walk]
         fn.restype = _int
     lib.forest_eval_bins.argtypes = [_vp, _i64, _int, _vp, _int, _int, *walk]
     lib.forest_eval_bins.restype = _int
@@ -298,11 +296,15 @@ def _check_device(x: torch.Tensor, pack, name: str) -> bool:
     return x.device.type == "cuda"
 
 
-def _walk_args(pack, out: torch.Tensor):
-    return (pack.nodes.data_ptr(), pack.values.data_ptr(),
-            pack.roots.data_ptr(), int(pack.roots.shape[0]),
-            pack.max_depth, pack.tree_chunk, out.data_ptr(),
-            torch.cuda.current_stream(out.device).cuda_stream)
+def _split_args(pack, out: torch.Tensor):
+    """The split records' arguments every forest walk takes, then the
+    output and the stream: records, roots, chunk starts, trees, trees a
+    chunk, the most tests on a path (at least 1), the most records in a
+    chunk."""
+    return (pack.splits.data_ptr(), pack.split_roots.data_ptr(),
+            pack.chunk_starts.data_ptr(), int(pack.split_roots.shape[0]),
+            pack.tree_chunk, max(pack.max_depth, 1), pack.chunk_splits,
+            out.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream)
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -333,13 +335,7 @@ def forest_eval_frombins(binsT: torch.Tensor, pack: ForestPack) -> torch.Tensor:
         fn = (lib.forest_eval_frombins_u8 if binsT.dtype == torch.uint8
               else lib.forest_eval_frombins_i16)
         with torch.cuda.device(binsT.device):
-            _raise_on(fn(binsT.data_ptr(), N, F, pack.splits.data_ptr(),
-                         pack.split_roots.data_ptr(),
-                         pack.chunk_starts.data_ptr(),
-                         int(pack.split_roots.shape[0]), pack.tree_chunk,
-                         max(pack.max_depth, 1), pack.chunk_splits,
-                         out.data_ptr(),
-                         torch.cuda.current_stream(out.device).cuda_stream),
+            _raise_on(fn(binsT.data_ptr(), N, F, *_split_args(pack, out)),
                       name)
         forest_eval_frombins.launches += 1
     return out
@@ -377,7 +373,7 @@ def forest_eval_bins(X: torch.Tensor, pack: ForestPack) -> torch.Tensor:
             _raise_on(lib.forest_eval_bins(
                 X.data_ptr(), N, F, pack.grid.data_ptr(),
                 int(pack.grid.shape[1]), pack.n_grid,
-                *_walk_args(pack, out)), name)
+                *_split_args(pack, out)), name)
         forest_eval_bins.launches += 1
     return out
 
@@ -398,7 +394,7 @@ def forest_eval_full(X: torch.Tensor, pack: FullPack) -> torch.Tensor:
     if N:
         with torch.cuda.device(X.device):
             _raise_on(_kernels().forest_eval_full(
-                X.data_ptr(), N, F, *_walk_args(pack, out)), name)
+                X.data_ptr(), N, F, *_split_args(pack, out)), name)
         forest_eval_full.launches += 1
     return out
 

@@ -70,7 +70,7 @@ def test_pack_cache_follows_add_and_truncate():
     for a, b in zip(ref._pack_matmul_bins(9), port._pack_matmul_bins(9)):
         assert np.array_equal(np.asarray(a), np.asarray(b))
     assert port._pack_matmul_bins(9)[3].shape != first[3].shape
-    assert port.forest_pack(9, CPU).roots.shape[0] == 10
+    assert port.forest_pack(9, CPU).split_roots.shape[0] == 10
 
 
 @pytest.mark.parametrize("shape", SHAPES[1:], ids=["odd", "37x7"])

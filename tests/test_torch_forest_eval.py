@@ -5,8 +5,9 @@ Inputs come from numpy seeds and go through both packages: the reference's
 ``forest_eval_pallas_bins``/``_frombins`` in TPU-interpret mode (as
 tests/test_forest_eval.py runs them) and ``_mm_eval``; the port's plain
 PyTorch versions on the CPU. The CUDA kernels themselves run only on a card
-(chip_smoke.py holds them to these plain versions); here a Python
-emulation of their tree walk pins the traversal pack they read.
+(chip_smoke.py holds them to these plain versions); here Python
+emulations of their binning and split-record walk pin the pack they read
+and the order they add in.
 Tolerance 1e-5, the reference kernel tests' own.
 """
 
@@ -165,46 +166,6 @@ def test_lone_leaf_tree_scores_its_output():
     np.testing.assert_allclose(got, _ref_mm(ref, X), **TOL)
 
 
-def _emulate_walk(pack, binsT):
-    """What csrc/forest_eval.cu computes, in torch: every doc walks every
-    tree from its root over the (feature, node bin, left, right) records,
-    leaf values add in tree order with one partial per tree chunk."""
-    bins = binsT.to(torch.int64)
-    N = bins.shape[1]
-    docs = torch.arange(N)
-    nodes = pack.nodes.to(torch.int64)
-    score = torch.zeros(N)
-    T = pack.roots.shape[0]
-    for t0 in range(0, T, pack.tree_chunk):
-        partial = torch.zeros(N)
-        for t in range(t0, min(t0 + pack.tree_chunk, T)):
-            node = torch.full((N,), int(pack.roots[t]), dtype=torch.int64)
-            for _ in range(pack.max_depth):
-                rec = nodes[node]
-                inner = rec[:, 0] >= 0
-                b = bins[rec[:, 0].clamp(min=0), docs]
-                nxt = torch.where(b <= rec[:, 1], rec[:, 2], rec[:, 3])
-                node = torch.where(inner, nxt, node)
-            partial = partial + pack.values[node]
-        score = score + partial
-    return score
-
-
-@pytest.mark.parametrize("which", ["odd", "grid256"])
-def test_kernel_walk_over_the_pack_equals_plain_bitwise(which):
-    if which == "odd":
-        ref, port, X, rng = _case(23, 7, 13, 257, seed=11)
-        X = _hostile(ref, X, rng)
-        port.add(Tree([0], [0.0], [-1], [-1], [True], [0.75]), 0.5)
-    else:
-        _, port, X = _grid256_case()
-    pack = port.forest_pack(X.shape[1], CPU)
-    ids = fe.device_bins(_t(X), pack.grid, pack.n_grid)
-    plain = fe.forest_eval_frombins(ids.to(torch.int16).contiguous(), pack)
-    torch.testing.assert_close(_emulate_walk(pack, ids), plain, atol=0,
-                               rtol=0)
-
-
 def _emulate_split_walk(pack, binsT):
     """What the frombins kernel computes, in torch, in its order: chunk by
     chunk (a contiguous run of split records), the warp's documents walk
@@ -240,6 +201,40 @@ def _emulate_split_walk(pack, binsT):
             partial = partial + value
         score = score + partial
     return score
+
+
+def _emulate_walk(pack, X):
+    """What the bins kernel computes, in torch, in its order: each value
+    binned as its binary search does — #{grid_f < x} over the first
+    n_grid grid entries, NaN → n_grid — into the id type it stages (uint8,
+    int16 at n_grid 256), then the frombins kernel's split walk over those
+    ids. Returns (ids [F, N], scores [N])."""
+    XT = X.T
+    grid = pack.grid[:, :pack.n_grid]
+    ids = (grid[:, None, :] < XT[:, :, None]).sum(dim=2)
+    ids = torch.where(torch.isnan(XT), pack.n_grid, ids)
+    ids = ids.to(torch.int16 if pack.n_grid >= 256 else torch.uint8)
+    return ids, _emulate_split_walk(pack, ids)
+
+
+@pytest.mark.parametrize("which", ["odd", "grid256"])
+def test_kernel_walk_over_the_pack_equals_plain_bitwise(which):
+    """The bins kernel's binning and split walk against its plain version,
+    atol 0: odd shapes with hostile features and a one-leaf tree (uint8
+    ids), and ids reaching 256 at n_grid 256 (int16)."""
+    if which == "odd":
+        ref, port, X, rng = _case(23, 7, 13, 257, seed=11)
+        X = _hostile(ref, X, rng)
+        port.add(Tree([0], [0.0], [-1], [-1], [True], [0.75]), 0.5)
+    else:
+        _, port, X = _grid256_case()
+    pack = port.forest_pack(X.shape[1], CPU)
+    ids, got = _emulate_walk(pack, _t(X))
+    assert ids.dtype == (torch.int16 if which == "grid256" else torch.uint8)
+    assert torch.equal(ids.to(torch.int32),
+                       fe.device_bins(_t(X), pack.grid, pack.n_grid))
+    torch.testing.assert_close(got, fe.forest_eval_bins(_t(X), pack),
+                               atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("which", ["odd", "grid256", "one-leaf"])
@@ -283,6 +278,8 @@ def test_walk_packs_refuse_bad_features_and_links():
             port._pack_walk(6)
         with pytest.raises(RankLibError, match="outside"):
             port._pack_splits(6)
+        with pytest.raises(RankLibError, match="outside"):
+            port._pack_splits(6, f32=True)
 
 
 def test_wrappers_check_inputs_and_count_only_kernel_launches():

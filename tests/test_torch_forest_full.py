@@ -127,28 +127,41 @@ def test_every_doc_reaches_the_traversal_leaf(extreme):
 
 
 def _emulate_walk(pack, X):
-    """What csrc/forest_eval.cu's f32 kernel computes, in torch: every
-    doc walks every tree over the (feature, threshold bits, left, right)
-    records, going left iff x <= t in f32; leaf values add in tree order
-    with one partial per tree chunk."""
+    """What csrc/forest_eval.cu's f32 kernel computes, in torch, in its
+    order: chunk by chunk (a contiguous run of f32 split records), the
+    documents walk each tree of the chunk from its root record — left iff
+    x <= t in f32 (NaN goes right), the child's leaf flag (bit 30 of the
+    feature word for the left child, 31 for the right) ending the walk
+    with the leaf's value from the record itself — at most max(max_depth,
+    1) tests; one f32 partial a chunk, trees added in order."""
     X = X.to(torch.float32)
     N = X.shape[0]
     docs = torch.arange(N)
-    nodes = pack.nodes.to(torch.int64)
-    thr = pack.nodes[:, 1].contiguous().view(torch.float32)
+    word = pack.splits[:, 0].to(torch.int64) & 0xFFFFFFFF
+    feat = word & 0x3FFFFFFF
+    thr = pack.splits[:, 1].contiguous().view(torch.float32)
+    kids = pack.splits[:, 2:].to(torch.int64)
+    starts, roots = pack.chunk_starts, pack.split_roots
+    T = roots.shape[0]
     score = torch.zeros(N)
-    T = pack.roots.shape[0]
-    for t0 in range(0, T, pack.tree_chunk):
+    for c, t0 in enumerate(range(0, T, pack.tree_chunk)):
+        lo, hi = int(starts[c]), int(starts[c + 1])
+        assert hi - lo <= pack.chunk_splits
         partial = torch.zeros(N)
         for t in range(t0, min(t0 + pack.tree_chunk, T)):
-            node = torch.full((N,), int(pack.roots[t]), dtype=torch.int64)
-            for _ in range(pack.max_depth):
-                rec = nodes[node]
-                inner = rec[:, 0] >= 0
-                x = X[docs, rec[:, 0].clamp(min=0)]
-                nxt = torch.where(x <= thr[node], rec[:, 2], rec[:, 3])
-                node = torch.where(inner, nxt, node)
-            partial = partial + pack.values[node]
+            node = torch.full((N,), lo + int(roots[t]), dtype=torch.int64)
+            live = torch.ones(N, dtype=torch.bool)
+            value = torch.zeros(N)
+            for _ in range(max(pack.max_depth, 1)):
+                right = ~(X[docs, feat[node]] <= thr[node])
+                nxt = torch.where(right, kids[node, 1], kids[node, 0])
+                leaf = ((word[node] >> (30 + right.to(torch.int64))) & 1) == 1
+                value = torch.where(live & leaf, nxt.to(torch.int32).view(
+                    torch.float32), value)
+                live = live & ~leaf
+                node = torch.where(live, lo + nxt, node)
+            assert not live.any()
+            partial = partial + value
         score = score + partial
     return score
 
@@ -164,6 +177,82 @@ def test_kernel_walk_over_the_f32_pack_equals_plain_bitwise(extreme):
     plain = fe.forest_eval_full(_t(X), pack)
     torch.testing.assert_close(_emulate_walk(pack, _t(X)), plain, atol=0,
                                rtol=0)
+
+
+def _edge_case(case):
+    """(port ensemble, n_features, X) of one f32 split-pack case."""
+    if case == "one-leaf-forest":
+        port = TreeEnsemble()
+        for v, w in ((0.75, 0.5), (-1.5, 0.1), (3.0, 1.0)):
+            port.add(Tree([0], [0.0], [-1], [-1], [True], [v]), w)
+        X = np.array([[np.nan, 1.0], [0.0, -np.inf], [np.inf, 2.0]],
+                     np.float32)
+        return port, 2, X
+    ref, port, X = _case(25, 6, 9, 200, seed=23)
+    if case == "signed-zero-inf-far":
+        pool = np.array([-0.0, 0.0, 3.4e38, -3.4e38, np.inf, -np.inf, FMAX,
+                         -FMAX], np.float32)
+        i = 0
+        for t in port.trees:
+            for node in np.flatnonzero(~t.is_leaf)[::2]:
+                t.threshold[node] = pool[i % len(pool)]
+                i += 1
+        port._invalidate()
+        X[20:30, :] = np.array([-0.0, 0.0, np.nan, np.inf, -np.inf, FMAX,
+                                -FMAX, 3.4e38, -3.4e38, 1.0],
+                               np.float32)[:, None]
+    else:                                   # chains beside a one-leaf tree
+        port.add(Tree([0], [0.0], [-1], [-1], [True], [0.75]), 0.5)
+    return port, 9, X
+
+
+@pytest.mark.parametrize("case", ["chains-and-a-leaf", "one-leaf-forest",
+                                  "signed-zero-inf-far"])
+def test_f32_split_pack_records_flags_and_walk(case):
+    """The f32 split pack: one record an internal node (one a one-leaf
+    tree), the feature and both leaf flags in the first word, the
+    threshold's bits in the second, children as in the bin form; its walk
+    equals the plain version bit for bit on −0.0, ±3.4e38 and ±inf
+    thresholds against NaN, ±0.0, ±inf and ±FLT_MAX inputs."""
+    port, F, X = _edge_case(case)
+    pack = port.full_pack(F, CPU)
+    internal = sum(max(int((~t.is_leaf).sum()), 1) for t in port.trees)
+    assert pack.splits.shape == (internal, 4)
+    assert int(pack.chunk_starts[-1]) == internal
+    recs = pack.splits.numpy()
+    word = recs[:, 0].view(np.uint32)
+    want_word, want_thr = [], []
+    for t in port.trees:
+        if t.is_leaf[0]:
+            want_word.append(3 << 30)
+            want_thr.append(0)
+            continue
+        for n in np.flatnonzero(~t.is_leaf):
+            want_word.append(int(t.feature[n])
+                             | int(t.is_leaf[t.left[n]]) << 30
+                             | int(t.is_leaf[t.right[n]]) << 31)
+            want_thr.append(int(t.threshold[n:n + 1].view(np.int32)[0]))
+    np.testing.assert_array_equal(word, np.asarray(want_word, np.uint32))
+    np.testing.assert_array_equal(recs[:, 1], np.asarray(want_thr, np.int32))
+    plain = fe.forest_eval_full(_t(X), pack)
+    torch.testing.assert_close(_emulate_walk(pack, _t(X)), plain, atol=0,
+                               rtol=0)
+    np.testing.assert_allclose(plain.numpy(), _traversal(port, X), **TOL)
+
+
+def test_f32_split_pack_refuses_a_feature_past_2_30():
+    """The feature shares its word with the two leaf flags: 2^30 − 1 is
+    the last feature an f32 split record holds."""
+    for feature, ok in ((2**30 - 1, True), (2**30, False)):
+        port = TreeEnsemble()
+        port.add(Tree([feature, 0, 0], [0.5, 0, 0], [1, -1, -1],
+                      [2, -1, -1], [False, True, True], [0, 1.0, 2.0]), 1.0)
+        if ok:
+            splits = port._pack_splits(2**30 + 1, f32=True)[0]
+            assert int(splits[0, 0]) & 0x3FFFFFFF == feature
+        else:
+            with pytest.raises(RankLibError, match="2\\^30"):
+                port._pack_splits(2**30 + 1, f32=True)
 
 
 def test_route_selection_takes_the_f32_kernel_on_cuda(monkeypatch):
