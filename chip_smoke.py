@@ -39,7 +39,8 @@ Phases, none of whose failures is caught:
    bins kernel) and the predicate epilogue on uint8 and bf16 node tests
    (bit-equal to its plain version); the fused lambda kernel on ranked
    chunks up to D = 1,024 with ties and padded rows (atol 2e-5, rtol 1e-4,
-   two launches bit-identical); the probes' dot (signed int8, 0/1 f32) and
+   two launches bit-identical); the probes' dot (signed int8, 0/1 f32) at
+   every tile edge of M, N and K and with int8 sums near 2^31, and the
    int16 compare, exactly;
 3. the serving path at the full width the repo measures — 1,000 trees x 10
    leaves over 136 features scoring 262,144 documents — with its launch
@@ -109,7 +110,8 @@ Phases, none of whose failures is caught:
     tests of the f32 pack built on the card, uint8 and bf16, bit-equal to
     the plain version and to the f32 route;
 15. the compiler probes: the int8 and f32 dot at [256, 2^20] x [2^20, 128]
-    (one call, median of 3) and the int16 compare.
+    (one call, median of 3; the f32 time over ``torch.matmul``'s and the
+    int8 time over its bound) and the int16 compare.
 
 Every kernel's line in the JSON record carries its launches on its path,
 its error against the plain version, its time and the plain version's,
@@ -454,6 +456,9 @@ def small_case_checks(dev) -> None:
     # chunks of 25 x 149 split records, too large to stage: the frombins
     # kernel's walk through the read-only cache
     case("E-big-trees", 30, 150, 40, 300, seed=9, heap=True)
+    # chains of 150 leaves: paths of up to 149 node tests, past the
+    # predicate epilogue's packed byte count (127), counted per document
+    case("F-long-chains", 6, 150, 40, 300, seed=13)
 
 
 def lambda_small_checks(dev) -> float:
@@ -495,11 +500,18 @@ def lambda_small_checks(dev) -> float:
 
 def probe_small_checks(dev) -> None:
     """The probes' kernels vs plain, exactly: signed int8 and 0/1 f32
-    products at odd shapes, the int16 compare over the type's range."""
+    products at every tile edge (M, N and K each below, at and past the
+    kernels' 128 x 128 tiles and K steps; unaligned rows take the
+    element-wise staging), int8 sums near 2^31, the int16 compare over the
+    type's range."""
     from ranklib_tpu_torch.tools import probes as P
 
     rng = np.random.default_rng(31)
-    for M, N, K in [(19, 5, 33), (256, 128, 5000), (70, 130, 4097)]:
+    shapes = [(M, N, K) for M in (1, 17, 255) for N in (1, 7, 129)
+              for K in (1, 31, 33, 4097)]
+    shapes += [(19, 5, 33), (256, 128, 5000), (70, 130, 4097),
+               (256, 128, 4096)]
+    for M, N, K in shapes:
         a = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(
             np.int8)).to(dev)
         b = torch.from_numpy(rng.integers(-128, 128, (K, N)).astype(
@@ -509,12 +521,22 @@ def probe_small_checks(dev) -> None:
         a01, b01 = (a > 0).float(), (b > 0).float()
         check(torch.equal(P.dot(a01, b01), P.dot_plain(a01, b01)),
               f"f32 dot ({M}, {N}, {K}) differs from plain")
+    # every entry -128: sums of K x 2^14, the largest below 2^31 at K near
+    # 2^17 (2^17 itself would reach 2^31); aligned and unaligned K
+    for M, N, K in ((17, 129, (1 << 17) - 16), (33, 64, (1 << 17) - 1)):
+        a = torch.full((M, K), -128, dtype=torch.int8, device=dev)
+        b = torch.full((K, N), -128, dtype=torch.int8, device=dev)
+        got = P.dot(a, b)
+        check(torch.equal(got, P.dot_plain(a, b))
+              and bool((got == K << 14).all()),
+              f"int8 dot ({M}, {N}, {K}) of -128s is not {K << 14}")
     x = torch.from_numpy(np.arange(-32768, 32767, 7).astype(np.int16)).to(
         dev)
     for thr in (3, -5):
         check(torch.equal(P.compare(x, thr), P.compare_plain(x, thr)),
               "int16 compare differs from plain")
-    print("  probes: int8 and f32 dot at odd shapes, int16 compare: exact")
+    print(f"  probes: int8 and f32 dot at {len(shapes)} shapes (every tile "
+          f"edge), int8 sums near 2^31, int16 compare: exact")
 
 
 def hist_small_checks(dev) -> float:
@@ -2039,6 +2061,9 @@ def probe_phase(dev, smi) -> dict:
               f"the published {P.PEAK_OPS[v] / 1e12:.0f} T; checksum "
               f"{r['checksum']}; bound {bnd[v][0]:.4f} ms ({bnd[v][1]}); "
               f"PyTorch {lib[v]:.4f} ms  [{smi}]")
+    print(f"  f32 kernel / torch.matmul: "
+          f"{res['f32']['ms'] / lib['f32']:.3f}; int8 kernel / its bound: "
+          f"{res['int8']['ms'] / bnd['int8'][0]:.3f}")
     print(f"  int16 compare: result_sum {res['compare']['sum']:.0f}, "
           f"{res['compare']['ms']:.4f} ms; plain (float64 product) "
           f"{plain_ms:.4f} ms; launches {launches}")

@@ -68,15 +68,24 @@
 // writes ([F, N], uint8 or int16) are coalesced; it is bound by those bytes.
 //
 // The predicate epilogue (pred_epilogue_kernel) takes the reference's
-// matmul layout as it is: 0/1 node tests predT [nch * TCM, N], P - Q
-// blocks, csQ, plen, w * output. One thread per document counts, for each
-// leaf of each tree, its path agreements hits = sum_m pred * (P - Q)
-// (small integers, exact in f32) and takes the output of the leaf whose
-// hits == plen - csQ. It reads only the tree's own [M, L] block of the
-// block-diagonal P - Q (one block per tree, M nodes, L leaves) and skips its
-// zero entries (a warp-uniform branch), so the work is the path lengths,
-// not TCM x TCL; the dominant cost is reading predT once (1 or 2 bytes a
-// node test and document).
+// matmul layout: 0/1 node tests predT [nch * TCM, N], csQ, plen, w * output,
+// and instead of the block-diagonal P - Q its path lists (gbdt/ensemble.py
+// _pred_paths: per tree, each leaf's +1 rows then its -1 rows, built once
+// a pack). Bound by reading predT once (1 or 2 bytes a node test and
+// document). A thread takes 32 documents (uint8; bf16 16), a block its
+// threads' documents over one group of chunks; tree by tree it stages the
+// tree's M rows of predT for its documents and the tree's path record in
+// shared memory with cp.async, double-buffered, so each node test is read
+// from global memory once. Each leaf then counts its path agreements
+// hits = sum of +-test over its path list: warp-uniform list reads, 16
+// documents a 16-byte shared load and four integer adds, 4 documents'
+// counts packed in the bytes of one word; a chain tree of 10 leaves reads
+// its 54 path entries, not the 90 entries of its P - Q block. A leaf's
+// output adds where hits == plen - csQ, in leaf order, trees in order into
+// one partial a chunk; a second kernel adds the chunks' partials in chunk
+// order, so the sums keep the plain version's order while the chunk groups
+// fill the card. Trees too large to stage read the words from global
+// memory instead.
 
 #include <cuda_runtime.h>
 
@@ -85,7 +94,6 @@
 
 namespace {
 
-constexpr int kMaxDocsPerBlock = 128;
 constexpr size_t kDefaultSmem = 48 * 1024;
 
 // Bin of x in a sorted grid row: #{row[i] < x} over the first n entries
@@ -149,6 +157,18 @@ struct F32Test {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+// The same, reading `bytes` (0..16) and zero-filling the rest.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(src));
 }
 
@@ -367,55 +387,346 @@ __global__ void bins_only_kernel(const float* __restrict__ X, int64_t n_docs,
   }
 }
 
-// A 0/1 node test as f32: uint8, or bf16 passed as its raw 16 bits.
-__device__ __forceinline__ float pred_value(uint8_t v) {
-  return static_cast<float>(v);
+// ---- the predicate epilogue ----
+
+constexpr int kPredThreads = 128;          // threads a block at most
+constexpr int kPredWords = 4;              // 4-document words a span
+
+// A thread's kPredWords test words of one row, read as one vector.
+struct alignas(4 * kPredWords) PredWords {
+  unsigned w[kPredWords];
+};
+constexpr int kPackedMax = 127;            // longest path of the byte test
+
+// A tree's node tests for 4 documents as one word, a byte (0/1) each:
+// uint8 as it is, bf16 as 1 where the value is nonzero. Two bf16 words
+// (4 tests) -> one word.
+__device__ __forceinline__ unsigned bf16_nonzero(unsigned w) {
+  return (((w & 0x7FFF7FFFu) + 0x7FFF7FFFu) >> 15) & 0x00010001u;
 }
-__device__ __forceinline__ float pred_value(uint16_t bf16_bits) {
-  return __uint_as_float(static_cast<unsigned>(bf16_bits) << 16);
+__device__ __forceinline__ unsigned bf16_word(unsigned lo, unsigned hi) {
+  return __byte_perm(bf16_nonzero(lo), bf16_nonzero(hi), 0x6420);
 }
 
-// Predicate epilogue: chunks in order, one f32 partial a chunk; in a chunk,
-// trees in order, each adding the output of the leaf its path reaches.
+// The word of documents d .. d + 3 of one row of predT read from global
+// memory (the unstaged launch); documents past n_docs read 0.
+__device__ __forceinline__ unsigned global_word(const uint8_t* row, int64_t d,
+                                                int64_t n_docs, bool al) {
+  if (al && d + 3 < n_docs)
+    return __ldg(reinterpret_cast<const unsigned*>(row + d));
+  unsigned w = 0;
+  for (int e = 0; e < 4; ++e)
+    if (d + e < n_docs)
+      w |= static_cast<unsigned>(__ldg(row + d + e)) << (8 * e);
+  return w;
+}
+__device__ __forceinline__ unsigned global_word(const uint16_t* row, int64_t d,
+                                                int64_t n_docs, bool al) {
+  if (al && d + 3 < n_docs) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(row + d));
+    return bf16_word(v.x, v.y);
+  }
+  unsigned h[2] = {0, 0};
+  for (int e = 0; e < 4; ++e)
+    if (d + e < n_docs)
+      h[e >> 1] |= static_cast<unsigned>(__ldg(row + d + e)) << (16 * (e & 1));
+  return bf16_word(h[0], h[1]);
+}
+
+// One tree's operands of the predicate epilogue: its M rows of predT for
+// the block's documents (rows [M][db], one byte or bf16 a test), its path
+// record (L + 1 leaf offsets, L counts of P rows, then each leaf's P rows
+// and Q rows, m the tree's node row) and its leaves' plen, csQ and
+// w * output.
 template <typename PredT>
-__global__ void pred_epilogue_kernel(const PredT* __restrict__ predT,
-                                     int64_t n_docs, int n_chunks, int tcm,
-                                     int tcl, int tree_chunk, int m_per_tree,
-                                     const float* __restrict__ pmq,
-                                     const float* __restrict__ csq,
-                                     const float* __restrict__ plen,
-                                     const float* __restrict__ outw,
-                                     float* __restrict__ out) {
-  const int64_t doc = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (doc >= n_docs) return;
+struct PredTree {
+  const PredT* rows;
+  const int* path;
+  const float* plen;
+  const float* csq;
+  const float* outw;
+};
+
+// Bytes of a stage's operands besides its rows: the path record (r_len
+// ints, a multiple of 4) and plen / csQ / w * output (3 x L floats, padded
+// to 16 bytes).
+__host__ __device__ __forceinline__ size_t pred_meta_bytes(int r_len,
+                                                           int n_leaves) {
+  return 4 * static_cast<size_t>(r_len) +
+         (12 * static_cast<size_t>(n_leaves) + 15) / 16 * 16;
+}
+
+// Copies tree t's operands into the stage at `dst` (every thread of the
+// block takes part) and commits them as one cp.async group: rows in
+// 16-byte pieces when they are 16-byte aligned (`vec`; else element by
+// element, documents past n_docs zeros), the path record in 16-byte
+// pieces, the leaves' floats 4 bytes at a time.
+template <typename PredT>
+__device__ __forceinline__ void stage_pred_tree(
+    const PredT* __restrict__ predT, int64_t n_docs, int64_t row0,
+    int m_rows, int64_t d0, int db, const int* path, int r_len,
+    const float* plen, const float* csq, const float* outw, int n_leaves,
+    unsigned char* dst, bool vec) {
+  constexpr int kPer = 16 / sizeof(PredT);
+  const int pieces = db / kPer;
+  PredT* rows = reinterpret_cast<PredT*>(dst);
+  for (int i = threadIdx.x; i < m_rows * pieces; i += blockDim.x) {
+    const int m = i / pieces, p = i - m * pieces;
+    const int64_t d = d0 + static_cast<int64_t>(p) * kPer;
+    const PredT* src = predT + (row0 + m) * n_docs + d;
+    PredT* out = rows + m * db + p * kPer;
+    if (vec) {
+      const int64_t left = n_docs - d;
+      const int bytes = left >= kPer ? 16
+                        : left > 0   ? static_cast<int>(left * sizeof(PredT))
+                                     : 0;
+      cp_async16(out, bytes ? src : predT, bytes);
+    } else {
+      for (int e = 0; e < kPer; ++e)
+        out[e] = d + e < n_docs ? src[e] : PredT(0);
+    }
+  }
+  unsigned char* meta = dst + static_cast<size_t>(m_rows) * db *
+                                  sizeof(PredT);
+  for (int i = threadIdx.x; i < r_len / 4; i += blockDim.x)
+    cp_async16(meta + 16 * i, path + 4 * i);
+  float* leaves = reinterpret_cast<float*>(meta + 4 * r_len);
+  for (int i = threadIdx.x; i < 3 * n_leaves; i += blockDim.x) {
+    const int k = i / n_leaves, l = i - k * n_leaves;
+    cp_async4(leaves + i, (k == 0 ? plen : k == 1 ? csq : outw) + l);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// The predicate epilogue's spans of 16 documents a thread (each span's
+// words one 16-byte shared load a row) and stages in flight (tree t + 1
+// lands while tree t is scored). bf16 rows take twice the bytes: one span.
+template <typename PredT>
+__host__ __device__ constexpr int pred_spans() {
+  return sizeof(PredT) == 2 ? 1 : 2;
+}
+constexpr int kPredStages = 2;
+
+// Predicate epilogue: a block scores db = 16 x spans x blockDim documents
+// over the chunks of its group (blockIdx.y), a thread kSpans spans of 16
+// documents. Trees in order, each adding to one f32 partial a chunk the
+// outputs of the leaves whose path agreements hits = sum over the leaf's
+// path list of +-test equal plen - csQ, in leaf order; each chunk's
+// partial goes to part [n_chunks, n_docs], which pred_sum_kernel adds in
+// chunk order.
+//
+// The hits of a word's 4 documents are counted at once in one 32-bit
+// integer: acc = sum_k 256^k h_k exactly (mod 2^32), the list's P rows
+// added and its Q rows subtracted as words. With t = plen - csQ an integer
+// in [-nQ, nP] (else no document can match) and the path at most
+// kPackedMax long, every
+// h_k - t lies in [-127, 127], so acc + 0x80808080 - t * 0x01010101 has
+// the digits h_k - t + 128 with no carry, and document k matches iff its
+// byte is 0x80. Longer paths count each document's hits on their own.
+//
+// bf16 rows land as they are (2 bytes a test); each thread then turns its
+// own 32 bytes of a span's row into its 16 test bytes, written in place
+// within them (at byte 16 of the 32 for threads 4-7 of each 8, so a quarter
+// warp's 16-byte reads still hit 32 banks): no other thread reads them,
+// so no barrier.
+//
+// kStaged: every tree's operands are staged (kPredStages deep); else they
+// are read from global memory as they are used.
+template <typename PredT, bool kStaged>
+__global__ void pred_epilogue_kernel(
+    const PredT* __restrict__ predT, int64_t n_docs, int n_chunks, int tcm,
+    int tcl, int tree_chunk, int m_per_tree, const int* __restrict__ paths,
+    int r_len, const float* __restrict__ csq, const float* __restrict__ plen,
+    const float* __restrict__ outw, float* __restrict__ part, bool vec) {
+  extern __shared__ __align__(16) unsigned char pred_smem[];
+  constexpr bool kBf16 = sizeof(PredT) == 2;
+  constexpr int kW = kPredWords, kSpan = 4 * kW;   // documents a span
+  constexpr int kSpans = pred_spans<PredT>();
+  constexpr int kDocs = kSpan * kSpans;
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int db = kDocs * nt, units = kSpans * nt;      // spans a row
+  const int64_t d0 = static_cast<int64_t>(blockIdx.x) * db;
   const int n_leaves = tcl / tree_chunk;
-  float score = 0.0f;
-  for (int c = 0; c < n_chunks; ++c) {
-    const PredT* pred = predT + static_cast<int64_t>(c) * tcm * n_docs + doc;
-    const float* pm = pmq + static_cast<int64_t>(c) * tcm * tcl;
-    const int aux = c * tcl;
-    float partial = 0.0f;
-    for (int j = 0; j < tree_chunk; ++j) {
-      float leaf = 0.0f;
-      for (int l = 0; l < n_leaves; ++l) {
-        const int col = j * n_leaves + l;
-        float hits = 0.0f;
+  const int t_lo = n_chunks * blockIdx.y / gridDim.y * tree_chunk;
+  const int t_hi = n_chunks * (blockIdx.y + 1) / gridDim.y * tree_chunk;
+  const size_t rows_bytes = static_cast<size_t>(m_per_tree) * db *
+                            sizeof(PredT);
+  const size_t stage_bytes = rows_bytes + pred_meta_bytes(r_len, n_leaves);
+  constexpr int kStages = kPredStages;
+  // span h of this thread: documents d0 + kSpan * (h * nt + tid) ..; its
+  // test bytes in a staged row at PredWords index slot(h) (+ m * units,
+  // bf16: + 2 m units)
+  auto unit = [&](int h) { return h * nt + tid; };
+  auto slot = [&](int h) {
+    return kBf16 ? 2 * unit(h) + ((tid >> 2) & 1) : unit(h);
+  };
+  // tree t's operands in global memory
+  auto tree = [&](int t) {
+    const int c = t / tree_chunk, j = t - c * tree_chunk;
+    const int col = c * tcl + j * n_leaves;
+    return PredTree<PredT>{
+        predT + (static_cast<int64_t>(c) * tcm + j * m_per_tree) * n_docs,
+        paths + static_cast<int64_t>(t) * r_len, plen + col, csq + col,
+        outw + col};
+  };
+  auto stage = [&](int t) {
+    if (t < t_hi) {
+      const int c = t / tree_chunk, j = t - c * tree_chunk;
+      const PredTree<PredT> g = tree(t);
+      stage_pred_tree(predT, n_docs,
+                      static_cast<int64_t>(c) * tcm + j * m_per_tree,
+                      m_per_tree, d0, db, g.path, r_len, g.plen, g.csq,
+                      g.outw, n_leaves,
+                      pred_smem + ((t - t_lo) % kStages) * stage_bytes, vec);
+    } else {
+      asm volatile("cp.async.commit_group;\n" ::);
+    }
+  };
+  float partial[kDocs];
+#pragma unroll
+  for (int i = 0; i < kDocs; ++i) partial[i] = 0.0f;
+  if constexpr (kStaged) {
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) stage(t_lo + s);
+  }
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int j = t % tree_chunk;
+    PredTree<PredT> g = tree(t);
+    const PredWords* words = nullptr;
+    if constexpr (kStaged) {
+      stage(t + kStages - 1);
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1));
+      __syncthreads();
+      unsigned char* st = pred_smem + ((t - t_lo) % kStages) * stage_bytes;
+      const int* path = reinterpret_cast<const int*>(st + rows_bytes);
+      const float* leaves = reinterpret_cast<const float*>(path + r_len);
+      g.path = path;
+      g.plen = leaves;
+      g.csq = leaves + n_leaves;
+      g.outw = leaves + 2 * n_leaves;
+      words = reinterpret_cast<const PredWords*>(st);
+      if constexpr (kBf16) {       // own bf16 bytes -> one byte a test
+        PredWords* w = reinterpret_cast<PredWords*>(st);
         for (int m = 0; m < m_per_tree; ++m) {
-          const int r = j * m_per_tree + m;
-          const float w = __ldg(pm + static_cast<int64_t>(r) * tcl + col);
-          if (w != 0.0f) hits += w * pred_value(pred[static_cast<int64_t>(r) *
-                                                     n_docs]);
-        }
-        if (hits == __ldg(plen + aux + col) - __ldg(csq + aux + col)) {
-          leaf += __ldg(outw + aux + col);
+#pragma unroll
+          for (int h = 0; h < kSpans; ++h) {
+            const PredWords a = w[2 * (m * units + unit(h))];
+            const PredWords b = w[2 * (m * units + unit(h)) + 1];
+            unsigned raw[2 * kW];
+#pragma unroll
+            for (int q = 0; q < kW; ++q) {
+              raw[q] = a.w[q];
+              raw[kW + q] = b.w[q];
+            }
+            PredWords c;
+#pragma unroll
+            for (int q = 0; q < kW; ++q)
+              c.w[q] = bf16_word(raw[2 * q], raw[2 * q + 1]);
+            w[2 * m * units + slot(h)] = c;
+          }
         }
       }
-      partial += leaf;
     }
-    score += partial;
+    // span h's test words of node row m of this tree
+    auto row_words = [&](int m, int h) -> PredWords {
+      if constexpr (kStaged) {
+        return words[(kBf16 ? 2 : 1) * m * units + slot(h)];
+      } else {
+        const PredT* r = g.rows + m * n_docs;
+        const int64_t d = d0 + kSpan * static_cast<int64_t>(unit(h));
+        PredWords w;
+#pragma unroll
+        for (int q = 0; q < kW; ++q)
+          w.w[q] = global_word(r, d + 4 * q, n_docs, vec);
+        return w;
+      }
+    };
+    const int* npos = g.path + n_leaves + 1;
+    const int* ents = npos + n_leaves;
+    float leaf[kDocs];
+#pragma unroll
+    for (int i = 0; i < kDocs; ++i) leaf[i] = 0.0f;
+    for (int l = 0; l < n_leaves; ++l) {
+      // P rows [p0, pq), Q rows [pq, p1)
+      const int p0 = g.path[l], p1 = g.path[l + 1], pq = p0 + npos[l];
+      const float adj = g.plen[l] - g.csq[l];
+      const float o = g.outw[l];
+      if (p1 - p0 <= kPackedMax) {
+        unsigned acc[kSpans * kW] = {};
+        for (int e = p0; e < pq; ++e) {
+#pragma unroll
+          for (int h = 0; h < kSpans; ++h) {
+            const PredWords w = row_words(ents[e], h);
+#pragma unroll
+            for (int q = 0; q < kW; ++q) acc[h * kW + q] += w.w[q];
+          }
+        }
+        for (int e = pq; e < p1; ++e) {
+#pragma unroll
+          for (int h = 0; h < kSpans; ++h) {
+            const PredWords w = row_words(ents[e], h);
+#pragma unroll
+            for (int q = 0; q < kW; ++q) acc[h * kW + q] -= w.w[q];
+          }
+        }
+        if (adj == truncf(adj) && adj >= pq - p1 && adj <= pq - p0) {
+          const unsigned cst =
+              0x80808080u - static_cast<unsigned>(static_cast<int>(adj)) *
+                                0x01010101u;
+#pragma unroll
+          for (int q = 0; q < kSpans * kW; ++q) {
+            const unsigned v = (acc[q] + cst) ^ 0x80808080u;
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              if (((v >> (8 * k)) & 0xFFu) == 0) leaf[4 * q + k] += o;
+          }
+        }
+      } else {
+        int hits[kDocs] = {};
+        for (int e = p0; e < p1; ++e) {
+          const int s = e < pq ? 1 : -1;
+#pragma unroll
+          for (int h = 0; h < kSpans; ++h) {
+            const PredWords w = row_words(ents[e], h);
+#pragma unroll
+            for (int q = 0; q < kW; ++q) {
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+                hits[h * kSpan + 4 * q + k] +=
+                    s * static_cast<int>((w.w[q] >> (8 * k)) & 0xFFu);
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kDocs; ++i)
+          if (static_cast<float>(hits[i]) == adj) leaf[i] += o;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kDocs; ++i) partial[i] += leaf[i];
+    if (j == tree_chunk - 1) {
+      float* dst = part + static_cast<int64_t>(t / tree_chunk) * n_docs;
+#pragma unroll
+      for (int i = 0; i < kDocs; ++i) {
+        const int64_t d = d0 + kSpan * static_cast<int64_t>(unit(i / kSpan)) +
+                          i % kSpan;
+        if (d < n_docs) dst[d] = partial[i];
+        partial[i] = 0.0f;
+      }
+    }
+    if constexpr (kStaged) __syncthreads();
   }
-  out[doc] = score;
+}
+
+// score[d] = the chunks' partials added in chunk order.
+__global__ void pred_sum_kernel(const float* __restrict__ part, int n_chunks,
+                                int64_t n_docs, float* __restrict__ out) {
+  const int64_t d = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (d >= n_docs) return;
+  float score = 0.0f;
+  for (int c = 0; c < n_chunks; ++c) score += part[c * n_docs + d];
+  out[d] = score;
 }
 
 template <typename Kernel>
@@ -530,19 +841,68 @@ int launch_bins_only(const void* X, int64_t n_docs, int n_features,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The predicate epilogue's launch: of 128, 64 and 32 threads a block, the
+// count that keeps the most threads resident with kPredStages stages of a
+// tree's operands (the smaller count on a tie: more, smaller blocks); when
+// none fits, the unstaged kernel at 128 threads reads them from global
+// memory. The chunks split into as many groups (blockIdx.y) as the SMs'
+// resident blocks hold in one wave. `vec`: rows 16-byte aligned (staged)
+// or 4-document words aligned (unstaged).
 template <typename PredT>
 int launch_pred(const void* predT, int64_t n_docs, int n_chunks, int tcm,
-                int tcl, int tree_chunk, int m_per_tree, const void* pmq,
-                const void* csq, const void* plen, const void* outw, void* out,
-                void* stream) {
-  const unsigned blocks =
-      static_cast<unsigned>((n_docs + kMaxDocsPerBlock - 1) / kMaxDocsPerBlock);
-  pred_epilogue_kernel<PredT><<<blocks, kMaxDocsPerBlock, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
+                int tcl, int tree_chunk, int m_per_tree, const void* paths,
+                int r_len, const void* csq, const void* plen,
+                const void* outw, void* part, void* out, void* stream) {
+  constexpr size_t kBytes = sizeof(PredT);
+  const size_t meta = pred_meta_bytes(r_len, tcl / tree_chunk);
+  int nt = 0, resident = 0, per_sm = 1;
+  size_t smem = 0;
+  for (int t = kPredThreads; t >= 32; t >>= 1) {
+    const size_t rows = static_cast<size_t>(m_per_tree) * 4 * kPredWords *
+                        pred_spans<PredT>() * t;
+    const size_t bytes = kPredStages * (rows * kBytes + meta);
+    if (bytes > kMaxSmem) continue;
+    const int blocks = std::min({2048 / t, 32,
+                                 static_cast<int>(kSmSmem / (bytes + 1024))});
+    if (blocks * t >= resident) {
+      resident = blocks * t;
+      nt = t;
+      smem = bytes;
+      per_sm = blocks;
+    }
+  }
+  const uintptr_t p = reinterpret_cast<uintptr_t>(predT);
+  const bool staged = nt != 0;
+  bool vec = (n_docs * kBytes) % 16 == 0 && p % 16 == 0;
+  if (!staged) {
+    nt = kPredThreads;
+    vec = n_docs % 4 == 0 && p % (4 * kBytes) == 0;
+  }
+  auto kernel = staged ? pred_epilogue_kernel<PredT, true>
+                       : pred_epilogue_kernel<PredT, false>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    sms = 132;
+  const int64_t db = 4 * kPredWords * pred_spans<PredT>() * nt;
+  const int64_t doc_blocks = (n_docs + db - 1) / db;
+  const int64_t want = static_cast<int64_t>(sms) * per_sm / doc_blocks;
+  const unsigned groups = static_cast<unsigned>(
+      std::max<int64_t>(1, std::min<int64_t>(want, n_chunks)));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  kernel<<<dim3(static_cast<unsigned>(doc_blocks), groups), nt, smem, s>>>(
       static_cast<const PredT*>(predT), n_docs, n_chunks, tcm, tcl,
-      tree_chunk, m_per_tree, static_cast<const float*>(pmq),
+      tree_chunk, m_per_tree, static_cast<const int*>(paths), r_len,
       static_cast<const float*>(csq), static_cast<const float*>(plen),
-      static_cast<const float*>(outw), static_cast<float*>(out));
+      static_cast<const float*>(outw), static_cast<float*>(part), vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pred_sum_kernel<<<static_cast<unsigned>((n_docs + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(part), n_chunks, n_docs,
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -636,24 +996,30 @@ extern "C" int forest_bins_only_i16(const void* X, int64_t n_docs,
 }
 
 // Predicate epilogue: predT [n_chunks * tcm, n_docs] 0/1 (uint8, or bf16
-// bits), pmq [n_chunks, tcm, tcl] f32 block-diagonal (one [m_per_tree,
-// tcl / tree_chunk] block a tree), csq / plen / outw [n_chunks, tcl] f32.
+// bits); paths [n_chunks * tree_chunk, r_len] int32, the path records of
+// P - Q [n_chunks, tcm, tcl] (one [m_per_tree, tcl / tree_chunk] block a
+// tree; gbdt/ensemble.py _pred_paths); csq / plen / outw [n_chunks, tcl]
+// f32; part [n_chunks, n_docs] f32 scratch for the chunks' partials.
 extern "C" int forest_eval_pred_u8(const void* predT, int64_t n_docs,
                                    int n_chunks, int tcm, int tcl,
                                    int tree_chunk, int m_per_tree,
-                                   const void* pmq, const void* csq,
-                                   const void* plen, const void* outw,
-                                   void* out, void* stream) {
+                                   const void* paths, int r_len,
+                                   const void* csq, const void* plen,
+                                   const void* outw, void* part, void* out,
+                                   void* stream) {
   return launch_pred<uint8_t>(predT, n_docs, n_chunks, tcm, tcl, tree_chunk,
-                              m_per_tree, pmq, csq, plen, outw, out, stream);
+                              m_per_tree, paths, r_len, csq, plen, outw, part,
+                              out, stream);
 }
 
 extern "C" int forest_eval_pred_bf16(const void* predT, int64_t n_docs,
                                      int n_chunks, int tcm, int tcl,
                                      int tree_chunk, int m_per_tree,
-                                     const void* pmq, const void* csq,
-                                     const void* plen, const void* outw,
-                                     void* out, void* stream) {
+                                     const void* paths, int r_len,
+                                     const void* csq, const void* plen,
+                                     const void* outw, void* part, void* out,
+                                     void* stream) {
   return launch_pred<uint16_t>(predT, n_docs, n_chunks, tcm, tcl, tree_chunk,
-                               m_per_tree, pmq, csq, plen, outw, out, stream);
+                               m_per_tree, paths, r_len, csq, plen, outw,
+                               part, out, stream);
 }

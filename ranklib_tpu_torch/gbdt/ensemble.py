@@ -388,6 +388,8 @@ class TreeEnsemble:
                 grid=dev(grid), fid_full=dev(fid_full),
                 nodebin_full=dev(nodebin), PmQc=dev(PmQc), csQc=dev(csQc),
                 plenc=dev(plenc), outwc=dev(outwc),
+                pred_paths=dev(_pred_paths(PmQc, self._TREE_CHUNK,
+                                           self._nodes_per_tree())),
                 **self._split_fields(n_features, False, dev))
         return self._dev_packs[key]
 
@@ -404,7 +406,10 @@ class TreeEnsemble:
                 nodes_per_tree=self._nodes_per_tree(),
                 fid_full=dev(fid_full), thr_full=dev(thr_full),
                 PmQc=dev(PmQc), csQc=dev(csQc), plenc=dev(plenc),
-                outwc=dev(outwc), **self._split_fields(n_features, True, dev))
+                outwc=dev(outwc),
+                pred_paths=dev(_pred_paths(PmQc, self._TREE_CHUNK,
+                                           self._nodes_per_tree())),
+                **self._split_fields(n_features, True, dev))
         return self._dev_packs[key]
 
     def _split_fields(self, n_features: int, f32: bool, dev) -> dict:
@@ -554,6 +559,36 @@ def _split_records(s, left, lleaf, right, rleaf, f32: bool,
 
 def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _pred_paths(PmQc: np.ndarray, tree_chunk: int, M: int) -> np.ndarray:
+    """The predicate epilogue kernel's path records, from ``PmQc [nch, TCM,
+    TCL]`` (tree j of a chunk owning rows ``j·M .. (j+1)·M`` and columns
+    ``j·L .. (j+1)·L``): one int32 row a tree (``c·tree_chunk + j``) of
+    ``R`` ints, a multiple of 4 — the ``L + 1`` offsets of its leaves'
+    lists, the ``L`` counts of their P rows, then the lists: each leaf's
+    rows ``m`` within the tree where P−Q is +1, ascending, then those where
+    it is −1, ascending; zeros pad."""
+    nch, _, TCL = PmQc.shape
+    L = TCL // tree_chunk
+    T = nch * tree_chunk
+    c, col, row = np.nonzero(np.transpose(PmQc, (0, 2, 1)))
+    neg = PmQc[c, row, col] < 0
+    j, leaf = col // L, col % L
+    tree = c * tree_chunk + j
+    order = np.lexsort((row, neg, leaf, tree))
+    tree, key, m = tree[order], (tree * L + leaf)[order], (row - j * M)[order]
+    counts = np.bincount(key, minlength=T * L).reshape(T, L)
+    npos = np.bincount(key, weights=~neg[order], minlength=T * L)
+    offs = np.zeros((T, L + 1), np.int64)
+    offs[:, 1:] = np.cumsum(counts, axis=1)
+    R = (2 * L + 1 + int(offs[:, L].max(initial=0)) + 3) // 4 * 4
+    paths = np.zeros((T, R), np.int32)
+    paths[:, :L + 1] = offs
+    paths[:, L + 1:2 * L + 1] = npos.reshape(T, L)
+    first = np.concatenate([[0], np.cumsum(offs[:, L])])[tree]
+    paths[tree, 2 * L + 1 + np.arange(len(m)) - first] = m
+    return paths
 
 
 def _node_text(t: Tree, node: int, indent: int, pos: str | None = None):

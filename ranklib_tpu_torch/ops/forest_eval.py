@@ -76,7 +76,10 @@ class ForestPack:
     ``grid [F, Bm]`` f32 (+inf padded), ``fid_full``/``nodebin_full``
     ``[nch·TCM]``, ``PmQc [nch, TCM, TCL]``, ``csQc``/``plenc``/``outwc``
     ``[nch, TCL]`` with TCL = tree_chunk·L; tree j of a chunk owns P−Q rows
-    ``j·M .. (j+1)·M`` (M = ``nodes_per_tree``). The kernels walk split
+    ``j·M .. (j+1)·M`` (M = ``nodes_per_tree``). ``pred_paths``
+    int32 ``[nch·tree_chunk, R]`` holds P−Q's path lists, one record a
+    tree, for the predicate epilogue (``gbdt/ensemble.py _pred_paths``).
+    The kernels walk split
     records (``TreeEnsemble._pack_splits``): ``splits [S, 4]`` int32
     (feature, node bin | leaf flags, left, right; a child is a leaf's
     w·output bits or a record index within the tree's chunk),
@@ -97,6 +100,7 @@ class ForestPack:
     csQc: torch.Tensor
     plenc: torch.Tensor
     outwc: torch.Tensor
+    pred_paths: torch.Tensor
     splits: torch.Tensor
     split_roots: torch.Tensor
     chunk_starts: torch.Tensor
@@ -117,8 +121,9 @@ class FullPack:
     ``TreeEnsemble.full_pack``: the reference's ``_pack_matmul`` layout
     (``fid_full``/``thr_full`` [nch·TCM], ``PmQc``, ``csQc``, ``plenc``,
     ``outwc``; M = ``nodes_per_tree`` P−Q rows a tree) for the plain
-    version and the predicate epilogue, and f32 split records for the
-    kernel: ``splits [S, 4]`` int32 (feature | left-is-leaf << 30 |
+    version, P−Q's path lists (``pred_paths``, as in :class:`ForestPack`)
+    for the predicate epilogue, and f32 split records
+    for the kernel: ``splits [S, 4]`` int32 (feature | left-is-leaf << 30 |
     right-is-leaf << 31, the threshold's f32 bits, left, right), with
     ``split_roots``, ``chunk_starts``, ``chunk_splits`` and ``max_depth``
     as in :class:`ForestPack`."""
@@ -134,6 +139,7 @@ class FullPack:
     csQc: torch.Tensor
     plenc: torch.Tensor
     outwc: torch.Tensor
+    pred_paths: torch.Tensor
     splits: torch.Tensor
     split_roots: torch.Tensor
     chunk_starts: torch.Tensor
@@ -280,8 +286,8 @@ def _kernels() -> ctypes.CDLL:
         fn.argtypes = [_vp, _i64, _int, _vp, _int, _int, _vp, _vp]
         fn.restype = _int
     for fn in (lib.forest_eval_pred_u8, lib.forest_eval_pred_bf16):
-        fn.argtypes = [_vp, _i64, _int, _int, _int, _int, _int, _vp, _vp,
-                       _vp, _vp, _vp, _vp]
+        fn.argtypes = [_vp, _i64, _int, _int, _int, _int, _int, _vp, _int,
+                       _vp, _vp, _vp, _vp, _vp, _vp]
         fn.restype = _int
     return lib
 
@@ -450,10 +456,11 @@ def forest_eval_pred(predT: torch.Tensor,
     ``forest_eval_pallas``): ``predT [nch·TCM, N]`` contiguous 0/1 uint8 or
     bf16 (chunk-major rows, the node order of ``pack.fid_full``) against
     ``pack``'s ``PmQc [nch, TCM, TCL]`` (P−Q in {−1, 0, 1}) and
-    ``csQc``/``plenc``/``outwc`` ``[nch, TCL]`` f32. The kernel reads each
-    tree's own ``[M, TCL / tree_chunk]`` block of P−Q, so M
-    (``nodes_per_tree``) comes from the pack that laid P−Q out: any other
-    M would read the wrong block for every tree after the first."""
+    ``csQc``/``plenc``/``outwc`` ``[nch, TCL]`` f32. The kernel reads P−Q
+    through the pack's path records (``pred_paths``) and stages each
+    tree's M rows of ``predT``, so M (``nodes_per_tree``) comes from
+    the pack that laid P−Q out: any other M would stage the wrong rows for
+    every tree after the first."""
     name = "forest_eval_pred"
     PmQc, csQc, plenc, outwc = pack.PmQc, pack.csQc, pack.plenc, pack.outwc
     tree_chunk, nodes_per_tree = pack.tree_chunk, pack.nodes_per_tree
@@ -480,7 +487,15 @@ def forest_eval_pred(predT: torch.Tensor,
         raise RankLibError(f"{name}: {tree_chunk} trees of "
                            f"{nodes_per_tree} nodes do not tile "
                            f"[{TCM}, {TCL}] chunks")
-    ts = (predT, PmQc, *aux)
+    paths = pack.pred_paths
+    L = TCL // tree_chunk
+    if (paths.dim() != 2 or paths.shape[0] != nch * tree_chunk
+            or paths.shape[1] < 2 * L + 1 or paths.shape[1] % 4
+            or paths.dtype != torch.int32):
+        raise RankLibError(f"{name}: pred_paths must be int32 "
+                           f"[{nch * tree_chunk}, R], R >= {2 * L + 1} a "
+                           f"multiple of 4")
+    ts = (predT, PmQc, *aux, paths)
     dev = predT.device
     if dev.type not in ("cpu", "cuda") or any(t.device != dev for t in ts):
         raise RankLibError(f"{name}: all tensors must share one cpu or "
@@ -493,13 +508,15 @@ def forest_eval_pred(predT: torch.Tensor,
     N = predT.shape[1]
     out = torch.empty(N, dtype=torch.float32, device=dev)
     if N:
+        part = torch.empty((nch, N), dtype=torch.float32, device=dev)
         lib = _kernels()
         fn = (lib.forest_eval_pred_u8 if predT.dtype == torch.uint8
               else lib.forest_eval_pred_bf16)
         with torch.cuda.device(dev):
             _raise_on(fn(predT.data_ptr(), N, nch, TCM, TCL, tree_chunk,
-                         nodes_per_tree, PmQc.data_ptr(), csQc.data_ptr(),
-                         plenc.data_ptr(), outwc.data_ptr(), out.data_ptr(),
+                         nodes_per_tree, paths.data_ptr(), paths.shape[1],
+                         csQc.data_ptr(), plenc.data_ptr(), outwc.data_ptr(),
+                         part.data_ptr(), out.data_ptr(),
                          torch.cuda.current_stream(dev).cuda_stream), name)
         forest_eval_pred.launches += 1
     return out

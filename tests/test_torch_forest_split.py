@@ -10,8 +10,10 @@
   default route.
 * Predicate epilogue (``forest_eval_pred``): the plain version against the
   reference's ``forest_eval_pallas`` in interpret mode with bf16 node tests,
-  as tests/test_forest_eval.py:44-53 drives it, and a Python emulation of
-  the CUDA kernel's block-diagonal loop, bit for bit.
+  as tests/test_forest_eval.py:44-53 drives it; a torch emulation of the
+  CUDA kernel's loop (the packs' path lists, hits counted 4 documents a
+  word) against the plain version bit for bit, on chain, heap-shaped,
+  one-leaf and 150-leaf trees; the path lists against P−Q's nonzeros.
 
 Inputs come from numpy seeds. Tolerance 1e-5, the reference kernel tests'
 own; the port's routes among themselves agree bit for bit.
@@ -183,33 +185,70 @@ def test_pred_plain_matches_reference_kernel(shape):
         tree_chunk=pack.tree_chunk), got, atol=0, rtol=0)
 
 
-def _emulate_pred_kernel(predT, PmQc, csQc, plenc, outwc, tree_chunk, M):
+def _emulate_pred_kernel(predT, paths, csQc, plenc, outwc, tree_chunk, M,
+                         packed_max=127):
     """What csrc/forest_eval.cu pred_epilogue_kernel computes, in torch:
-    each tree reads only its own [M, L] block of P−Q, skips its zeros,
-    takes the output of the leaf with hits == plen − csQ; trees add in
-    order into one partial a chunk, chunks in order."""
-    nch, TCM, TCL = PmQc.shape
-    L = TCL // tree_chunk
-    pred = predT.to(torch.float32)
-    N = pred.shape[1]
-    score = torch.zeros(N)
+    node tests as one byte a document (bf16: 1 where nonzero), 4 documents
+    a 32-bit word; per leaf l of tree t = c·tree_chunk + j, its path list
+    from the tree's record ``paths[t]`` (offsets ``[:L + 1]``, P counts
+    ``[L + 1:2L + 1]``, then each leaf's P rows and Q rows m, the tree's
+    node row j·M + m). Paths of at most ``packed_max`` entries count the 4
+    documents' hits in the bytes of one word (±word, mod 2^32) and match
+    where the byte of ``acc + 0x80808080 − t·0x01010101`` is 0x80, for
+    t = plen − csQ an integer in [−nQ, nP]; longer ones count each
+    document's int hits and match where float(hits) == plen − csQ.
+    Matching outputs add in leaf order, trees in order into one partial a
+    chunk, chunks in order."""
+    nch, TCL = csQc.shape
+    L, TCM = TCL // tree_chunk, predT.shape[0] // nch
+    b = (predT != 0 if predT.dtype == torch.bfloat16 else predT).to(
+        torch.int64)
+    N = b.shape[1]
+    Np = -(-N // 4) * 4
+    b = torch.nn.functional.pad(b, (0, Np - N))
+    words = (b.view(b.shape[0], Np // 4, 4)
+             * torch.tensor([1, 1 << 8, 1 << 16, 1 << 24])).sum(-1)
+    mask = 0xFFFFFFFF
+    score = torch.zeros(Np)
     for c in range(nch):
-        partial = torch.zeros(N)
+        partial = torch.zeros(Np)
         for j in range(tree_chunk):
-            leaf = torch.zeros(N)
+            rec = paths[c * tree_chunk + j].to(torch.int64)
+            leaf = torch.zeros(Np)
             for l_ in range(L):
-                col = j * L + l_
-                hits = torch.zeros(N)
-                for m in range(M):
-                    r = j * M + m
-                    w = PmQc[c, r, col]
-                    if w != 0:
-                        hits = hits + w * pred[c * TCM + r]
-                hit = hits == plenc[c, col] - csQc[c, col]
-                leaf = torch.where(hit, leaf + outwc[c, col], leaf)
+                cl = j * L + l_
+                p0, p1 = int(rec[l_]), int(rec[l_ + 1])
+                m = rec[2 * L + 1 + p0:2 * L + 1 + p1]
+                neg = (torch.arange(p1 - p0) >= int(rec[L + 1 + l_])).long()
+                assert bool(((m >= 0) & (m < M)).all())
+                rows = c * TCM + j * M + m
+                sign = 1 - 2 * neg
+                adj = plenc[c, cl] - csQc[c, cl]          # f32, as plain
+                o = outwc[c, cl]
+                if p1 - p0 <= packed_max:
+                    acc = (sign[:, None] * words[rows]).sum(0) & mask
+                    nq = int(neg.sum())
+                    a = float(adj)
+                    if a != int(a) or not -nq <= a <= p1 - p0 - nq:
+                        continue
+                    cst = (0x80808080 - int(a) * 0x01010101) & mask
+                    v = ((acc + cst) & mask) ^ 0x80808080
+                    byte = (v[:, None] >> torch.tensor([0, 8, 16, 24])) & 0xFF
+                    hit = (byte == 0).reshape(-1)
+                else:
+                    hits = (sign[:, None] * b[rows]).sum(0)
+                    hit = hits.to(torch.float32) == adj
+                leaf = torch.where(hit, leaf + o, leaf)
             partial = partial + leaf
         score = score + partial
-    return score
+    return score[:N]
+
+
+def _emulate(p, pack, packed_max=127):
+    return _emulate_pred_kernel(p, pack.pred_paths, pack.csQc, pack.plenc,
+                                pack.outwc, pack.tree_chunk,
+                                pack.nodes_per_tree, packed_max)
+
 
 
 def test_pred_kernel_loop_over_diagonal_blocks_equals_plain_bitwise():
@@ -218,8 +257,118 @@ def test_pred_kernel_loop_over_diagonal_blocks_equals_plain_bitwise():
     p = _t(predT.astype(jnp.float32)).to(torch.uint8)
     ops = tuple(map(_t, ops))
     plain = fe.forest_eval_pred_plain(p, *ops, tree_chunk=pack.tree_chunk)
-    emu = _emulate_pred_kernel(p, *ops, pack.tree_chunk, pack.nodes_per_tree)
-    torch.testing.assert_close(emu, plain, atol=0, rtol=0)
+    torch.testing.assert_close(_emulate(p, pack), plain, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16],
+                         ids=["uint8", "bf16"])
+@pytest.mark.parametrize("shape", [(50, 10, 20, 300, 7), (23, 7, 13, 257, 11)],
+                         ids=["50x10", "odd-23x7"])
+def test_pred_kernel_emulation_matches_plain_and_reference(shape, dtype):
+    """The kernel's loop (path lists, hits counted 4 documents a word)
+    against the plain version, bit for bit, and the reference's
+    forest_eval_pallas in interpret mode, on both predicate cases, uint8
+    and bf16 node tests. The reference folds the leaf outputs of a chunk
+    in one product (another order of f32 adds), so it agrees to the
+    reference kernel tests' 1e-5."""
+    _, port, X, predT, ops = _pred_case(*shape)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(forest_eval_pallas(predT, *ops))
+    pack = port.full_pack(X.shape[1], CPU)
+    p = _t(predT.astype(jnp.float32)).to(dtype)
+    emu = _emulate(p, pack)
+    torch.testing.assert_close(emu, fe.forest_eval_pred_plain(
+        p, *pack.matmul_operands()[2:], tree_chunk=pack.tree_chunk),
+        atol=0, rtol=0)
+    np.testing.assert_allclose(emu.numpy(), want, **TOL)
+
+
+def _shaped(kind, n_trees, n_leaves, n_features, seed):
+    """A port ensemble of chain or heap-shaped trees (node i splits into
+    2i+1 and 2i+2), with one one-leaf tree between them for "lone"."""
+    rng = np.random.default_rng(seed)
+    if kind == "chain":
+        ref = g._synthetic_ensemble(n_trees=n_trees, n_leaves=n_leaves,
+                                    n_features=n_features, rng=rng)
+        return from_reference_arrays(ref.trees, ref.weights)
+    ens = E.TreeEnsemble()
+    M = 2 * n_leaves - 1
+    for i in range(n_trees):
+        if kind == "lone" and i == n_trees // 2:
+            ens.add(E.Tree([0], [0.0], [-1], [-1], [True], [0.75]), 0.5)
+        left = np.full(M, -1, np.int32)
+        right = np.full(M, -1, np.int32)
+        is_leaf = np.ones(M, bool)
+        for n in range(n_leaves - 1):
+            left[n], right[n], is_leaf[n] = 2 * n + 1, 2 * n + 2, False
+        ens.add(E.Tree(rng.integers(0, n_features, M).astype(np.int32),
+                       rng.normal(size=M).astype(np.float32), left, right,
+                       is_leaf, rng.normal(size=M).astype(np.float32)), 0.1)
+    return ens
+
+
+SHAPED = {"chain-10": ("chain", 30, 10, 8), "heap-10": ("heap", 30, 10, 8),
+          "lone-leaf": ("lone", 9, 6, 5), "chain-150": ("chain", 4, 150, 6),
+          "heap-150": ("heap", 5, 150, 6)}
+
+
+@pytest.mark.parametrize("which", list(SHAPED))
+def test_pack_path_lists_are_the_nonzeros_of_PmQc(which):
+    """Each pack's path records hold, tree by tree and leaf by leaf, the
+    rows of the leaf column's +1 P−Q entries in order, then those of its
+    −1 entries in order, inside the tree's M rows; records are a multiple
+    of 4 ints."""
+    kind, T, L, F = SHAPED[which]
+    port = _shaped(kind, T, L, F, seed=len(which))
+    for pack in (port.full_pack(F, CPU), port.forest_pack(F, CPU)):
+        PmQc, paths, tc = pack.PmQc, pack.pred_paths, pack.tree_chunk
+        nch, TCM, TCL = PmQc.shape
+        M, lv = pack.nodes_per_tree, TCL // tc
+        assert M == L - 1 and paths.dtype == torch.int32
+        assert paths.shape[0] == nch * tc and paths.shape[1] % 4 == 0
+        longest = 0
+        for c in range(nch):
+            for j in range(tc):
+                rec = paths[c * tc + j]
+                offs = rec[:lv + 1].tolist()
+                assert offs[0] == 0 and 2 * lv + 1 + offs[-1] <= rec.numel()
+                for l_ in range(lv):
+                    m = rec[2 * lv + 1 + offs[l_]:2 * lv + 1 + offs[l_ + 1]]
+                    n_p = int(rec[lv + 1 + l_])
+                    col = PmQc[c, :, j * lv + l_]
+                    for rows, part in ((torch.nonzero(col > 0), m[:n_p]),
+                                       (torch.nonzero(col < 0), m[n_p:])):
+                        assert torch.equal(part + j * M,
+                                           rows.flatten().to(torch.int32))
+                    assert bool(((m >= 0) & (m < M)).all())
+                    longest = max(longest, m.numel())
+        # a chain's deepest leaf lists every node of its tree
+        if kind == "chain":
+            assert longest == M
+
+
+@pytest.mark.parametrize("which", ["lone-leaf", "chain-150", "heap-150"])
+def test_pred_kernel_emulation_on_long_paths_and_lone_leaves(which):
+    """150-leaf chains have paths of up to 149 entries, past the packed
+    byte test's 127: those leaves count per document; the emulation stays
+    bit-equal to the plain version with both counts, and with every leaf
+    counted per document."""
+    kind, T, L, F = SHAPED[which]
+    port = _shaped(kind, T, L, F, seed=len(which))
+    rng = np.random.default_rng(5)
+    X = torch.from_numpy(rng.normal(size=(67, F)).astype(np.float32))
+    pack = port.full_pack(F, CPU)
+    fid, thr = pack.fid_full.long(), pack.thr_full
+    predT = (X.T.index_select(0, fid) <= thr[:, None]).to(torch.uint8)
+    want = fe.forest_eval_pred_plain(predT, *pack.matmul_operands()[2:],
+                                     tree_chunk=pack.tree_chunk)
+    torch.testing.assert_close(want, fe.forest_eval_full(X, pack), atol=0,
+                               rtol=0)
+    for dt in (torch.uint8, torch.bfloat16):
+        for packed_max in (127, -1):
+            torch.testing.assert_close(
+                _emulate(predT.to(dt), pack, packed_max), want, atol=0,
+                rtol=0)
 
 
 def test_wrappers_check_inputs_and_count_only_kernel_launches():
@@ -243,6 +392,12 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
             p, replace(pack, PmQc=pack.PmQc.double())),
         lambda: fe.forest_eval_pred(p, replace(pack, tree_chunk=7)),
         lambda: fe.forest_eval_pred(p, replace(pack, nodes_per_tree=1000)),
+        lambda: fe.forest_eval_pred(
+            p, replace(pack, pred_paths=pack.pred_paths.long())),
+        lambda: fe.forest_eval_pred(
+            p, replace(pack, pred_paths=pack.pred_paths[1:])),
+        lambda: fe.forest_eval_pred(
+            p, replace(pack, pred_paths=pack.pred_paths[:, :-1])),
         lambda: fe.forest_eval_pred(p.to("meta"), pack),
     ]
     for call in bad:
