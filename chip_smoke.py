@@ -7,8 +7,12 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-It needs CUDA and exits non-zero at once without it. It imports torch,
-numpy and ranklib_tpu_torch only (never JAX or the reference package).
+It needs CUDA and exits non-zero at once without it. With
+``--bare-times ROOT`` it instead times the fused-lambda and binning
+kernels of the package under ROOT (an older tree, for an A/B call) by
+bare launches at this script's shapes and prints one JSON line. It
+imports torch, numpy and ranklib_tpu_torch only (never JAX or the
+reference package).
 Phases, none of whose failures is caught:
 
 1. environment and build: versions, the card's name and power limit, the
@@ -37,9 +41,14 @@ Phases, none of whose failures is caught:
    the f32 traversal). On the forest cases also the split route's
    binning kernel (ids equal to ``device_bins``, scores bit-equal to the
    bins kernel) and the predicate epilogue on uint8 and bf16 node tests
-   (bit-equal to its plain version); the fused lambda kernel on ranked
-   chunks up to D = 1,024 with ties and padded rows (atol 2e-5, rtol 1e-4,
-   two launches bit-identical); the probes' dot (signed int8, 0/1 f32) at
+   (bit-equal to its plain version); the binning kernel alone on hostile
+   grids (1-1,034 thresholds with +inf pads, ±0.0, ±inf, NaN; uint8 and
+   int16 ids, the grid read from global memory past 511 thresholds; N and
+   F off its tiles and words; ids equal to ``device_bins``); the fused
+   lambda round kernel on small fits (queries of 1 to 2,100 documents,
+   one of a single label, score ties and ±0.0, pad documents; NDCG, DCG,
+   P@k, P@0; atol 2e-5, rtol 1e-4 against its plain version, two launches
+   bit-identical, pads 0); the probes' dot (signed int8, 0/1 f32) at
    every tile edge of M, N and K and with int8 sums near 2^31, and the
    int16 compare, exactly;
 3. the serving path at the full width the repo measures — 1,000 trees x 10
@@ -67,10 +76,11 @@ Phases, none of whose failures is caught:
 8. fused lambdas at the training shape under ``RANKLIB_TPU_FUSED_LAMBDA=1``
    (before any profiled phase, so its rounds are timed as fit A's): a
    sort-free and a fused 50-tree fit, the fused one with its counters at 0
-   (50 launches a bucket chunk), the kernel vs plain on every chunk, the
-   lambda phase alone against the sort-free path, a sync-free round, card
-   vs CPU (10 trees, 200 queries) and the ``-train -ranker 6`` CLI, each
-   launching the kernel;
+   (one lambda launch a round: 50), the kernel vs its plain version on
+   the fit's scores, the kernel's own device time (20 bare launches) and
+   its wrapper's by events and in host µs, the lambda phase alone against
+   the sort-free path, a sync-free round, card vs CPU (10 trees, 200
+   queries) and the ``-train -ranker 6`` CLI, each launching the kernel;
 9. training kernels at full width: kernel vs plain device times of the
    histogram (root, and a child with ~10% weights) and the scan
    ([1|2, 136, 256, 2], the pair form at 2; exact on integer-valued
@@ -102,10 +112,12 @@ Phases, none of whose failures is caught:
     the result with every counter at 0: it must run the f32 kernel and
     print the plain version's metric;
 13. split serving under ``RANKLIB_TPU_SERVE_SPLIT=1`` at the serving
-    width: the binning kernel vs ``device_bins`` and ``torch.searchsorted``,
-    the split route bit-equal to the bins kernel and the plain version,
-    then ``eval_matrix`` and the CLI's ``-load -test`` with the counters at
-    0 (binning and frombins kernels launched, the fused bins kernel not);
+    width: the binning kernel vs ``device_bins`` and ``torch.searchsorted``
+    (its own device time by 20 bare launches, its wrapper's by events and
+    in host µs), the split route bit-equal to the bins kernel and the
+    plain version, then ``eval_matrix`` and the CLI's ``-load -test`` with
+    the counters at 0 (binning and frombins kernels launched, the fused
+    bins kernel not);
 14. the predicate epilogue at the serving width: ~9,600 x 262,144 node
     tests of the f32 pack built on the card, uint8 and bf16, bit-equal to
     the plain version and to the f32 route;
@@ -461,41 +473,120 @@ def small_case_checks(dev) -> None:
     case("F-long-chains", 6, 150, 40, 300, seed=13)
 
 
-def lambda_small_checks(dev) -> float:
-    """Fused lambda kernel vs plain on ranked chunks: score ties, padded
-    slots and a fully padded row, D up to 1,024 (two q tiles)."""
+def round_data(ds, metric, n_pad_docs, dev):
+    """The fused round's per-fit data (``BoostData.fused``) of dataset
+    ``ds`` with ``n_pad_docs`` pad documents, as a fit under
+    RANKLIB_TPU_FUSED_LAMBDA=1 builds it; the bins are never read."""
+    from ranklib_tpu_torch.data.dataset import flatten_meta
+    from ranklib_tpu_torch.gbdt.boost import make_boost_data
     from ranklib_tpu_torch.metrics.base import create_scorer
+
+    labels, _ = flatten_meta(ds)
+    N = labels.shape[0]
+    os.environ[FUSED_FLAG] = "1"
+    try:
+        data, _, _ = make_boost_data(
+            ds, np.zeros((N + n_pad_docs, 1), np.uint8),
+            np.concatenate([labels, np.zeros(n_pad_docs, np.float32)]), N,
+            None, None, dev, scorer=create_scorer(metric))
+    finally:
+        os.environ.pop(FUSED_FLAG, None)
+    return data
+
+
+def lambda_small_checks(dev) -> float:
+    """The fused round kernel vs its plain version on small fits: score
+    ties and ±0.0, queries of 1 and 2 documents, of one label, up to
+    1,100 documents and of 2,100 (past the 2,048 a block stages: the
+    scratch-row path), pad documents; NDCG@10, DCG@5, P@4, P@0 (atol
+    2e-5, rtol 1e-4; two launches bit-identical; pads 0)."""
+    from ranklib_tpu_torch.data.dataset import Dataset, Query
     from ranklib_tpu_torch.ops import lambda_kernel as LK
 
     rng = np.random.default_rng(29)
     worst = 0.0
-    for B, D in [(4, 8), (3, 16), (5, 130), (2, 512), (2, 640), (3, 1024)]:
-        labels = rng.integers(0, 5, (B, D)).astype(np.float32)
-        scores = (np.round(rng.normal(size=(B, D)) * 4) / 4).astype(
+    for sizes in ([1, 2, 7, 33], [80, 130, 160, 97, 121], [512, 640, 1100],
+                  [2100, 40]):
+        queries = []
+        for i, n in enumerate(sizes):
+            labels = rng.integers(0, 5, n).astype(np.float32)
+            if i == 2:
+                labels[:] = 3.0                      # one label: no pairs
+            queries.append(Query(str(i + 1), labels,
+                                 np.zeros((n, 1), np.float32), [""] * n))
+        ds = Dataset(queries, 1)
+        n_docs = sum(sizes)
+        s = (np.round(rng.normal(size=n_docs + 8) * 4) / 4).astype(
             np.float32)
-        n = rng.integers(1, D + 1, B)
-        n[-1] = 0                                    # a fully padded row
-        mask = np.arange(D)[None, :] < n[:, None]
-        labels[~mask] = 0.0
-        chunk = [torch.from_numpy(a).to(dev) for a in (labels, scores, mask)]
+        s[rng.random(s.size) < 0.05] = 0.0
+        s[rng.random(s.size) < 0.05] = -0.0
+        scores = torch.from_numpy(s).to(dev)
         for metric in ("NDCG@10", "DCG@5", "P@4", "P@0"):
-            _, vecs = LK.ranked_pair_inputs(create_scorer(metric), *chunk)
-            got = LK.lambda_pairs(*vecs)
-            again = LK.lambda_pairs(*vecs)
-            want = LK.lambda_pairs_plain(*vecs)
+            rd = round_data(ds, metric, 7, dev).fused
+            got = LK.lambda_round(rd, scores)
+            again = LK.lambda_round(rd, scores)
+            want = LK.lambda_round_plain(rd, scores)
             torch.cuda.synchronize()
+            what = f"lambda kernel {sizes} {metric}"
             for g, a, w in zip(got, again, want):
-                what = f"lambda kernel ({B}, {D}) {metric}"
                 check(torch.equal(g, a), f"{what}: not reproducible")
                 check(torch.allclose(g, w, **LAMBDA_TOL),
                       f"{what}: kernel and plain version disagree")
-                check(not g[vecs[4] == 0].any(), f"{what}: padded slots "
-                                                  f"not 0")
+                check(not g[n_docs:].any(), f"{what}: pad documents not 0")
                 worst = max(worst, float((g - w).abs().max()))
-        print(f"  lambda kernel ({B}, {D}) x NDCG@10/DCG@5/P@4/P@0: ok")
+        print(f"  lambda kernel, queries of {sizes} docs x NDCG@10/DCG@5/"
+              f"P@4/P@0: ok")
     print(f"  lambda kernel small cases: max_abs_err={worst:.3e}, "
           f"bit-reproducible")
     return worst
+
+
+def bins_only_small_checks(dev) -> None:
+    """The split route's binning kernel against ``device_bins`` (ids equal)
+    on hostile grids: sorted rows of 1-1,034 thresholds with +inf pads and
+    0.0 among them, features on, between and past them, ±0.0, ±inf, NaN;
+    uint8 ids below 256 thresholds, int16 at 256 and past 511 (the grid
+    read from global memory); N not a multiple of the kernel's 128
+    documents or 4-document words, F not a multiple of its 16 features or
+    of 4 (scalar reads of X)."""
+    from types import SimpleNamespace
+
+    from ranklib_tpu_torch.ops import forest_eval as fe
+
+    rng = np.random.default_rng(31)
+    for N, F, n_grid in [(203, 13, 88), (1, 5, 7), (129, 16, 256),
+                         (1000, 20, 255), (4097, 33, 1), (300, 136, 88),
+                         (2050, 12, 600), (96, 3, 256)]:
+        grid = np.full((F, n_grid), np.inf, np.float32)
+        for f in range(F):
+            k = n_grid if f % 3 else int(rng.integers(1, n_grid + 1))
+            vals = np.unique(np.concatenate([[0.0], rng.normal(size=k) * 2]))
+            grid[f, :k] = np.sort(vals[:k]).astype(np.float32)
+        X = (rng.normal(size=(N, F)) * 2).astype(np.float32)
+        on = rng.random((N, F)) < 0.3
+        X[on] = grid[np.nonzero(on)[1], rng.integers(0, n_grid,
+                                                     size=int(on.sum()))]
+        X[~np.isfinite(X)] = 1.0
+        special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e30],
+                           np.float32)
+        X[rng.random((N, F)) < 0.05] = 0.0
+        X.reshape(-1)[rng.integers(0, X.size, size=min(X.size, 64))] = \
+            special[rng.integers(0, 6, size=min(X.size, 64))]
+        Xd = torch.from_numpy(X).to(dev)
+        gd = torch.from_numpy(grid).to(dev)
+        pack = SimpleNamespace(n_features=F, n_grid=n_grid, grid=gd,
+                               device=dev)
+        ids = fe.device_bins_narrow(Xd, pack)
+        want = fe.device_bins(Xd, gd, n_grid)
+        torch.cuda.synchronize()
+        check(ids.dtype == fe.ids_dtype(n_grid) and ids.shape == (F, N),
+              f"binning kernel ({N}, {F}, {n_grid}): wrong ids' type or "
+              f"shape")
+        check(torch.equal(ids.to(torch.int32), want),
+              f"binning kernel ({N}, {F}, {n_grid}): ids differ from "
+              f"device_bins")
+        print(f"  binning kernel N={N} F={F} n_grid={n_grid} "
+              f"({ids.dtype}): ids equal device_bins")
 
 
 def probe_small_checks(dev) -> None:
@@ -786,13 +877,13 @@ def training_phase(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     H.histogram.launches = 0
     SS.best_splits.launches = 0
-    LK.lambda_pairs.launches = 0
+    LK.lambda_round.launches = 0
     with timed_rounds(times_a):
         quiet(fit_a.fit, train, scorer, device=dev)
     torch.cuda.synchronize()
     launches = {"histogram": H.histogram.launches,
                 "split_scan": SS.best_splits.launches}
-    check(LK.lambda_pairs.launches == 0,
+    check(LK.lambda_round.launches == 0,
           "the default route launched the fused lambda kernel")
     peak = torch.cuda.max_memory_allocated(dev)
     want = FIT_TREES * (N_LEAVES - 1)
@@ -1089,6 +1180,7 @@ def round_breakdown(fit, dev) -> dict:
     from ranklib_tpu_torch.metrics.base import create_scorer
     from ranklib_tpu_torch.models.gbdt import LambdaMART
     from ranklib_tpu_torch.ops import histogram as H
+    from ranklib_tpu_torch.ops import lambda_kernel as LK
     from ranklib_tpu_torch.ops import split_scan as SS
 
     scorer = create_scorer("NDCG@10")
@@ -1102,10 +1194,8 @@ def round_breakdown(fit, dev) -> dict:
     fn = lambda_fn(scorer)
 
     def lambdas():
-        parts = [fn(lab, scores[didx], msk, scl)[0].reshape(-1)
-                 for (lab, msk, didx), scl in zip(data.tb, data.tb_scale)]
-        zero = torch.zeros(1, device=dev)
-        return torch.cat(parts + [zero])[data.tb_inv]
+        return LK.chunk_lambdas(fn, data.tb, data.tb_scale, scores,
+                                data.tb_inv)[0]
 
     lam = lambdas()
     w = lam.abs() + 0.5
@@ -1761,11 +1851,44 @@ def rf_cli(tmp) -> int:
     return launches
 
 
+def bare_ms(fn, args, reps: int = 20) -> float:
+    """A kernel's own device time: CUDA events around ``reps`` back-to-back
+    launches of its bare ctypes call (no wrapper, no allocation), divided
+    by ``reps``; median of 20 such runs."""
+    check(fn(*args) == 0, "bare launch failed")
+
+    def alone():
+        for _ in range(reps):
+            fn(*args)
+
+    return event_ms(alone, 20) / reps
+
+
+def lambda_bound(rd) -> tuple:
+    """The fused round's bound on these inputs: labels and scores read and
+    lam and w written once a document, the per-query factors and the
+    discount table read once; 13 operations a (winner, loser) pair (the
+    pair terms and the two sums on each side) and one compare an ordered
+    (document, document) pair of a query (the rank)."""
+    labels = rd.labels.cpu().numpy()
+    qptr = rd.qptr.cpu().numpy()
+    pairs = compares = 0
+    for q in range(len(qptr) - 1):
+        L = labels[qptr[q]:qptr[q + 1]]
+        pairs += int((L[:, None] > L[None, :]).sum())
+        compares += L.size * L.size
+    npad = labels.size
+    return bound(16 * npad + nbytes(rd.qptr, rd.order, rd.qfac, rd.keff,
+                                    rd.disc),
+                 13 * pairs + compares), pairs
+
+
 def fused_lambda_phase(dev, fit, tmp, smi) -> dict:
     """RANKLIB_TPU_FUSED_LAMBDA=1 at the training shape: a 50-tree fit with
-    its counters at 0, the kernel vs plain on every bucket chunk, the
-    lambda phase alone against the sort-free path, a sync-free round, card
-    vs CPU and the training CLI."""
+    its counters at 0 (one lambda launch a round), the kernel vs plain on
+    the fit's scores, its own device time (bare launches), the lambda
+    phase alone against the sort-free path, a sync-free round, card vs CPU
+    and the training CLI."""
     from ranklib_tpu_torch.gbdt import lambdas as PL
     from ranklib_tpu_torch.metrics.base import create_scorer
     from ranklib_tpu_torch.models.gbdt import LambdaMART
@@ -1777,7 +1900,6 @@ def fused_lambda_phase(dev, fit, tmp, smi) -> dict:
     train = fit["train"]
     hp = dict(n_trees=FIT_TREES, n_leaves=N_LEAVES, learning_rate=0.1,
               n_threshold=256, min_leaf_support=1, early_stop=0)
-    n_chunks = len(fit["data"].tb)
     # a sort-free fit next to the fused one, for rounds timed alike
     times_sf = []
     with timed_rounds(times_sf):
@@ -1790,19 +1912,19 @@ def fused_lambda_phase(dev, fit, tmp, smi) -> dict:
         times = []
         r = LambdaMART(**hp)
         torch.cuda.synchronize()
-        LK.lambda_pairs.launches = 0
+        LK.lambda_round.launches = 0
         H.histogram.launches = SS.best_splits.launches = 0
         with timed_rounds(times):
             quiet(r.fit, train, scorer, device=dev)
         torch.cuda.synchronize()
-        launches = {"lambda_pairs": LK.lambda_pairs.launches,
+        launches = {"lambda_pairs": LK.lambda_round.launches,
                     "histogram": H.histogram.launches,
                     "split_scan": SS.best_splits.launches}
-        want = {"lambda_pairs": FIT_TREES * n_chunks,
+        want = {"lambda_pairs": FIT_TREES,
                 "histogram": FIT_TREES * (N_LEAVES - 1),
                 "split_scan": FIT_TREES * (N_LEAVES - 1)}
         print(f"fused fit: {FIT_TREES} trees; launches {launches} (want "
-              f"{want}: one lambda launch a bucket chunk a round)")
+              f"{want}: one lambda launch a round)")
         check(launches == want, "the fused fit's launch counts are off")
         tm = r.fit_state.train_m[:FIT_TREES].cpu().numpy()
         print(f"  train NDCG@10 round 1 {tm[0]:.4f} -> round {FIT_TREES} "
@@ -1817,63 +1939,63 @@ def fused_lambda_phase(dev, fit, tmp, smi) -> dict:
               f"{fit['ms_a']:.3f})  [{smi}]")
 
         step, state, data, _ = r.prepare_fit(train, scorer, None, dev)
+        rd = data.fused
+        check(rd is not None, "the fit under the flag built no fused data")
         scores = r.fit_state.scores
-        ranked = [LK.ranked_pair_inputs(scorer, lab, scores[didx], msk)[1]
-                  for lab, msk, didx in data.tb]
+        got = LK.lambda_round(rd, scores)
+        again = LK.lambda_round(rd, scores)
+        want_ = LK.lambda_round_plain(rd, scores)
+        torch.cuda.synchronize()
         err = 0.0
-        for vecs in ranked:
-            got = LK.lambda_pairs(*vecs)
-            again = LK.lambda_pairs(*vecs)
-            want_ = LK.lambda_pairs_plain(*vecs)
-            torch.cuda.synchronize()
-            for g, a, w in zip(got, again, want_):
-                check(torch.equal(g, a), "lambda kernel not reproducible at "
-                                         "the training shape")
-                check(torch.allclose(g, w, **LAMBDA_TOL),
-                      "lambda kernel and plain version disagree at the "
-                      "training shape")
-                err = max(err, float((g - w).abs().max()))
-        shapes = [tuple(v[0].shape) for v in ranked]
-        ms = event_ms(lambda: [LK.lambda_pairs(*v) for v in ranked], 20)
-        plain_ms = event_ms(lambda: [LK.lambda_pairs_plain(*v)
-                                     for v in ranked], 5)
-        pairs = sum(int(((v[2][:, :, None] > v[2][:, None, :])
-                         & (v[4][:, :, None] * v[4][:, None, :] > 0)).sum())
-                    for v in ranked)
-        # ~12 flops and one exp a (winner, loser) pair; 5 inputs, 2 outputs
-        bnd = bound(sum(7 * nbytes(v[0]) for v in ranked), 13 * pairs)
-        print(f"  kernel vs plain on the {len(ranked)} bucket chunks "
-              f"{shapes}: max_abs_err {err:.3e}, two launches bit-identical; "
-              f"a round's launches {ms:.4f} ms vs plain {plain_ms:.4f} ms "
-              f"(device, CUDA events; {pairs} pairs, bound {bnd[0]:.4f} ms, "
-              f"{bnd[1]})  [{smi}]")
+        n_real = int(rd.qptr[-1])
+        for g, a, w in zip(got, again, want_):
+            check(torch.equal(g, a), "lambda kernel not reproducible at the "
+                                     "training shape")
+            check(torch.allclose(g, w, **LAMBDA_TOL),
+                  "lambda kernel and plain version disagree at the training "
+                  "shape")
+            check(not g[n_real:].any(), "lambda kernel: pad documents not 0")
+            err = max(err, float((g - w).abs().max()))
+        args, keep = LK.launch_args(rd, scores)
+        ms = bare_ms(LK._kernels().lambda_pairs, args)
+        del keep
+        route_ms = event_ms(lambda: LK.lambda_round(rd, scores), 50)
+        host = host_us(lambda: LK.lambda_round(rd, scores), 200)
+        plain_ms = event_ms(lambda: LK.lambda_round_plain(rd, scores), 5)
+        bnd, pairs = lambda_bound(rd)
+        print(f"  kernel vs plain over {rd.qptr.shape[0] - 1} queries "
+              f"(widest {rd.max_docs} docs): max_abs_err {err:.3e}, two "
+              f"launches bit-identical; a round's lambdas: kernel {ms:.5f} "
+              f"ms (device, 20 bare launches; target <= 0.05: "
+              f"{'met' if ms <= 0.05 else 'MISSED'}), the wrapper "
+              f"{route_ms:.5f} ms by events and {host:.1f} us of host time "
+              f"a call, plain {plain_ms:.4f} ms ({pairs} pairs, bound "
+              f"{bnd[0]:.5f} ms, {bnd[1]})  [{smi}]")
 
-        zero = torch.zeros(1, device=dev)
+        def sort_free():
+            return LK.chunk_lambdas(
+                lambda lab, sc, msk, scl: PL.lambda_weights_nosort(
+                    scorer, lab, sc, msk, scl),
+                data.tb, data.tb_scale, scores, data.tb_inv)
 
-        def lambda_phase(fn):
-            def run():
-                parts = [fn(lab, scores[didx], msk, scl)[0].reshape(-1)
-                         for (lab, msk, didx), scl in zip(data.tb,
-                                                          data.tb_scale)]
-                return torch.cat(parts + [zero])[data.tb_inv]
-            return run
-
-        fused = lambda_phase(lambda lab, sc, msk, scl:
-                             LK.lambda_weights_fused(scorer, lab, sc, msk))
-        nosort = lambda_phase(lambda lab, sc, msk, scl:
-                              PL.lambda_weights_nosort(scorer, lab, sc, msk,
-                                                       scl))
-        diff = float((fused() - nosort()).abs().max())
-        check(torch.allclose(fused(), nosort(), atol=1e-4, rtol=1e-4),
+        fused_l, fused_w = LK.lambda_round(rd, scores)
+        sf_l, sf_w = sort_free()
+        diff = float((fused_l - sf_l).abs().max())
+        check(torch.allclose(fused_l, sf_l, atol=1e-4, rtol=1e-4)
+              and torch.allclose(fused_w, sf_w, atol=1e-4, rtol=1e-4),
               "fused and sort-free lambdas disagree")
-        phase = {"fused wall": wall_ms(fused, 10),
-                 "fused device": event_ms(fused, 10),
-                 "sort-free wall": wall_ms(nosort, 10),
-                 "sort-free device": event_ms(nosort, 10)}
+        phase = {"fused wall": wall_ms(lambda: LK.lambda_round(rd, scores),
+                                       10),
+                 "fused device": event_ms(lambda: LK.lambda_round(rd, scores),
+                                          10),
+                 "sort-free wall": wall_ms(sort_free, 10),
+                 "sort-free device": event_ms(sort_free, 10)}
         print(f"  the lambda phase alone (ms, median; fused vs sort-free "
               f"lambdas differ by {diff:.3e}): "
-              + ", ".join(f"{k} {v:.3f}" for k, v in phase.items())
-              + f"  [{smi}]")
+              + ", ".join(f"{k} {v:.4f}" for k, v in phase.items())
+              + f"; fused wall target <= 0.5: "
+              f"{'met' if phase['fused wall'] <= 0.5 else 'MISSED'}  "
+              f"[{smi}]")
 
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
@@ -1887,24 +2009,25 @@ def fused_lambda_phase(dev, fit, tmp, smi) -> dict:
         print("  one fused round ran under set_sync_debug_mode('error'): no "
               "host sync")
 
-        before = LK.lambda_pairs.launches
+        before = LK.lambda_round.launches
         card_vs_cpu(dev)
-        check(LK.lambda_pairs.launches > before,
+        check(LK.lambda_round.launches > before,
               "the card's fit under the flag did not launch the lambda "
               "kernel")
-        LK.lambda_pairs.launches = 0
+        LK.lambda_round.launches = 0
         training_cli(tmp, rankers=(6,))
         torch.cuda.synchronize()
         print(f"  -train -ranker 6 under the flag: "
-              f"{LK.lambda_pairs.launches} lambda launches")
-        check(LK.lambda_pairs.launches > 0,
+              f"{LK.lambda_round.launches} lambda launches")
+        check(LK.lambda_round.launches > 0,
               "the training CLI under the flag did not launch the lambda "
               "kernel")
     finally:
         os.environ.pop(FUSED_FLAG, None)
     return {"launches": launches["lambda_pairs"], "err": err, "ms": ms,
             "plain_ms": plain_ms, "bound": bnd, "ms_round": ms_round,
-            "ms_round_sort_free": ms_sf, "phase": phase}
+            "ms_round_sort_free": ms_sf, "phase": phase,
+            "route_ms": route_ms, "host_us": host}
 
 
 def split_serving_phase(dev, ens, pack, Xh, Xd, plain_b, paths, smi) -> dict:
@@ -1929,17 +2052,27 @@ def split_serving_phase(dev, ens, pack, Xh, Xd, plain_b, paths, smi) -> dict:
     err = max_err(split, plain_b, f"split route vs plain ({N_DOCS} docs)")
     XT = Xd.T.contiguous()
     grid_n = pack.grid[:, :pack.n_grid].contiguous()
-    ms = event_ms(lambda: fe.device_bins_narrow(Xd, pack), 20)
+    ids_b = torch.empty_like(ids_k)
+    ms = bare_ms(fe._kernels().forest_bins_only_u8,
+                 (Xd.data_ptr(), N_DOCS, N_FEATURES, pack.grid.data_ptr(),
+                  int(pack.grid.shape[1]), pack.n_grid, ids_b.data_ptr(),
+                  torch.cuda.current_stream(dev).cuda_stream))
+    check(torch.equal(ids_b, ids_k), "the bare binning launches wrote other "
+                                     "ids")
+    route_ms = event_ms(lambda: fe.device_bins_narrow(Xd, pack), 20)
+    host = host_us(lambda: fe.device_bins_narrow(Xd, pack), 200)
     plain_ms = event_ms(lambda: fe.device_bins(Xd, pack.grid, pack.n_grid)
                         .to(torch.uint8), 5)
     lib_ms = event_ms(lambda: torch.searchsorted(grid_n, XT), 20)
     split_ms = event_ms(lambda: fe.forest_eval_bins_split(Xd, pack), 20)
     bnd = bound(nbytes(Xd, ids_k, pack.grid), bin_search_ops(Xd, pack))
-    print(f"  device time (CUDA events, median): binning kernel {ms:.4f} ms "
-          f"vs plain {plain_ms:.4f} ms vs torch.searchsorted on X^T "
+    print(f"  binning kernel {ms:.5f} ms (device, 20 bare launches; target "
+          f"<= 0.106: {'met' if ms <= 0.106 else 'MISSED'}), the wrapper "
+          f"{route_ms:.5f} ms by events and {host:.1f} us of host time a "
+          f"call; plain {plain_ms:.4f} ms; torch.searchsorted on X^T "
           f"{lib_ms:.4f} ms (bound {bnd[0]:.4f} ms, {bnd[1]}); split route "
-          f"(binning + frombins) {split_ms:.4f} ms  [{smi}]")
-    del XT, grid_n
+          f"(binning + frombins) {split_ms:.4f} ms by events  [{smi}]")
+    del XT, grid_n, ids_b
 
     os.environ[SPLIT_FLAG] = "1"
     try:
@@ -1976,7 +2109,8 @@ def split_serving_phase(dev, ens, pack, Xh, Xd, plain_b, paths, smi) -> dict:
         os.environ.pop(SPLIT_FLAG, None)
     return {"launches": launches["bins_only"], "err": err, "ms": ms,
             "plain_ms": plain_ms, "library_ms": lib_ms, "bound": bnd,
-            "split_ms": split_ms, "e2e": e2e}
+            "split_ms": split_ms, "e2e": e2e, "route_ms": route_ms,
+            "host_us": host}
 
 
 def pred_phase(dev, ens, Xd, smi) -> dict:
@@ -2083,11 +2217,81 @@ def write_letor(path, X, labels, qptr):
                         f"# doc{q + 1}_{i - qptr[q]}\n")
 
 
+def bare_times(root: str) -> int:
+    """``--bare-times ROOT``: the fused-lambda (B5) and binning (B8)
+    kernels of the ``ranklib_tpu_torch`` found under ROOT, each timed by
+    bare launches at this script's shapes — a round's lambdas at the
+    training shape on N(0,1) scores (seed 9), the serving documents
+    against the serving model's grid — so that an A/B call times an older
+    tree's kernels as this one's are timed. A tree without
+    ``lambda_round`` launches its per-chunk kernel once a bucket chunk on
+    the ranked chunks. Prints one JSON line."""
+    sys.path.insert(0, os.path.abspath(root))
+    from ranklib_tpu_torch.metrics.base import create_scorer
+    from ranklib_tpu_torch.models.gbdt import LambdaMART
+    from ranklib_tpu_torch.ops import forest_eval as fe
+    from ranklib_tpu_torch.ops import lambda_kernel as LK
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scorer = create_scorer("NDCG@10")
+    train = synth_queries(FIT_QUERIES, N_FEATURES, seed=3, w_seed=11)
+    os.environ[FUSED_FLAG] = "1"
+    try:
+        _, _, data, _ = LambdaMART(n_leaves=N_LEAVES).prepare_fit(
+            train, scorer, None, dev)
+    finally:
+        os.environ.pop(FUSED_FLAG, None)
+    npad = data.labels_flat.shape[0]
+    scores = torch.from_numpy(np.random.default_rng(9).normal(
+        size=npad + 1).astype(np.float32)).to(dev)
+    lib = LK._kernels()
+    if hasattr(LK, "lambda_round"):
+        launches = [LK.launch_args(data.fused, scores)]
+    else:
+        launches = []
+        for lab, msk, didx in data.tb:
+            vecs = LK.ranked_pair_inputs(scorer, lab, scores[didx], msk)[1]
+            out = (torch.empty_like(vecs[0]), torch.empty_like(vecs[0]))
+            launches.append(((*(v.data_ptr() for v in vecs),
+                              *vecs[0].shape, out[0].data_ptr(),
+                              out[1].data_ptr(), stream), (vecs, out)))
+
+    def round_():
+        return max([lib.lambda_pairs(*args) for args, _ in launches])
+
+    b5 = bare_ms(round_, ())
+    ens = synthetic_ensemble(N_TREES, N_LEAVES, N_FEATURES,
+                             np.random.default_rng(0))
+    Xd = torch.from_numpy(np.asarray(np.random.default_rng(1).normal(
+        size=(N_DOCS, N_FEATURES)), np.float32)).to(dev)
+    pack = ens.forest_pack(N_FEATURES, dev)
+    ids = torch.empty((N_FEATURES, N_DOCS), dtype=torch.uint8, device=dev)
+    b8 = bare_ms(fe._kernels().forest_bins_only_u8,
+                 (Xd.data_ptr(), N_DOCS, N_FEATURES, pack.grid.data_ptr(),
+                  int(pack.grid.shape[1]), pack.n_grid, ids.data_ptr(),
+                  stream))
+    check(torch.equal(ids.to(torch.int32),
+                      fe.device_bins(Xd, pack.grid, pack.n_grid)),
+          "the bare binning launches wrote other ids")
+    print(json.dumps({"root": root, "b5_round_ms": b5,
+                      "b5_launches_a_round": len(launches), "b8_ms": b8,
+                      "card": smi}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--bare-times"] and len(sys.argv) == 3:
+        return bare_times(sys.argv[2])
+    check(len(sys.argv) == 1, "usage: chip_smoke.py [--bare-times ROOT]")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ranklib_tpu_torch import cli
     from ranklib_tpu_torch.models import rf as RF
@@ -2125,6 +2329,7 @@ def main() -> int:
                               RF_BAGS, dev)
     hist_multi_small_checks(dev, group)
     full_small_checks(dev)
+    bins_only_small_checks(dev)
     lambda_small_checks(dev)
     probe_small_checks(dev)
 

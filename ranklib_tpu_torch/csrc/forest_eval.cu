@@ -63,9 +63,20 @@
 // are walked from the read-only cache: a compile-time choice of the
 // launch that computes the same thing bit for bit.
 //
-// The split route's binning pass (bins_only_kernel) transposes X [N, F]
-// through a 32 x 32 shared-memory tile, so both its f32 reads and its id
-// writes ([F, N], uint8 or int16) are coalesced; it is bound by those bytes.
+// The split route's binning pass (bins_only_kernel) is bound by its bytes
+// (f32 X read once, ids [F, N] written once) and by the instructions of
+// its searches. A block stages the grid rows of its 16 features in shared
+// memory once, in Eytzinger (breadth-first) order padded with +inf to
+// 2^steps - 1 entries, and walks tiles of 128 documents: X arrives by
+// 16-byte reads and is transposed in shared memory, then a warp bins 128
+// documents of one feature, 4 consecutive documents a lane, by a fixed
+// trip of ceil(log2(n_grid + 1)) branchless steps of four instructions
+// (load, compare, shift-add of the node's address, add), and stores the 4
+// ids as one 32-bit (uint8) or 64-bit (int16) word. Measured against
+// variants (PERF.md): a sorted row searched by halving lost to the
+// Eytzinger order (bank conflicts), loads one tile ahead, a ring of tiles
+// by cp.async, top levels held in registers and transposing 16-byte
+// stores gained nothing or lost.
 //
 // The predicate epilogue (pred_epilogue_kernel) takes the reference's
 // matmul layout: 0/1 node tests predT [nch * TCM, N], csQ, plen, w * output,
@@ -90,6 +101,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 
 namespace {
@@ -355,34 +367,195 @@ __global__ void full_kernel(const float* __restrict__ X, int64_t n_docs,
   if (doc < n_docs) out[doc] = score;
 }
 
-// Split route, binning pass: ids[f, doc] = bin_of(x[doc, f]) through a
-// kTransposeTile^2 tile (read along features, written along documents).
-constexpr int kTransposeTile = 32;
-constexpr int kTransposeRows = 8;
+// ---- the split route's binning pass ----
 
-template <typename IdT>
-__global__ void bins_only_kernel(const float* __restrict__ X, int64_t n_docs,
-                                 int n_features,
-                                 const float* __restrict__ grid,
-                                 int grid_stride, int n_grid,
-                                 IdT* __restrict__ ids) {
-  __shared__ float tile[kTransposeTile][kTransposeTile + 1];
-  const int64_t doc0 = static_cast<int64_t>(blockIdx.x) * kTransposeTile;
-  const int f0 = blockIdx.y * kTransposeTile;
-  for (int j = threadIdx.y; j < kTransposeTile; j += kTransposeRows) {
-    const int64_t doc = doc0 + j;
-    const int f = f0 + threadIdx.x;
-    tile[j][threadIdx.x] =
-        doc < n_docs && f < n_features ? X[doc * n_features + f] : 0.0f;
+// ids[f, doc] = #{grid_f[0:n_grid] < x[doc, f]}, NaN -> n_grid. A block
+// takes kBinFeats features and walks tiles of kBinDocs documents, grid-
+// strided; each tile's X [kBinDocs, kBinFeats] is read into registers
+// (16-byte reads when the rows allow) and lands in shared memory
+// feature-major, then a warp bins 128 documents of one feature, 4
+// consecutive documents a lane, and stores their 4 ids as one 32-bit
+// (uint8) or 64-bit (int16) word.
+constexpr int kBinFeats = 16;
+constexpr int kBinDocs = 128;
+constexpr int kBinThreads = 256;
+constexpr int kBinPitch = kBinDocs + 4;   // 16-byte rows, 2-way at most
+constexpr int kBinMaxSteps = 9;           // staged grids: n_grid <= 511
+constexpr int kBinPerThread = kBinDocs * kBinFeats / kBinThreads;  // 8
+
+// #{row[i] < x} of four documents over a grid row staged in Eytzinger
+// (breadth-first) order: eyt[k - 1] is the node k = 1..2^steps - 1 of the
+// complete search tree over the sorted row padded with +inf, so a fixed
+// trip of `steps` branchless steps k = 2k + (eyt[k - 1] < x) ends at
+// 2^steps + the count. A step is a load, a compare and a shift-add on the
+// node's shared-memory byte address a = base + 4(k - 1) (a' = 2a + 4 -
+// base, plus 4 to go right). A level's nodes are contiguous: the lanes of
+// a warp, all on one row, read at most 2^level distinct words, in distinct
+// banks up to level 5. NaN -> n_grid.
+__device__ __forceinline__ int4 bins4_eytzinger(const float* eyt, int steps,
+                                                float4 x4, int n_grid) {
+  const unsigned base =
+      static_cast<unsigned>(__cvta_generic_to_shared(eyt));
+  const unsigned left = 4u - base;
+  const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+  unsigned a[4] = {base, base, base, base};
+  for (int l = 0; l < steps; ++l) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float v;
+      asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(a[j]));
+      const unsigned child = 2u * a[j] + left;      // the left child
+      a[j] = v < x[j] ? child + 4u : child;
+    }
   }
-  __syncthreads();
-  const int64_t doc = doc0 + threadIdx.x;
-  for (int i = threadIdx.y; i < kTransposeTile; i += kTransposeRows) {
-    const int f = f0 + i;
-    if (f < n_features && doc < n_docs) {
-      ids[static_cast<int64_t>(f) * n_docs + doc] = static_cast<IdT>(
-          bin_of(grid + static_cast<int64_t>(f) * grid_stride, n_grid,
-                 tile[threadIdx.x][i], n_grid));
+  int b[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    // a = base + 4(k - 1): the count is k - 2^steps
+    b[j] = isnan(x[j]) ? n_grid
+                       : static_cast<int>((a[j] - base) >> 2) + 1 -
+                             (1 << steps);
+  }
+  return make_int4(b[0], b[1], b[2], b[3]);
+}
+
+// The same count over a sorted row read from global memory (grids past
+// kBinMaxSteps): the position advances by halving steps.
+__device__ __forceinline__ int4 bins4_global(const float* __restrict__ row,
+                                             int n, int steps, float4 x) {
+  int b[4] = {0, 0, 0, 0};
+  const float v[4] = {x.x, x.y, x.z, x.w};
+  for (int step = (1 << steps) >> 1; step > 0; step >>= 1) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = b[j] + step - 1;
+      b[j] += i < n && __ldg(row + i) < v[j] ? step : 0;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) b[j] = isnan(v[j]) ? n : b[j];
+  return make_int4(b[0], b[1], b[2], b[3]);
+}
+
+__device__ __forceinline__ void store4(uint8_t* p, int4 b) {
+  *reinterpret_cast<uint32_t*>(p) =
+      static_cast<uint32_t>(b.x) | static_cast<uint32_t>(b.y) << 8 |
+      static_cast<uint32_t>(b.z) << 16 | static_cast<uint32_t>(b.w) << 24;
+}
+__device__ __forceinline__ void store4(int16_t* p, int4 b) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(
+      static_cast<uint32_t>(b.x & 0xffff) | static_cast<uint32_t>(b.y) << 16,
+      static_cast<uint32_t>(b.z & 0xffff) | static_cast<uint32_t>(b.w) << 16);
+}
+
+// A thread's kBinPerThread values of tile t: with vec_x, two 16-byte reads
+// of 4 features (thread i and i + 256 of the tile's 512 reads), else 8
+// scalars.
+__device__ __forceinline__ void read_tile(const float* __restrict__ X,
+                                          int64_t n_docs, int n_features,
+                                          int f0, int nf, int64_t doc0,
+                                          bool vec_x,
+                                          float (&v)[kBinPerThread]) {
+  if (vec_x) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = threadIdx.x + h * kBinThreads;
+      const int d = i >> 2, q = (i & 3) * 4;
+      const int64_t doc = doc0 + d;
+      const float4 x =
+          q < nf && doc < n_docs
+              ? __ldg(reinterpret_cast<const float4*>(
+                    X + doc * n_features + f0 + q))
+              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      v[4 * h] = x.x;
+      v[4 * h + 1] = x.y;
+      v[4 * h + 2] = x.z;
+      v[4 * h + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int h = 0; h < kBinPerThread; ++h) {
+      const int i = threadIdx.x + h * kBinThreads;
+      const int d = i / kBinFeats, fl = i - d * kBinFeats;
+      const int64_t doc = doc0 + d;
+      v[h] = fl < nf && doc < n_docs ? __ldg(X + doc * n_features + f0 + fl)
+                                     : 0.0f;
+    }
+  }
+}
+
+__device__ __forceinline__ void write_tile(float* sx, bool vec_x,
+                                           const float (&v)[kBinPerThread]) {
+  if (vec_x) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = threadIdx.x + h * kBinThreads;
+      const int d = i >> 2, q = (i & 3) * 4;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sx[(q + j) * kBinPitch + d] = v[4 * h + j];
+    }
+  } else {
+#pragma unroll
+    for (int h = 0; h < kBinPerThread; ++h) {
+      const int i = threadIdx.x + h * kBinThreads;
+      const int d = i / kBinFeats, fl = i - d * kBinFeats;
+      sx[fl * kBinPitch + d] = v[h];
+    }
+  }
+}
+
+template <typename IdT, bool kStagedGrid>
+__global__ void __launch_bounds__(kBinThreads)
+    bins_only_kernel(const float* __restrict__ X, int64_t n_docs,
+                     int n_features, const float* __restrict__ grid,
+                     int grid_stride, int n_grid, int steps, bool vec_x,
+                     bool vec_ids, IdT* __restrict__ ids) {
+  extern __shared__ __align__(16) float bsm[];
+  float* sx = bsm;                                    // [kBinFeats][pitch]
+  float* eyt = bsm + kBinFeats * kBinPitch;           // [kBinFeats][row_len]
+  const int row_len = (1 << steps) - 1;
+  const int f0 = blockIdx.y * kBinFeats;
+  const int nf = min(kBinFeats, n_features - f0);
+  if constexpr (kStagedGrid) {
+    for (int i = threadIdx.x; i < kBinFeats * row_len; i += kBinThreads) {
+      const int fl = i / row_len, k = i - fl * row_len + 1;
+      const int level = 31 - __clz(k);
+      // node k's in-order index in the complete tree of 2^steps - 1 nodes
+      const int j = ((2 * (k - (1 << level)) + 1) << (steps - 1 - level)) - 1;
+      eyt[i] = fl < nf && j < n_grid
+                   ? grid[static_cast<int64_t>(f0 + fl) * grid_stride + j]
+                   : INFINITY;
+    }
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t n_tiles = (n_docs + kBinDocs - 1) / kBinDocs;
+  float vals[kBinPerThread];
+  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int64_t doc0 = t * kBinDocs;
+    read_tile(X, n_docs, n_features, f0, nf, doc0, vec_x, vals);
+    __syncthreads();                   // the grid is staged, the tile read
+    write_tile(sx, vec_x, vals);
+    __syncthreads();
+    const int64_t doc = doc0 + 4 * lane;
+    for (int fl = warp; fl < nf; fl += kBinThreads / 32) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(sx + fl * kBinPitch + 4 * lane);
+      int4 b;
+      if constexpr (kStagedGrid) {
+        b = bins4_eytzinger(eyt + fl * row_len, steps, x, n_grid);
+      } else {
+        b = bins4_global(grid + static_cast<int64_t>(f0 + fl) * grid_stride,
+                         n_grid, steps, x);
+      }
+      IdT* out = ids + static_cast<int64_t>(f0 + fl) * n_docs + doc;
+      if (vec_ids && doc + 3 < n_docs) {
+        store4(out, b);
+      } else {
+        const int v[4] = {b.x, b.y, b.z, b.w};
+        for (int j = 0; j < 4 && doc + j < n_docs; ++j) {
+          out[j] = static_cast<IdT>(v[j]);
+        }
+      }
     }
   }
 }
@@ -825,19 +998,48 @@ SplitForest split_forest(const void* splits, const void* roots,
                      max_tests, chunk_splits};
 }
 
+// The binning pass's launch: kBinFeats features a block (blockIdx.y), and
+// as many document blocks as keep every SM full at once, each walking
+// tiles of kBinDocs documents; grids of more than 2^kBinMaxSteps - 1
+// thresholds are searched in global memory.
 template <typename IdT>
 int launch_bins_only(const void* X, int64_t n_docs, int n_features,
                      const void* grid, int grid_stride, int n_grid, void* ids,
                      void* stream) {
-  const dim3 blocks(
-      static_cast<unsigned>((n_docs + kTransposeTile - 1) / kTransposeTile),
-      static_cast<unsigned>((n_features + kTransposeTile - 1) /
-                            kTransposeTile));
-  bins_only_kernel<IdT><<<blocks, dim3(kTransposeTile, kTransposeRows), 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  int steps = 0;
+  while ((1 << steps) <= n_grid) ++steps;      // ceil(log2(n_grid + 1))
+  const bool staged = steps <= kBinMaxSteps;
+  auto kernel = staged ? bins_only_kernel<IdT, true>
+                       : bins_only_kernel<IdT, false>;
+  const size_t smem =
+      sizeof(float) * kBinFeats *
+      (kBinPitch + (staged ? (1 << steps) - 1 : 0));
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kBinThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned fblocks =
+      static_cast<unsigned>((n_features + kBinFeats - 1) / kBinFeats);
+  const int64_t tiles = (n_docs + kBinDocs - 1) / kBinDocs;
+  const unsigned dblocks = static_cast<unsigned>(std::max<int64_t>(
+      1, std::min<int64_t>(tiles, static_cast<int64_t>(sms) *
+                                      std::max(per_sm, 1) / fblocks)));
+  // 16-byte reads of X need 16-byte rows; packed id words need rows of a
+  // multiple of 4 documents
+  const bool vec_x = n_features % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(X) % 16 == 0;
+  const bool vec_ids = n_docs % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(ids) % (4 * sizeof(IdT))
+                           == 0;
+  kernel<<<dim3(dblocks, fblocks), kBinThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(X), n_docs, n_features,
-      static_cast<const float*>(grid), grid_stride, n_grid,
-      static_cast<IdT*>(ids));
+      static_cast<const float*>(grid), grid_stride, n_grid, steps, vec_x,
+      vec_ids, static_cast<IdT*>(ids));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,6 +22,10 @@ from ranklib_tpu_torch.gbdt.grow import grow_tree, leaf_outputs
 from ranklib_tpu_torch.gbdt.lambdas import (
     SEPARABLE_METRICS, chunk_scale, lambda_fn,
 )
+from ranklib_tpu_torch.ops.lambda_kernel import (
+    RoundLambdas, chunk_lambdas, lambda_round, round_lambda_data,
+    supports_fused,
+)
 
 
 def round_capacity(n_trees: int) -> int:
@@ -50,6 +54,9 @@ class BoostData:
     tb_inv: torch.Tensor          # [Npad] int64: each doc's position in
                                   #   the concatenated chunk layouts (pad
                                   #   docs → a zero tail slot)
+    fused: RoundLambdas | None = None  # the fused round's per-fit data
+                                  #   (RANKLIB_TPU_FUSED_LAMBDA=1 and a
+                                  #   separable metric)
 
 
 @dataclass
@@ -77,7 +84,7 @@ def make_boost_data(train: Dataset, binned_pad: np.ndarray,
                     scorer=None):
     """(BoostData, Npad, Nvpad). ``binned_pad``: [Npad, F]. ``scorer``:
     when given and separable, the per-chunk swap scales are computed here,
-    once per fit."""
+    once per fit, and under the fused route its per-query factors."""
     Npad, F = binned_pad.shape
     tb_host = _host_buckets(train, n_real)
     tb = _upload(tb_host, device)
@@ -98,9 +105,15 @@ def make_boost_data(train: Dataset, binned_pad: np.ndarray,
     inv[didx_flat[real]] = np.flatnonzero(real)
     mask = (np.ones(F, bool) if feature_mask is None
             else np.asarray(feature_mask, bool))
+    labels_flat = torch.from_numpy(labels_pad).to(device)
+    tb_inv = torch.from_numpy(inv[:Npad]).to(device)
+    fused = None
+    if scorer is not None and supports_fused(scorer):
+        fused = round_lambda_data(scorer, labels_flat, flatten_meta(train)[1],
+                                  tb_host, tb, tb_inv, device)
     return BoostData(
         binned_T=upload_bins(np.ascontiguousarray(binned_pad.T), device),
-        labels_flat=torch.from_numpy(labels_pad).to(device),
+        labels_flat=labels_flat,
         doc_mask=torch.from_numpy(np.arange(Npad) < n_real).to(device),
         feat_mask=torch.from_numpy(mask).to(device),
         tb=tb,
@@ -108,7 +121,8 @@ def make_boost_data(train: Dataset, binned_pad: np.ndarray,
                  else None),
         vb=vb,
         tb_scale=tb_scale,
-        tb_inv=torch.from_numpy(inv[:Npad]).to(device),
+        tb_inv=tb_inv,
+        fused=fused,
     ), Npad, Nvpad
 
 
@@ -169,10 +183,12 @@ def make_round_step(scorer, *, n_bins: int, n_leaves: int,
                     n_vqueries: int, train_metric: bool = True):
     """The round: ``step(state, t, data) → state``. ``train_metric=False``
     skips the per-round train metric, which only feeds the console
-    table. Lambda routing as the reference's (boost.py:223-235, see
-    :func:`lambda_fn`): the fused kernel under ``RANKLIB_TPU_FUSED_LAMBDA=1``
-    for NDCG/DCG/P, else sort-free for NDCG/DCG/P, ERR and MAP, sorted for
-    RR and BEST."""
+    table. Lambda routing as the reference's (boost.py:223-235): the fused
+    kernel under ``RANKLIB_TPU_FUSED_LAMBDA=1`` for NDCG/DCG/P, one launch
+    a round over every query (:func:`lambda_round`, on the ``data.fused``
+    that ``make_boost_data`` builds then), else, one bucket chunk at a
+    time, :func:`lambda_fn`'s: sort-free for NDCG/DCG/P, ERR and MAP,
+    sorted for RR and BEST."""
     M = 2 * n_leaves - 1
     lr = learning_rate
     lam_fn = lambda_fn(scorer)
@@ -185,16 +201,12 @@ def make_round_step(scorer, *, n_bins: int, n_leaves: int,
             lam = torch.where(data.doc_mask > 0,
                               data.labels_flat - scores[:-1], 0.0)
             w = torch.ones_like(lam)
+        elif data.fused is not None:
+            lam, w = lambda_round(data.fused, scores)
         else:
-            scales = data.tb_scale or [None] * len(data.tb)
-            parts_l, parts_w = [], []
-            for (lab, msk, didx), scl in zip(data.tb, scales):
-                l_, w_ = lam_fn(lab, scores[didx], msk, scl)
-                parts_l.append(l_.reshape(-1))
-                parts_w.append(w_.reshape(-1))
-            zero = torch.zeros(1, dtype=scores.dtype, device=scores.device)
-            lam = torch.cat(parts_l + [zero])[data.tb_inv]
-            w = torch.cat(parts_w + [zero])[data.tb_inv]
+            lam, w = chunk_lambdas(lam_fn, data.tb,
+                                   data.tb_scale or [None] * len(data.tb),
+                                   scores, data.tb_inv)
 
         # ---- tree -------------------------------------------------------
         arr = grow_tree(data.binned_T, lam, n_bins=n_bins, n_leaves=n_leaves,

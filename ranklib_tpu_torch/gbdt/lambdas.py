@@ -23,9 +23,7 @@ from __future__ import annotations
 import torch
 
 from ranklib_tpu_torch.metrics import scorers as S
-from ranklib_tpu_torch.ops.lambda_kernel import (
-    SEPARABLE_METRICS, lambda_weights_fused, supports_fused,
-)
+from ranklib_tpu_torch.ops.lambda_kernel import SEPARABLE_METRICS
 
 
 def lambda_weights(scorer, labels, scores, mask):
@@ -213,14 +211,11 @@ def lambda_weights_nosort(scorer, labels, scores, mask, scale):
 
 
 def lambda_fn(scorer):
-    """The round's lambda path (ref ``make_round_step`` routing,
-    gbdt/boost.py:223-235): the fused kernel when :func:`supports_fused`
-    (opt-in, NDCG/DCG/P; it ignores the per-fit scale), else sort-free for
-    NDCG/DCG/P (needs the per-fit scale), ERR and MAP, else sorted.
+    """The round's per-chunk lambda path (ref ``make_round_step`` routing,
+    gbdt/boost.py:223-235, but for its fused kernel, which the port's
+    round takes as one launch over every query: ``gbdt.boost``): sort-free
+    for NDCG/DCG/P (needs the per-fit scale), ERR and MAP, else sorted.
     Returns ``fn(labels, scores, mask, scale)``."""
-    if supports_fused(scorer):
-        return lambda lab, sc, msk, scl: lambda_weights_fused(
-            scorer, lab, sc, msk)
     if scorer.metric in SEPARABLE_METRICS:
         return lambda lab, sc, msk, scl: lambda_weights_nosort(
             scorer, lab, sc, msk, scl)

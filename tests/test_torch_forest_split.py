@@ -6,6 +6,10 @@
   the reference's ``forest_eval_pallas_bins_split`` in TPU-interpret mode
   and against its ``_mm_eval`` scan, on documents that sit on thresholds,
   NaN and ±inf features, and a 256-threshold grid whose ids need int16.
+* The binning kernel: a numpy emulation of its fixed-trip search and
+  packed id words against ``device_bins`` and the reference's
+  ``_bins_only_kernel`` bit for bit (±0.0, ±inf, NaN, 1-256 thresholds,
+  uint8 and int16 ids, N and F off the kernel's tiles).
 * ``eval_matrix`` and the CLI under the flag: the same scores as the
   default route.
 * Predicate epilogue (``forest_eval_pred``): the plain version against the
@@ -105,6 +109,139 @@ def test_split_route_matches_reference_kernel(which):
     torch.testing.assert_close(got, fe.forest_eval_frombins_plain(
         ids, *pack.matmul_operands(), tree_chunk=pack.tree_chunk), atol=0,
         rtol=0)
+
+
+def _emulate_bins_only(X, grid, n_grid):
+    """What csrc/forest_eval.cu bins_only_kernel computes: with steps =
+    ceil(log2(n_grid + 1)), the grid row padded with +inf to 2^steps − 1
+    entries and laid out in Eytzinger (breadth-first) order — node k's
+    in-order index is ((2(k − 2^level) + 1) << (steps − 1 − level)) − 1,
+    then a fixed trip of ``steps`` branchless steps k = 2k + (eyt[k − 1]
+    < x), the count being k − 2^steps; past 9 steps the sorted row itself,
+    searched by halving steps. NaN → n_grid. Then 4 consecutive
+    documents' ids packed in one little-endian word (uint8: 32 bits,
+    int16: 64 bits), documents past the last whole word stored one by
+    one. Returns the ids [F, N] as the kernel's id type."""
+    N, F = X.shape
+    steps = int(n_grid).bit_length()
+    x = X.T
+    if steps <= 9:
+        k = np.arange(1, 1 << steps)
+        level = np.floor(np.log2(k)).astype(np.int64)
+        j = ((2 * (k - (1 << level)) + 1) << (steps - 1 - level)) - 1
+        eyt = np.full((F, k.size), np.inf, np.float32)
+        real = j < n_grid
+        eyt[:, real] = grid[:, j[real]]
+        node = np.ones((F, N), np.int64)
+        for _ in range(steps):
+            probe = np.take_along_axis(eyt, node - 1, axis=1)
+            node = 2 * node + (probe < x)
+        pos = node - (1 << steps)
+    else:
+        pos = np.zeros((F, N), np.int64)
+        step = (1 << steps) >> 1
+        while step:
+            i = pos + step - 1
+            probe = np.take_along_axis(grid, np.minimum(i, n_grid - 1), 1)
+            pos += np.where((i < n_grid) & (probe < x), step, 0)
+            step >>= 1
+    b = np.where(np.isnan(x), n_grid, pos).astype(np.uint32)
+    dt = np.uint8 if n_grid < 256 else np.int16
+    whole = N // 4 * 4
+    q = [b[:, j:whole:4] for j in range(4)]
+    if dt == np.uint8:
+        words = q[0] | q[1] << 8 | q[2] << 16 | q[3] << 24
+        body = words.astype("<u4").view(np.uint8)
+    else:
+        lo = (q[0] & 0xFFFF) | q[1] << 16
+        hi = (q[2] & 0xFFFF) | q[3] << 16
+        body = np.stack([lo, hi], axis=-1).astype("<u4").reshape(
+            F, -1).view("<i2")
+    return np.concatenate([body.reshape(F, whole),
+                           b[:, whole:].astype(dt)], axis=1).astype(dt)
+
+
+def _ref_bins_only(X, grid, n_grid):
+    """The reference's ``_bins_only_kernel`` on all of X^T in one block,
+    in TPU-interpret mode: bf16 ids, exact below 257."""
+    import functools
+
+    import jax
+    from jax.experimental import pallas as pl
+
+    from ranklib_tpu.ops.forest_eval import _bins_only_kernel
+
+    F = X.shape[1]
+    XT = jnp.asarray(np.ascontiguousarray(X.T))
+    with pltpu.force_tpu_interpret_mode():
+        ids = pl.pallas_call(
+            functools.partial(_bins_only_kernel, n_grid=int(n_grid),
+                              n_rows=F),
+            out_shape=jax.ShapeDtypeStruct(XT.shape, jnp.bfloat16),
+        )(XT, jnp.asarray(grid))
+    return np.asarray(ids.astype(jnp.float32)).astype(np.int64)
+
+
+def _hostile_grid(F, n_grid, seed):
+    """Sorted grid rows of up to ``n_grid`` thresholds (+inf pads past
+    each row's count, 0.0 among them) and features on, between and past
+    them: ±0.0, ±inf, NaN."""
+    rng = np.random.default_rng(seed)
+    grid = np.full((F, n_grid), np.inf, np.float32)
+    for f in range(F):
+        k = n_grid if f % 3 else int(rng.integers(1, n_grid + 1))
+        vals = np.unique(np.concatenate([[0.0], rng.normal(size=k) * 2]))
+        grid[f, :k] = np.sort(vals[:k]).astype(np.float32)
+    N = 203                                 # not a multiple of 4
+    X = rng.normal(size=(N, F)).astype(np.float32) * 2
+    on = grid[np.arange(F), rng.integers(0, n_grid, size=F)]
+    X[:F, :] = np.where(np.isfinite(on), on, 1.0)[None, :]
+    X[F:F + 6] = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e30],
+                          np.float32)[:, None]
+    return X, grid
+
+
+@pytest.mark.parametrize("n_grid", [1, 7, 88, 255, 256, 600])
+def test_bins_only_emulation_matches_device_bins_and_reference(n_grid):
+    """B8's fixed-trip search and packed stores, emulated, give the ids of
+    ``device_bins`` and of the reference's ``_bins_only_kernel``, bit for
+    bit, uint8 below 256 thresholds and int16 from 256 (600: the grid
+    searched in global memory, past the integers the reference's bf16 ids
+    hold, so against ``device_bins`` only); on F = 13 (not a multiple of
+    the kernel's 16 features a block) and N = 203 documents."""
+    X, grid = _hostile_grid(13, n_grid, seed=n_grid)
+    emu = _emulate_bins_only(X, grid, n_grid)
+    assert emu.dtype == (np.uint8 if n_grid < 256 else np.int16)
+    plain = fe.device_bins(torch.from_numpy(X), torch.from_numpy(grid),
+                           n_grid).numpy()
+    np.testing.assert_array_equal(emu.astype(np.int64), plain)
+    if n_grid <= 256:          # the reference's bf16 ids stop at 256
+        np.testing.assert_array_equal(emu.astype(np.int64),
+                                      _ref_bins_only(X, grid, n_grid))
+
+
+@pytest.mark.parametrize("which", list(CASES))
+def test_bins_only_emulation_on_model_grids(which):
+    """The same emulation on the models' own grids and hostile features,
+    its ids through the frombins walk: the split route's scores and the
+    reference's ``forest_eval_pallas_bins_split``."""
+    ref, port, X = _case(*CASES[which])
+    F = X.shape[1]
+    pack = port.forest_pack(F, CPU)
+    emu = _emulate_bins_only(X, pack.grid.numpy(), pack.n_grid)
+    ids = fe.device_bins_narrow(torch.from_numpy(X), pack)
+    np.testing.assert_array_equal(emu, ids.numpy())
+    np.testing.assert_array_equal(
+        emu.astype(np.int64), _ref_bins_only(X, pack.grid.numpy(),
+                                             pack.n_grid))
+    got = fe.forest_eval_frombins_plain(
+        torch.from_numpy(emu), *pack.matmul_operands(),
+        tree_chunk=pack.tree_chunk)
+    *binpack, n_grid = ref._pack_matmul_bins(F)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(forest_eval_pallas_bins_split(
+            jnp.asarray(X), *binpack, n_grid=n_grid))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
 def test_serving_route_and_eval_matrix_under_the_flag(monkeypatch):

@@ -3,14 +3,18 @@ against the reference's Pallas kernel.
 
 The same numpy-seeded chunks go through the reference's
 ``lambda_weights_fused`` in interpret mode (as tests/test_lambda_kernel.py
-runs it on the CPU) and the port's ``lambda_weights_fused``, whose pair
-step is the plain version on a CPU tensor. Tolerance atol 2e-5, rtol 1e-4,
-the one tests/test_lambda_kernel.py:38-41 holds the reference's kernel to
-(f32 pair sums in another order), at every D. The CUDA kernel runs only
-on a card; chip_smoke.py holds it to the plain version there. Here a
-Python emulation of its per-position loop pins the winner/loser split.
-Then the routing: the opt-in flag, the metrics it leaves alone, the sorted
-path the fused route must agree with, and a whole fit under the flag.
+runs it on the CPU) and the port's ``lambda_weights_fused``; a fit's
+one-launch round (``lambda_round``, whose CPU route is that per-chunk
+path on every bucket chunk) goes through the reference chunk by chunk.
+Tolerance atol 2e-5, rtol 1e-4, the one tests/test_lambda_kernel.py:38-41
+holds the reference's kernel to (f32 pair sums in another order), at
+every D. The CUDA kernel runs only on a card; chip_smoke.py holds it to
+the plain version there. Here numpy emulations pin what it computes: its
+compare-count rank against the stable sort, A and B from the per-fit
+factors bit for bit against the per-call vectors, and its per-query pair
+loop against the plain version. Then the routing: the opt-in flag, the
+metrics it leaves alone, the sorted path the fused route must agree
+with, and a whole fit under the flag.
 """
 
 import jax.numpy as jnp
@@ -20,6 +24,7 @@ import torch
 
 from ranklib_tpu.metrics.base import create_scorer as ref_create_scorer
 from ranklib_tpu.ops import lambda_kernel as RK
+from ranklib_tpu_torch.data.dataset import flatten_meta
 from ranklib_tpu_torch.gbdt import boost as PBoost
 from ranklib_tpu_torch.gbdt import lambdas as PL
 from ranklib_tpu_torch.metrics.base import create_scorer
@@ -81,61 +86,179 @@ def test_separable_vectors_match_reference(metric):
                                    rtol=1e-6)
 
 
-def _emulate_kernel(A, Bv, L, S, V):
-    """What csrc/lambda_pairs.cu computes, position by position in float64:
-    winner and loser sums kept apart, q in order, lam = winner − loser."""
-    lam = np.zeros(A.shape)
-    w = np.zeros(A.shape)
-    for r in range(A.shape[0]):
-        for p in range(A.shape[1]):
-            if V[r, p] == 0:
-                continue
-            wl = ll = ww = lw = 0.0
-            for q in range(A.shape[1]):
-                if L[r, q] == L[r, p]:
-                    continue
-                vv = V[r, p] * V[r, q]
-                delta = abs(A[r, p] - A[r, q]) * abs(Bv[r, p] - Bv[r, q])
-                winner = L[r, p] > L[r, q]
-                x = S[r, q] - S[r, p] if winner else S[r, p] - S[r, q]
-                rho = 1.0 / (1.0 + np.exp(-x))
-                if winner:
-                    wl += vv * rho * delta
-                    ww += vv * rho * (1.0 - rho) * delta
-                else:
-                    ll += vv * rho * delta
-                    lw += vv * rho * (1.0 - rho) * delta
-            lam[r, p], w[r, p] = wl - ll, ww + lw
+def _round_data(monkeypatch, metric, seed, n_queries=9, max_docs=40,
+                gmax=4, n_pad_docs=5):
+    """A fit's ``BoostData`` under the flag (its ``fused`` field) on a
+    small seeded dataset with pad documents, and the round's scores: N(0,1)
+    rounded to quarters (score ties), with a +0.0 and a -0.0 in the first
+    query."""
+    monkeypatch.setenv(FLAG, "1")
+    ds = synth_dataset(n_queries=n_queries, n_features=3, min_docs=2,
+                       max_docs=max_docs, gmax=gmax, seed=seed)
+    labels, qptr = flatten_meta(ds)
+    N = len(labels)
+    labels_pad = np.concatenate([labels, np.zeros(n_pad_docs, np.float32)])
+    data, Npad, _ = PBoost.make_boost_data(
+        ds, np.zeros((N + n_pad_docs, 1), np.uint8), labels_pad, N, None,
+        None, CPU, scorer=create_scorer(metric))
+    rng = np.random.default_rng(seed + 1)
+    scores = (np.round(rng.normal(size=Npad + 1) * 4) / 4).astype(np.float32)
+    scores[qptr[0]:qptr[0] + 2] = [0.0, -0.0]
+    return data, torch.from_numpy(scores), qptr
+
+
+def _emulate_round(rd, scores):
+    """What csrc/lambda_pairs.cu computes, query by query in document
+    order: the stable compare-count rank, A and B from the per-fit
+    factors, then for each document p the pair loop over the query's
+    documents with f32 terms and f64 winner and loser sums kept apart,
+    lam = winner − loser, rounded to f32 once. Pad documents 0."""
+    f32 = np.float32
+    labels, s = rd.labels.numpy(), scores.numpy()[:rd.labels.shape[0]]
+    qptr, qfac = rd.qptr.numpy(), rd.qfac.numpy()
+    keff, disc = rd.keff.numpy(), rd.disc.numpy()
+    lam = np.zeros(labels.shape, f32)
+    w = np.zeros(labels.shape, f32)
+    for q in range(len(qptr) - 1):
+        b, e = qptr[q], qptr[q + 1]
+        L, sc = labels[b:e], s[b:e]
+        rank = _compare_count_rank(sc, np.ones(e - b, bool))
+        g = ((L > 0).astype(f32) if rd.scorer.metric == "P"
+             else np.exp2(L).astype(f32) - f32(1))
+        A = (g.astype(np.float64) * qfac[q]).astype(f32)
+        B = np.where(rank < keff[q], disc[np.minimum(rank, len(disc) - 1)],
+                     f32(0)).astype(f32)
+        for p in range(e - b):
+            other = L != L[p]
+            delta = np.abs(A[p] - A) * np.abs(B[p] - B)
+            wins = L[p] > L
+            x = np.where(wins, sc - sc[p], sc[p] - sc)
+            with np.errstate(over="ignore"):
+                rho = f32(1) / (f32(1) + np.exp(-x))
+            t = (rho * delta).astype(np.float64)
+            tw = ((rho * (f32(1) - rho)) * delta).astype(np.float64)
+            win, lose = other & wins, other & ~wins
+            lam[b + p] = f32(t[win].sum() - t[lose].sum())
+            w[b + p] = f32(tw[win].sum() + tw[lose].sum())
     return lam, w
 
 
-def test_kernel_loop_equals_plain_pair_block():
-    labels, scores, mask = _case(3, 20, seed=4)
-    scores[0, :6] = 0.5                            # score ties
-    L = torch.from_numpy(labels)
-    n = torch.from_numpy(mask.sum(1).astype(np.int32))
-    A, Bv = LK.separable_vectors(create_scorer("NDCG@5"), L, n)
-    args = (A, Bv, L, torch.from_numpy(scores),
-            torch.from_numpy(mask.astype(np.float32)))
-    plain = LK.lambda_pairs_plain(*args)
-    emu = _emulate_kernel(*(a.double().numpy() for a in args))
+def _compare_count_rank(s, valid):
+    """The kernel's rank: #{q: s_q > s_p} + #{q < p: s_q == s_p} over the
+    valid documents."""
+    i = np.arange(len(s))
+    before = (s[None, :] > s[:, None]) | ((s[None, :] == s[:, None])
+                                          & (i[None, :] < i[:, None]))
+    return (before & valid[None, :]).sum(axis=1)
+
+
+@pytest.mark.parametrize("metric", ["NDCG@10", "DCG@5", "P@4", "P@0"])
+def test_kernel_loop_equals_plain_pair_block(monkeypatch, metric):
+    """A Python emulation of the one-launch kernel's per-query loop equals
+    the round's plain version (the per-chunk fused route)."""
+    data, scores, _ = _round_data(monkeypatch, metric, seed=4)
+    plain = LK.lambda_round_plain(data.fused, scores)
+    emu = _emulate_round(data.fused, scores)
     for g, w in zip(plain, emu):
         np.testing.assert_allclose(g.numpy(), w, atol=1e-6, rtol=1e-5)
+        assert not g.numpy()[-5:].any()              # pad documents
 
 
-def test_wrapper_checks_inputs_and_counts_only_kernel_launches():
-    labels, scores, mask = _case(2, 8, seed=1)
-    t = [torch.from_numpy(a) for a in (labels, labels, labels, scores,
-                                       mask.astype(np.float32))]
-    before = LK.lambda_pairs.launches
-    LK.lambda_pairs(*t)
-    assert LK.lambda_pairs.launches == before          # CPU: plain version
+@pytest.mark.parametrize("metric", ["NDCG@10", "NDCG@3", "DCG@5", "P@4",
+                                    "P@0"])
+def test_round_plain_matches_reference_kernel_chunk_by_chunk(monkeypatch,
+                                                             metric):
+    """The one-launch round's plain route against the reference's
+    ``lambda_weights_fused`` in interpret mode on every bucket chunk of
+    the fit."""
+    data, scores, _ = _round_data(monkeypatch, metric, seed=7)
+    lam, w = LK.lambda_round(data.fused, scores)
+    ref_scorer = ref_create_scorer(metric)
+    for lab, msk, didx in data.tb:
+        want = RK.lambda_weights_fused(
+            ref_scorer, jnp.asarray(lab.numpy()),
+            jnp.asarray(scores[didx].numpy()), jnp.asarray(msk.numpy()),
+            interpret=True)
+        m = msk.numpy()
+        for got, ref in zip((lam, w), want):
+            np.testing.assert_allclose(got[didx].numpy()[m],
+                                       np.asarray(ref)[m], **TOL)
+
+
+@pytest.mark.parametrize("metric", ["NDCG@10", "NDCG@3", "DCG@5", "P@4",
+                                    "P@0", "NDCG@0"])
+def test_per_fit_factors_equal_per_call_vectors(monkeypatch, metric):
+    """A and B built the kernel's way — 2^L − 1 (or [L > 0]) times the
+    per-fit factor, the per-fit discount table at the compare-count rank
+    inside k_eff — equal ``separable_vectors``' per-call vectors on the
+    ranked chunk, bit for bit."""
+    data, scores, qptr = _round_data(monkeypatch, metric, seed=11,
+                                     max_docs=70)
+    rd = data.fused
+    qfac, keff, disc = rd.qfac.numpy(), rd.keff.numpy(), rd.disc.numpy()
+    assert rd.max_docs == int(np.diff(qptr).max()) == disc.shape[0]
+    # the kernel's blocks take the queries widest first, every one once
+    sizes = np.diff(qptr)[rd.order.numpy()]
+    assert sorted(rd.order.tolist()) == list(range(len(qptr) - 1))
+    assert (np.diff(sizes) <= 0).all()
+    f32 = np.float32
+    for lab, msk, didx in data.tb:
+        sc = scores[didx]
+        key = torch.where(msk, -sc, torch.inf)
+        order = torch.sort(key, dim=-1, stable=True).indices
+        L = torch.gather(lab, -1, order)
+        A, B = LK.separable_vectors(rd.scorer, L, msk.sum(-1).int())
+        for row in range(lab.shape[0]):
+            m = msk[row].numpy()
+            if not m.any():
+                continue
+            q = np.searchsorted(qptr, int(didx[row, 0]), side="right") - 1
+            lr = lab[row].numpy()[m]
+            rank = _compare_count_rank(sc[row].numpy()[m], np.ones(m.sum(),
+                                                                   bool))
+            g = ((lr > 0).astype(f32) if rd.scorer.metric == "P"
+                 else np.exp2(lr).astype(f32) - f32(1))
+            a = (g.astype(np.float64) * qfac[q]).astype(f32)
+            b = np.where(rank < keff[q], disc[rank], f32(0))
+            # ranked slot r holds the document of rank r
+            np.testing.assert_array_equal(A[row].numpy()[rank], a)
+            np.testing.assert_array_equal(B[row].numpy()[rank], b)
+
+
+def test_compare_count_rank_is_the_stable_sort_order():
+    """The kernel's rank equals the position in ``torch.sort(stable=True)``
+    of ``where(mask, −s, +inf)``: ties by document order, ±0.0 equal, pads
+    last."""
+    rng = np.random.default_rng(5)
+    for _ in range(20):
+        D = int(rng.integers(1, 40))
+        s = (np.round(rng.normal(size=D) * 2) / 2).astype(np.float32)
+        s[rng.random(D) < 0.2] = 0.0
+        s[rng.random(D) < 0.2] = -0.0
+        valid = np.arange(D) < int(rng.integers(1, D + 1))
+        key = torch.where(torch.from_numpy(valid), -torch.from_numpy(s),
+                          torch.inf)
+        order = torch.sort(key, stable=True).indices.numpy()
+        pos = np.empty(D, np.int64)
+        pos[order] = np.arange(D)
+        rank = _compare_count_rank(s, valid)
+        np.testing.assert_array_equal(rank[valid], pos[valid])
+
+
+def test_wrapper_checks_inputs_and_counts_only_kernel_launches(monkeypatch):
+    data, scores, _ = _round_data(monkeypatch, "NDCG@10", seed=1)
+    rd = data.fused
+    before = LK.lambda_round.launches
+    LK.lambda_round(rd, scores)
+    assert LK.lambda_round.launches == before          # CPU: plain version
     bad = [
-        lambda: LK.lambda_pairs(t[0].double(), *t[1:]),
-        lambda: LK.lambda_pairs(t[0][:, :4], *t[1:]),
-        lambda: LK.lambda_pairs(t[0].T.contiguous().T, *t[1:]),
+        lambda: LK.lambda_round(rd, scores.double()),
+        lambda: LK.lambda_round(rd, scores[:4]),
+        lambda: LK.lambda_round(rd, torch.stack([scores, scores], 1)[:, 0]),
         # neither CPU nor CUDA: raises, never falls back to the plain path
-        lambda: LK.lambda_pairs(*(x.to("meta") for x in t)),
+        lambda: LK.lambda_round(rd, scores.to("meta")),
+        # launch_args only builds a CUDA launch
+        lambda: LK.launch_args(rd, scores),
     ]
     for call in bad:
         with pytest.raises(RankLibError):
@@ -143,16 +266,27 @@ def test_wrapper_checks_inputs_and_counts_only_kernel_launches():
 
 
 def _which(monkeypatch, metric, flag):
-    """The name of the path ``lambda_fn`` routes one chunk to."""
+    """The path a round takes: ``"lambda_round"`` (the fused route, one
+    launch a round, which ``make_round_step`` takes when ``make_boost_data``
+    built its per-fit data) or the name of the path ``lambda_fn`` routes
+    each chunk to."""
     if flag:
         monkeypatch.setenv(FLAG, "1")
     else:
         monkeypatch.delenv(FLAG, raising=False)
-    for name in ("lambda_weights_fused", "lambda_weights_nosort",
-                 "lambda_weights_nosort_err", "lambda_weights_nosort_map",
-                 "lambda_weights"):
+    for name in ("lambda_weights_nosort", "lambda_weights_nosort_err",
+                 "lambda_weights_nosort_map", "lambda_weights"):
         monkeypatch.setattr(PL, name, lambda *a, _n=name: _n)
-    return PL.lambda_fn(create_scorer(metric))(None, None, None, None)
+    scorer = create_scorer(metric)
+    ds = synth_dataset(n_queries=3, n_features=2, seed=2)
+    labels, _ = flatten_meta(ds)
+    N = labels.shape[0]
+    data, _, _ = PBoost.make_boost_data(ds, np.zeros((N, 1), np.uint8),
+                                        labels, N, None, None, CPU,
+                                        scorer=scorer)
+    if data.fused is not None:
+        return "lambda_round"
+    return PL.lambda_fn(scorer)(None, None, None, None)
 
 
 @pytest.mark.parametrize("metric", ["NDCG@10", "DCG@5", "P@4", "ERR@10",
@@ -167,7 +301,7 @@ def test_routing_follows_the_reference(monkeypatch, metric):
     # the flag takes the separable metrics only; ERR, MAP, RR and BEST
     # ignore it
     assert _which(monkeypatch, metric, flag=True) == (
-        "lambda_weights_fused" if m in LK.SEPARABLE_METRICS else default)
+        "lambda_round" if m in LK.SEPARABLE_METRICS else default)
     monkeypatch.setenv(FLAG, "0")
     assert not LK.supports_fused(create_scorer(metric))
 
