@@ -1,7 +1,9 @@
 """On-card smoke test of ranklib_tpu_torch's main paths (one NVIDIA GPU):
 serving, LambdaMART/MART training, Random Forests, the f32 forest route,
-and the opt-in routes and tools that hold the last kernels: fused lambdas,
-split bin-space serving, the predicate epilogue and the compiler probes.
+the linear and boosting rankers (Coordinate Ascent, the CLI's default;
+RankBoost; AdaRank; Linear Regression), and the opt-in routes and tools
+that hold the last kernels: fused lambdas, split bin-space serving, the
+predicate epilogue and the compiler probes.
 
 Run from the repository root with no arguments::
 
@@ -123,13 +125,30 @@ Phases, none of whose failures is caught:
     the plain version and to the f32 route;
 15. the compiler probes: the int8 and f32 dot at [256, 2^20] x [2^20, 128]
     (one call, median of 3; the f32 time over ``torch.matmul``'s and the
-    int8 time over its bound) and the int16 compare.
+    int8 time over its bound) and the int16 compare;
+16. the linear and boosting rankers on phase 5's training data: Coordinate
+    Ascent with RankLib's defaults (-r 5 -i 25 -tolerance 0.001) cut to 2
+    sweeps, TF32 enabled outside the fit and every candidate product
+    checked to run in full f32 (wall per sweep, peak memory, one
+    coordinate step under ``set_sync_debug_mode("error")``); RankBoost
+    -round 300 -tc 10 with the histogram counter at 0 (one launch a
+    round; the histogram kernel against its plain version on the fit's
+    last pair potential at [136, 179,440] int16, B = 11, counts exact, its
+    own time by bare launches, ``index_add_`` and the bound; a sync-free
+    round); AdaRank -round 500 and Linear Regression (fit and scoring
+    walls); card vs CPU on 200 queries (RankBoost's first 20 weak rankers,
+    Coordinate Ascent one restart one pass, AdaRank's first 20 picks);
+    the CLI: ``-train`` with no ``-ranker`` and with ``-ranker 2|3|9``
+    (RankBoost cut to 100 rounds), each with ``-norm zscore -validate
+    -test -save``, then ``-load -test``.
 
-Every kernel's line in the JSON record carries its launches on its path,
-its error against the plain version, its time and the plain version's,
-its bound (bytes over 3.35 TB/s or operations over the published peak,
-whichever is larger, from this run's inputs) and, where one PyTorch call
-computes the same function, that call's time.
+Every kernel's line in the JSON record carries its launches on its paths
+(the histogram's: LambdaMART's fit and RankBoost's, each also under
+``paths`` with its shape and times), its error against the plain
+version, its time and the plain version's, its bound (bytes over 3.35
+TB/s or operations over the published peak, whichever is larger, from
+this run's inputs) and, where one PyTorch call computes the same
+function, that call's time.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 are the kernels' JSON record and the ``nvidia-smi`` name/power-limit line.
@@ -167,6 +186,9 @@ FIT_TREES, FIT_QUERIES, FIT_VQUERIES = 50, 1500, 300
 # 80 GB card
 RF_BAGS, RF_LEAVES = 300, 100
 FIT_NPAD = 180224             # the training set's 179,440 docs, padded
+# linear and boosting rankers at the same width: RankLib's defaults, with
+# Coordinate Ascent cut from 25 sweeps to 2 for the time limit
+CA_PASSES, RB_ROUNDS, RB_TC, ADA_ROUNDS = 2, 300, 10, 500
 FMAX = float(np.finfo(np.float32).max)
 
 
@@ -815,32 +837,38 @@ def write_dataset(path, ds):
 
 
 @contextlib.contextmanager
-def timed_rounds(times: list):
-    """Time each round of every LambdaMART fit inside the block
-    (synchronised wall ms per ``step`` call); the fits are otherwise the
-    users' ``fit``."""
-    from ranklib_tpu_torch.models.gbdt import LambdaMART
-
-    orig = LambdaMART.prepare_fit
+def timed_steps(cls, times: list):
+    """Time each call of the step (a round, or a sweep) that
+    ``cls.prepare_fit`` returns first, in every fit inside the block
+    (synchronised wall ms a call); the fits are otherwise the users'
+    ``fit``."""
+    orig = cls.prepare_fit
 
     def prepare(self, *args, **kw):
         step, *rest = orig(self, *args, **kw)
 
-        def timed(state, t, data):
+        def timed(*a, **k):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state = step(state, t, data)
+            out = step(*a, **k)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-            return state
+            return out
 
         return (timed, *rest)
 
-    LambdaMART.prepare_fit = prepare
+    cls.prepare_fit = prepare
     try:
         yield
     finally:
-        LambdaMART.prepare_fit = orig
+        cls.prepare_fit = orig
+
+
+def timed_rounds(times: list):
+    """Time each round of every LambdaMART fit inside the block."""
+    from ranklib_tpu_torch.models.gbdt import LambdaMART
+
+    return timed_steps(LambdaMART, times)
 
 
 def quiet(fn, *args, **kw):
@@ -2208,6 +2236,325 @@ def probe_phase(dev, smi) -> dict:
             "bound": bnd["int8"]}
 
 
+def hist_bare(binsT, grad, w, B):
+    """(fn, args, keep): one bare ctypes launch of the histogram kernel,
+    laid out as ``ops.histogram`` lays it out; ``keep`` holds the output
+    and scratch alive."""
+    from ranklib_tpu_torch.ops import histogram as H
+
+    F, N = binsT.shape
+    p = H.plan(F, B, 1, N)
+    dev = binsT.device
+    out = torch.empty((F, B, 2), dtype=torch.float32, device=dev)
+    partial = (torch.empty(p.slices * out.numel(), dtype=torch.float32,
+                           device=dev) if p.slices > 1 else out)
+    ids = binsT.data_ptr()
+    vec = int(ids % 16 == 0 and N * binsT.element_size() % 16 == 0)
+    fn = getattr(H._kernels(), f"histogram_{H._TYPES[binsT.dtype]}")
+    args = (ids, grad.data_ptr(), w.data_ptr(), N, F, B, p.warp_bins,
+            p.ranges, p.slice_len, p.slices, vec, partial.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    return fn, args, (out, partial)
+
+
+def coorascent_phase(dev, train, smi) -> dict:
+    """Coordinate Ascent at the training width, RankLib's defaults, with
+    TF32 enabled outside the fit: every candidate product must run in full
+    f32. The wall per sweep, the peak memory, and one coordinate step
+    under ``set_sync_debug_mode("error")``."""
+    from ranklib_tpu_torch.metrics.base import create_scorer, score_dataset
+    from ranklib_tpu_torch.models import coorascent as PCA
+    from ranklib_tpu_torch.ops.batched_eval import full_f32_products
+
+    scorer = create_scorer("NDCG@10")
+    hp = dict(n_restart=5, n_max_iteration=25, tolerance=0.001,
+              max_passes=CA_PASSES)
+    modes, sweeps = [], []
+    orig = PCA.candidate_metrics
+
+    def watched(*a, **kw):
+        modes.append((torch.backends.cuda.matmul.allow_tf32,
+                      torch.get_float32_matmul_precision()))
+        return orig(*a, **kw)
+
+    ca = PCA.CoorAscent(**hp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    PCA.candidate_metrics = watched
+    torch.set_float32_matmul_precision("high")       # TF32 outside the fit
+    t0 = time.perf_counter()
+    try:
+        with timed_steps(PCA.CoorAscent, sweeps):
+            _, out = quiet(ca.fit, train, scorer, device=dev)
+    finally:
+        PCA.candidate_metrics = orig
+        torch.set_float32_matmul_precision("highest")
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(modes and all(m == (False, "highest") for m in modes),
+          "a Coordinate Ascent candidate product ran with TF32 enabled")
+    passes = [ln.strip() for ln in out.splitlines() if "pass " in ln]
+    final = [ln for ln in out.splitlines() if "on training data" in ln]
+    print(f"  Coordinate Ascent, -r 5 -i 25 -tolerance 0.001, NDCG@10, "
+          f"{len(sweeps)} sweeps (of RankLib's 25): {'; '.join(passes)}")
+    print(f"  {final[0]}; {len(modes)} candidate products, each in full "
+          f"f32 (TF32 enabled outside the fit)")
+    m, _ = score_dataset(scorer, train, ca.eval_dataset(train, dev), dev)
+    best = float(final[0].split()[-1])
+    print(f"  rescored model: NDCG@10 {m:.6f} (the sweep's {best:.4f})")
+    check(np.isfinite(ca.weights).all()
+          and abs(np.abs(ca.weights).sum() - 1) < 1e-9,
+          "Coordinate Ascent weights not finite or not L1-normalized")
+    check(abs(m - best) <= 1e-3, "the rescored model disagrees with the "
+                                 "sweep's metric")
+    check("(5/5 restarts improving)" in passes[0],
+          "the first sweep improved no restart")
+    sweep, w, cur, order_T, buckets = ca.prepare_fit(train, scorer, dev)
+    rows = max(b[0].shape[0] * b[0].shape[1] for b in buckets)
+    improved = torch.zeros(5, dtype=torch.bool, device=dev)
+    with full_f32_products():
+        sweep.coordinate_step(w, cur, improved, order_T[0], buckets)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            w1, cur1, _ = sweep.coordinate_step(w, cur, improved,
+                                                order_T[0], buckets)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    check(bool(torch.isfinite(w1).all()), "sync-free coordinate step: NaN")
+    with full_f32_products():
+        profiled("coordinate step", lambda: sweep.coordinate_step(
+            w, cur, improved, order_T[1], buckets))
+    ms_sweep = float(np.median(sweeps))
+    print(f"  one coordinate step ran under set_sync_debug_mode('error'): "
+          f"no host sync")
+    print(f"  wall per sweep (median of {len(sweeps)}) {ms_sweep:.1f} ms, "
+          f"{ms_sweep / train.n_features:.2f} ms a coordinate; fit "
+          f"{wall:.2f} s; peak device memory {peak / 2**20:.1f} MiB "
+          f"(candidate scores of the largest chunk: {rows} padded docs x "
+          f"260 candidates x 4 B = {rows * 260 * 4 / 2**20:.1f} MiB)  "
+          f"[{smi}]")
+    return {"ms_sweep": ms_sweep, "peak": peak, "wall": wall}
+
+
+def rankboost_phase(dev, train, smi) -> dict:
+    """RankBoost at the training width, -round 300 -tc 10, with the
+    histogram counter at 0: one launch a round. B1 against its plain
+    version on the fit's last π, its own time (bare launches), the
+    ``index_add_`` time and the bound; a round under
+    ``set_sync_debug_mode("error")``."""
+    from ranklib_tpu_torch.metrics.base import create_scorer
+    from ranklib_tpu_torch.models import rankboost as PRB
+    from ranklib_tpu_torch.ops import histogram as H
+
+    scorer = create_scorer("NDCG@10")
+    rb = PRB.RankBoost(n_rounds=RB_ROUNDS, n_threshold=RB_TC)
+    rounds = []
+    torch.cuda.synchronize()
+    H.histogram.launches = 0
+    t0 = time.perf_counter()
+    with timed_steps(PRB.RankBoost, rounds):
+        quiet(rb.fit, train, scorer, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = H.histogram.launches
+    tm = rb.fit_state.train_m[:len(rounds)].cpu().numpy()
+    print(f"  RankBoost -round {RB_ROUNDS} -tc {RB_TC}: {len(rounds)} "
+          f"rounds, {len(rb.weaks)} weak rankers, histogram launches "
+          f"{launches}; train NDCG@10 round 1 {tm[0]:.4f} -> round "
+          f"{len(rounds)} {tm[-1]:.4f}")
+    check(launches == len(rounds), "RankBoost did not launch the histogram "
+                                   "kernel once a round")
+    check(len(rb.weaks) == RB_ROUNDS and bool(np.isfinite(tm).all())
+          and tm[-1] > tm[0], "RankBoost stopped early or did not learn")
+    step, state, data, _ = rb.prepare_fit(train, scorer, None, dev)
+    step(state, 0, data)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = step(state, 1, data)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(bool(torch.isfinite(state.scores).all()), "sync-free round: NaN")
+    print("  one round ran under set_sync_debug_mode('error'): no host sync")
+    profiled("round", lambda: step(state, 2, data))
+
+    binsT, ones = data.binned_T, data.ones
+    F, N = binsT.shape
+    B = RB_TC + 1
+    pot = PRB.pair_potential(rb.fit_state.scores, data.tb, data.uniq, N)
+    got = H.histogram(binsT, pot, ones, B)
+    want = H.histogram_plain(binsT, pot, ones, B)
+    torch.cuda.synchronize()
+    check(torch.equal(got[..., 1], want[..., 1]),
+          "histogram counts differ at RankBoost's shape")
+    check(torch.allclose(got[..., 0], want[..., 0], **HIST_TOL),
+          "histogram sums differ at RankBoost's shape")
+    check(torch.equal(got, H.histogram(binsT, pot, ones, B)),
+          "histogram not reproducible at RankBoost's shape")
+    err = float((got - want).abs().max())
+    fn, args, keep = hist_bare(binsT, pot, ones.to(torch.float32), B)
+    ms = bare_ms(fn, args)
+    check(torch.equal(keep[0], got), "the bare histogram launches wrote "
+                                     "another histogram")
+    plain_ms = event_ms(lambda: H.histogram_plain(binsT, pot, ones, B), 3)
+    idx = (torch.arange(F, device=dev)[:, None] * B
+           + binsT.to(torch.int64)).reshape(-1)
+    src = torch.stack([pot.expand(F, N).reshape(-1),
+                       torch.ones(F * N, device=dev)], dim=-1)
+    lib_ms = event_ms(lambda: torch.zeros((F * B, 2), device=dev).index_add_(
+        0, idx, src), 10)
+    del idx, src
+    bnd = bound(nbytes(binsT, pot, ones, got), 2 * F * N)
+    ms_round = float(np.median(rounds))
+    print(f"  histogram [{F}, {N}] int16, B = {B}, on the fit's last pi: "
+          f"max_abs_err {err:.3e} (counts exact); kernel {ms:.4f} ms (20 "
+          f"bare launches) vs plain {plain_ms:.4f} ms; index_add_ "
+          f"{lib_ms:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]})")
+    print(f"  wall per round (median of {len(rounds)}) {ms_round:.3f} ms; "
+          f"fit {wall:.2f} s  [{smi}]")
+    return {"launches": launches, "shape": [F, N, B], "err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound": bnd, "library_ms": lib_ms,
+            "ms_round": ms_round, "wall": wall}
+
+
+def adarank_linear_phase(dev, train, smi) -> dict:
+    """AdaRank -round 500 (wall per round) and Linear Regression (fit and
+    scoring walls) at the training width."""
+    from ranklib_tpu_torch.data.dataset import flatten
+    from ranklib_tpu_torch.metrics.base import create_scorer, score_dataset
+    from ranklib_tpu_torch.models.adarank import AdaRank
+    from ranklib_tpu_torch.models.linear import LinearRegRank
+    from ranklib_tpu_torch.ops.batched_eval import full_f32_products
+
+    scorer = create_scorer("NDCG@10")
+    ada = AdaRank(n_rounds=ADA_ROUNDS)
+    rounds = []
+    t0 = time.perf_counter()
+    with timed_steps(AdaRank, rounds):
+        _, out = quiet(ada.fit, train, scorer, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stop = [ln for ln in out.splitlines() if ln.startswith("Stop")]
+    tm = ada.fit_state.train_m[:len(rounds)].cpu().numpy()
+    print(f"  AdaRank -round {ADA_ROUNDS}: {len(rounds)} rounds run, "
+          f"{len(ada.history)} kept ({stop[0] if stop else 'no stop'}); "
+          f"features {[f for f, _ in ada.history][:10]}...; train NDCG@10 "
+          f"{np.nanmax(tm):.4f}")
+    check(ada.history and bool(np.isfinite(ada.weights).all()),
+          "AdaRank kept no round")
+    m, _ = score_dataset(scorer, train, ada.eval_dataset(train, dev), dev)
+    check(abs(m - float(tm[len(ada.history) - 1])) <= 1e-3,
+          "AdaRank's rescored model disagrees with its last kept round")
+    ms_round = float(np.median(rounds))
+    print(f"  wall per round (median of {len(rounds)}) {ms_round:.3f} ms; "
+          f"fit {wall:.2f} s  [{smi}]")
+    step, state, S, tb, vb = ada.prepare_fit(train, scorer, None, dev)
+    with full_f32_products():
+        profiled("round", lambda: step(state, 0, S, tb, vb))
+
+    lr = LinearRegRank()
+    t0 = time.perf_counter()
+    lr.fit(train)
+    fit_s = time.perf_counter() - t0
+    score_ms = wall_ms(lambda: lr.eval_dataset(train, dev), 5)
+    feats, labels, _ = flatten(train)
+    want = feats.astype(np.float64) @ lr.weights[1:] + lr.weights[0]
+    got = np.concatenate(lr.eval_dataset(train, dev))
+    err = float(np.abs(got - want).max())
+    m, _ = score_dataset(scorer, train, lr.eval_dataset(train, dev), dev)
+    print(f"  Linear Regression: fit (f64 host normal equations) "
+          f"{fit_s:.3f} s; scoring {train.n_docs} docs on the card "
+          f"{score_ms:.3f} ms wall; f32 scores vs f64 max_abs_err "
+          f"{err:.3e}; train NDCG@10 {m:.4f}  [{smi}]")
+    check(err <= 1e-4 * max(1.0, float(np.abs(want).max())),
+          "Linear Regression's device scores disagree with the f64 model")
+    return {"ada_ms_round": ms_round, "ada_wall": wall, "lr_fit_s": fit_s,
+            "lr_score_ms": score_ms}
+
+
+def linear_boosting_card_vs_cpu(dev) -> None:
+    """200 queries: RankBoost's first 20 weak rankers (the histogram
+    kernel on the card, its plain version on the CPU), Coordinate Ascent
+    one restart one pass, AdaRank's first 20 picks."""
+    from ranklib_tpu_torch.metrics.base import create_scorer
+    from ranklib_tpu_torch.models.adarank import AdaRank
+    from ranklib_tpu_torch.models.coorascent import CoorAscent
+    from ranklib_tpu_torch.models.rankboost import RankBoost
+
+    ds = synth_queries(200, N_FEATURES, seed=5, w_seed=11)
+    scorer = create_scorer("NDCG@10")
+    cpu = torch.device("cpu")
+    fits = []
+    for d in (cpu, dev):
+        t0 = time.perf_counter()
+        rb = RankBoost(n_rounds=20)
+        quiet(rb.fit, ds, scorer, device=d)
+        ca = CoorAscent(n_restart=1, max_passes=1)
+        quiet(ca.fit, ds, scorer, device=d)
+        ada = AdaRank(n_rounds=20)
+        quiet(ada.fit, ds, scorer, device=d)
+        fits.append((rb.weaks, ca.weights, ada.history))
+        print(f"  {d.type}: RankBoost, Coordinate Ascent and AdaRank "
+              f"{time.perf_counter() - t0:.1f} s")
+    (rb_c, ca_c, ada_c), (rb_d, ca_d, ada_d) = fits
+    same = [a[:2] == b[:2] for a, b in zip(rb_c, rb_d)]
+    first = same.index(False) + 1 if False in same else None
+    alpha = max(abs(a[2] - b[2]) / abs(a[2]) for a, b in zip(rb_c, rb_d))
+    print(f"  RankBoost: {sum(same)} of {len(same)} weak rankers identical "
+          f"(first to differ: {first}); alphas differ by at most "
+          f"{alpha:.2e} relative")
+    check(len(rb_c) == len(rb_d) == 20 and all(same),
+          "RankBoost's first 20 weak rankers differ between card and CPU")
+    check(alpha <= 1e-4, "RankBoost's alphas differ between card and CPU")
+    err = float(np.abs(ca_c - ca_d).max())
+    print(f"  Coordinate Ascent (1 restart, 1 pass): weights differ by at "
+          f"most {err:.2e}")
+    check(err <= 1e-5, "Coordinate Ascent's weights differ card vs CPU")
+    picks = [[f for f, _ in h] for h in (ada_c, ada_d)]
+    print(f"  AdaRank: picks {picks[0]} (CPU) vs {picks[1]} (card)")
+    check(picks[0] == picks[1], "AdaRank's picks differ card vs CPU")
+
+
+def linear_boosting_cli(tmp) -> None:
+    """-train with no -ranker (Coordinate Ascent), then -ranker 2 (-round
+    100), 3 and 9, each with -norm zscore -validate -test -save, then
+    -load -test of each saved model: the same test metric."""
+    from ranklib_tpu_torch import cli
+
+    paths = {n: os.path.join(tmp, f"{n}.txt")
+             for n in ("train", "vali", "test")}
+    for ranker in (None, 2, 3, 9):
+        model = os.path.join(tmp, f"linear{ranker}.txt")
+        flags = [] if ranker is None else ["-ranker", str(ranker)]
+        if ranker == 2:
+            flags += ["-round", "100"]        # of 300: the smoke's time
+        t0 = time.perf_counter()
+        rc, out = quiet(cli.main, [
+            "-train", paths["train"], *flags, "-norm", "zscore",
+            "-metric2t", "NDCG@10", "-validate", paths["vali"],
+            "-test", paths["test"], "-save", model])
+        check(rc == 0, f"-train {' '.join(flags) or '(default)'} failed:\n"
+                       f"{out[-2000:]}")
+        wall = time.perf_counter() - t0
+        trained = [ln for ln in out.splitlines()
+                   if " on " in ln and "data:" in ln]
+        rc, out = quiet(cli.main, ["-load", model, "-test", paths["test"],
+                                   "-norm", "zscore", "-metric2T",
+                                   "NDCG@10"])
+        check(rc == 0, f"-load of the {model} model failed")
+        loaded = [ln for ln in out.splitlines() if " on test data" in ln]
+        with open(model) as f:
+            name = f.readline().strip()
+        print(f"  -train {' '.join(flags) or '(no -ranker)'} -norm zscore "
+              f"({name}, {wall:.1f} s): {'; '.join(trained[-3:])}; -load: "
+              f"{loaded[0]}")
+        check(name == "## Coordinate Ascent" if ranker is None else True,
+              "-train without -ranker did not train Coordinate Ascent")
+        check(loaded[0] == trained[-1],
+              "the loaded model's test metric differs from training's")
+
+
 def write_letor(path, X, labels, qptr):
     with open(path, "w") as f:
         for q in range(len(qptr) - 1):
@@ -2301,12 +2648,15 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+
+    def header(text: str) -> None:
+        print(f"{text}  [at {time.perf_counter() - t_start:.1f} s]")
     # the default routes first: the opt-in flags are set only by the phases
     # that drive their routes
     for flag in (FUSED_FLAG, SPLIT_FLAG):
         os.environ.pop(flag, None)
 
-    print("== phase 1: environment and build")
+    header("== phase 1: environment and build")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     smi = subprocess.run(
@@ -2321,7 +2671,7 @@ def main() -> int:
     for lib in libs.values():
         print(_build.build_log(lib).strip())
 
-    print("== phase 2: kernels vs plain versions, small cases")
+    header("== phase 2: kernels vs plain versions, small cases")
     small_case_checks(dev)
     hist_small_checks(dev)
     scan_small_checks(dev)
@@ -2333,7 +2683,7 @@ def main() -> int:
     lambda_small_checks(dev)
     probe_small_checks(dev)
 
-    print("== phase 3: main path at full width "
+    header("== phase 3: main path at full width "
           f"({N_TREES} trees x {N_LEAVES} leaves, {N_FEATURES} features, "
           f"{N_DOCS} docs)")
     ens = synthetic_ensemble(N_TREES, N_LEAVES, N_FEATURES,
@@ -2387,7 +2737,7 @@ def main() -> int:
     check(fe.device_bins_narrow.launches == 0,
           "the default serving route launched the split route's binning")
 
-    print("== phase 4: full-width checks and times")
+    header("== phase 4: full-width checks and times")
     ids = fe.device_bins(Xd, pack.grid, pack.n_grid).to(torch.uint8)
     binsT = ids.contiguous()
     plain_fb = fe.forest_eval_frombins_plain(
@@ -2471,22 +2821,23 @@ def main() -> int:
           f"walk")
     heap_model_times(Xd, smi)
 
-    print("== phase 5: training path at full width "
+    header("== phase 5: training path at full width "
           f"({FIT_QUERIES} queries x {N_FEATURES} features, LambdaMART "
           f"{FIT_TREES} trees x {N_LEAVES} leaves, NDCG@10)")
     fit = training_phase(dev)
 
-    print("== phase 6: card vs CPU (10 trees, 200 queries)")
+    header("== phase 6: card vs CPU (10 trees, 200 queries)")
     card_vs_cpu(dev)
 
-    print("== phase 7: training CLI")
+    header("== phase 7: training CLI")
     training_cli(tmp)
 
     # before any profiled phase: rounds timed as fit A's were
-    print(f"== phase 8: fused lambdas at the training shape ({FUSED_FLAG}=1)")
+    header(f"== phase 8: fused lambdas at the training shape "
+           f"({FUSED_FLAG}=1)")
     fused = fused_lambda_phase(dev, fit, tmp, smi)
 
-    print("== phase 9: training kernels vs plain at full width, times")
+    header("== phase 9: training kernels vs plain at full width, times")
     hists, scans = training_kernel_times(fit)
     print("  one round's parts at full width (wall ms, median):")
     round_breakdown(fit, dev)
@@ -2494,7 +2845,7 @@ def main() -> int:
           f"{fit['ms_b']:.3f} ms; peak device memory over fit A "
           f"{fit['peak'] / 2**20:.1f} MiB  [{smi}]")
 
-    print(f"== phase 10: Random Forests at the training width ({RF_BAGS} "
+    header(f"== phase 10: Random Forests at the training width ({RF_BAGS} "
           f"bags x {RF_LEAVES} leaves, {FIT_QUERIES} queries x {N_FEATURES} "
           f"features)")
     rf = rf_training_phase(dev, fit["train"], group)
@@ -2506,24 +2857,39 @@ def main() -> int:
     print(f"  RF fit {rf['wall']:.3f} s, peak {rf['peak'] / 2**30:.2f} GiB  "
           f"[{smi}]")
 
-    print("== phase 11: the f32 forest route at full width "
+    header("== phase 11: the f32 forest route at full width "
           f"({N_TREES} trees x {N_LEAVES} leaves, {N_FEATURES} features, "
           f"{N_DOCS} docs)")
     full = full_route_phase(dev, Xh, Xd)
 
-    print("== phase 12: Random Forests and -combine CLI")
+    header("== phase 12: Random Forests and -combine CLI")
     full_launches = rf_cli(tmp)
 
-    print(f"== phase 13: split serving at full width ({SPLIT_FLAG}=1)")
+    header(f"== phase 13: split serving at full width ({SPLIT_FLAG}=1)")
     split = split_serving_phase(
         dev, ens, pack, Xh, Xd, plain_b,
         {"model": model_path, "data": data_path, "ndcg": ndcg}, smi)
 
-    print("== phase 14: the predicate epilogue at full width")
+    header("== phase 14: the predicate epilogue at full width")
     pred = pred_phase(dev, ens, Xd, smi)
 
-    print("== phase 15: compiler probes")
+    header("== phase 15: compiler probes")
     probe = probe_phase(dev, smi)
+
+    header(f"== phase 16: linear and boosting rankers at the training width "
+          f"({FIT_QUERIES} queries x {N_FEATURES} features, NDCG@10)")
+    ca = coorascent_phase(dev, fit["train"], smi)
+    rb = rankboost_phase(dev, fit["train"], smi)
+    adalin = adarank_linear_phase(dev, fit["train"], smi)
+    print(" card vs CPU (200 queries)")
+    linear_boosting_card_vs_cpu(dev)
+    print(" the CLI")
+    linear_boosting_cli(tmp)
+    print(f"  walls: Coordinate Ascent {ca['ms_sweep']:.1f} ms a sweep, peak "
+          f"{ca['peak'] / 2**20:.1f} MiB; RankBoost {rb['ms_round']:.3f} ms a "
+          f"round; AdaRank {adalin['ada_ms_round']:.3f} ms a round; Linear "
+          f"Regression fit {adalin['lr_fit_s']:.3f} s, scoring "
+          f"{adalin['lr_score_ms']:.3f} ms  [{smi}]")
     tmpdir.cleanup()
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -2545,10 +2911,24 @@ def main() -> int:
               "ranklib_tpu/ops/forest_eval.py:269",
               launches["forest_eval_bins"], err_b, ms_b, plain_ms_b, bound_b,
               None),
-        entry("histogram", "histogram.cu", "ranklib_tpu/ops/histogram.py:185",
-              fit["launches"]["histogram"], hists["root"][1],
-              hists["root"][2], hists["root"][3], hists["root_bound"],
-              hists["root_library"]),
+        dict(entry("histogram", "histogram.cu",
+                   "ranklib_tpu/ops/histogram.py:185",
+                   fit["launches"]["histogram"] + rb["launches"],
+                   hists["root"][1], hists["root"][2], hists["root"][3],
+                   hists["root_bound"], hists["root_library"]),
+             paths={
+                 "lambdamart": {
+                     "launches": fit["launches"]["histogram"],
+                     "shape": [N_FEATURES, FIT_NPAD, 256],
+                     "max_abs_err": hists["root"][1],
+                     "ms": hists["root"][2], "plain_ms": hists["root"][3],
+                     "bound_ms": hists["root_bound"][0],
+                     "library_ms": hists["root_library"]},
+                 "rankboost": {
+                     "launches": rb["launches"], "shape": rb["shape"],
+                     "max_abs_err": rb["err"], "ms": rb["ms"],
+                     "plain_ms": rb["plain_ms"], "bound_ms": rb["bound"][0],
+                     "library_ms": rb["library_ms"]}}),
         entry("split_scan", "split_scan.cu",
               "ranklib_tpu/ops/split_scan.py:43",
               fit["launches"]["split_scan"], scans[2][0], scans[2][1],

@@ -14,13 +14,18 @@ The argument parser is the reference's, flag for flag. The ported flows::
     python -m ranklib_tpu_torch -train train.txt -ranker 8 [-rtype 0|6] \
         -bag 300 -srate 1.0 -frate 0.3 -tree 1 -leaf 100 -save rf.txt
     python -m ranklib_tpu_torch -combine models_dir -o combined.txt
+    python -m ranklib_tpu_torch -train train.txt [-ranker 4] -norm zscore \
+        -r 5 -i 25 -tolerance 0.001 -test test.txt -save ca.txt
 
-Training takes MART (``-ranker 0``), LambdaMART (``-ranker 6``) and Random
-Forests (``-ranker 8``). Flows and flags not ported yet (``-kcv``,
-``-ana``, ``-sparse``, ``-qrel``, ``-norm``; with ``-train`` also
-``-resume``, ``-ckpt``, ``-dp``, ``-eventlog`` and ``-profile``) exit with
-a clean error and rc 1 rather than being ignored. Hyperparameter flags of
-other rankers are accepted and unused, as in the reference.
+Training takes every ranker but the neural ones: MART (``-ranker 0``),
+RankBoost (``2``), AdaRank (``3``), Coordinate Ascent (``4``, the
+default), LambdaMART (``6``), Random Forests (``8``) and Linear Regression
+(``9``), with ``-norm sum|zscore|linear`` on every flow. Flows and flags
+not ported yet (``-kcv``, ``-ana``, ``-sparse``, ``-qrel``; with
+``-train`` also ``-resume``, ``-ckpt``, ``-dp``, ``-eventlog`` and
+``-profile``) exit with a clean error and rc 1 rather than being ignored.
+Hyperparameter flags of other rankers are accepted and unused, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -124,27 +129,36 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 # (cli flag, ranker ids, attribute) — per-ranker hyperparameter routing,
-# the reference's rows for the ported rankers (MART 0, LambdaMART 6, Random
-# Forests 8). As there, -mls reaches Random Forests, which has no such
+# the reference's rows for the ported rankers (MART 0, RankBoost 2, AdaRank
+# 3, Coordinate Ascent 4, LambdaMART 6, Random Forests 8, Linear
+# Regression 9). As there, -mls reaches Random Forests, which has no such
 # hyperparameter and says so.
 _HPARAM_ROUTES = [
     ("tree", {0, 6, 8}, "n_trees"),
     ("leaf", {0, 6, 8}, "n_leaves"),
     ("shrinkage", {0, 6, 8}, "learning_rate"),
-    ("tc", {0, 6, 8}, "n_threshold"),
+    ("tc", {0, 2, 6, 8}, "n_threshold"),
     ("mls", {0, 6, 8}, "min_leaf_support"),
     ("estop", {0, 6}, "early_stop"),
+    ("round", {2, 3}, "n_rounds"),
+    ("noeq", {3}, "no_eq"),
+    ("tolerance", {3, 4}, "tolerance"),
+    ("max", {3}, "max_sel_count"),
+    ("r", {4}, "n_restart"),
+    ("i", {4}, "n_max_iteration"),
+    ("reg", {4}, "reg"),
     ("bag", {8}, "n_bags"),
     ("srate", {8}, "sub_sampling_rate"),
     ("frate", {8}, "feature_sampling_rate"),
     ("rtype", {8}, "ranker_type"),
+    ("l2", {9}, "lam"),
 ]
 
 
 def collect_hparams(args) -> dict:
     hp = {attr: getattr(args, flag) for flag, rankers, attr in _HPARAM_ROUTES
           if getattr(args, flag) is not None and args.ranker in rankers}
-    if args.randomSeed and args.ranker == 8:
+    if args.randomSeed and args.ranker in (4, 8):
         hp.setdefault("seed", args.randomSeed)
     return hp
 
@@ -165,7 +179,7 @@ def _unported(args) -> str | None:
         return "-ana"
     if args.combine:
         return None
-    for flag in ("sparse", "qrel", "norm"):
+    for flag in ("sparse", "qrel"):
         if getattr(args, flag):
             return f"-{flag}"
     if args.train:
@@ -188,8 +202,8 @@ def main(argv=None) -> int:
         if flag:
             raise RankLibError(f"{flag} is not yet ported to "
                                f"ranklib_tpu_torch (ported: -train, -load "
-                               f"with -test or -rank, on dense input, and "
-                               f"-combine)")
+                               f"with -test or -rank, on dense input, "
+                               f"-norm and -combine)")
         if args.combine:
             from ranklib_tpu_torch.combiner import combine
 

@@ -1,5 +1,5 @@
-"""Carry a reference ensemble, Random Forest or training state into the
-port.
+"""Carry a reference ensemble, Random Forest, linear or boosting ranker,
+or training state into the port.
 
 Duck-typed: it reads numpy-convertible fields and imports nothing from
 ``ranklib_tpu``, so tests can feed one model or one mid-training state to
@@ -60,3 +60,52 @@ def boost_state_from_reference(ref, device: torch.device):
         names = list(TreeArrays._fields)
     return cls(**{n: torch.from_numpy(np.array(getattr(ref, n))).to(device)
                   for n in names})
+
+
+def _copy_hparams(ref, port_cls, names):
+    return port_cls(**{k: getattr(ref, k) for k in names})
+
+
+def coorascent_from_reference(ref):
+    """A reference ``CoorAscent`` → the port's, with its hyperparameters
+    and a copy of its f64 ``weights``."""
+    from ranklib_tpu_torch.models.coorascent import CoorAscent
+
+    out = _copy_hparams(ref, CoorAscent, (
+        "n_restart", "n_max_iteration", "tolerance", "reg", "max_passes",
+        "seed"))
+    out.weights = np.array(ref.weights, np.float64)
+    return out
+
+
+def linear_from_reference(ref):
+    """A reference ``LinearRegRank`` → the port's: ``lam`` and a copy of
+    the f64 ``weights`` (intercept first)."""
+    from ranklib_tpu_torch.models.linear import LinearRegRank
+
+    out = _copy_hparams(ref, LinearRegRank, ("lam",))
+    out.weights = np.array(ref.weights, np.float64)
+    return out
+
+
+def adarank_from_reference(ref):
+    """A reference ``AdaRank`` → the port's: its hyperparameters, its
+    ``history`` of (fid, α) rounds and the weights they sum to."""
+    from ranklib_tpu_torch.models.adarank import AdaRank
+
+    out = _copy_hparams(ref, AdaRank, (
+        "n_rounds", "tolerance", "no_eq", "max_sel_count"))
+    out.history = [(int(f), float(a)) for f, a in ref.history]
+    out.weights = np.array(ref.weights, np.float64)
+    return out
+
+
+def rankboost_from_reference(ref):
+    """A reference ``RankBoost`` → the port's: its hyperparameters and its
+    weak rankers, (fid, threshold value, α) each — all that scoring
+    reads."""
+    from ranklib_tpu_torch.models.rankboost import RankBoost
+
+    out = _copy_hparams(ref, RankBoost, ("n_rounds", "n_threshold"))
+    out.weaks = [(int(f), float(th), float(a)) for f, th, a in ref.weaks]
+    return out

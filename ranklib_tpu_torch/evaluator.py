@@ -13,6 +13,7 @@ import torch
 from ranklib_tpu_torch.data.cv import split_tvs
 from ranklib_tpu_torch.data.dataset import Dataset, read_feature_file
 from ranklib_tpu_torch.data.letor import read_letor
+from ranklib_tpu_torch.data.normalize import normalize_dataset
 from ranklib_tpu_torch.metrics.base import (
     MetricScorer, create_scorer, score_dataset,
 )
@@ -22,9 +23,10 @@ from ranklib_tpu_torch.utils.logging import log, result
 
 
 def _prepare(path, feature_fids, missing_zero=False, must_have_rel=False,
-             n_features=None) -> Dataset:
-    """Read a dense LETOR file, align it to the training width and apply
-    ``-feature`` (the dense branch of the reference's ``_prepare``)."""
+             n_features=None, norm=None) -> Dataset:
+    """Read a dense LETOR file, align it to the training width, apply
+    ``-feature``, then ``-norm`` (the dense branch of the reference's
+    ``_prepare``)."""
     ds = read_letor(path, missing_zero=missing_zero,
                     must_have_rel_doc=must_have_rel, n_features=n_features)
     if n_features is not None and ds.n_features != n_features:
@@ -34,6 +36,8 @@ def _prepare(path, feature_fids, missing_zero=False, must_have_rel=False,
         ds = ds.with_width(n_features)
     if feature_fids is not None:
         ds = ds.subset_features(feature_fids)
+    if norm:
+        normalize_dataset(ds, norm)
     return ds
 
 
@@ -79,7 +83,8 @@ def evaluate_train(args, device: torch.device) -> Ranker:
     test_scorer = (create_scorer(args.metric2T, gmax=args.gmax)
                    if args.metric2T else train_scorer)
     must_rel = train_scorer.needs_rel
-    train = _prepare(args.train, feature_fids, args.missingZero, must_rel)
+    train = _prepare(args.train, feature_fids, args.missingZero, must_rel,
+                     norm=args.norm)
     split_test = None
     has_tts = bool(args.tts) and args.tts > 0
     if has_tts:
@@ -91,7 +96,8 @@ def evaluate_train(args, device: torch.device) -> Ranker:
     validation = None
     if args.validate:
         validation = _prepare(args.validate, feature_fids, args.missingZero,
-                              must_rel, n_features=train.n_features)
+                              must_rel, n_features=train.n_features,
+                              norm=args.norm)
     elif args.tvs and args.tvs > 0 and not has_tts:
         train, validation = split_tvs(train, args.tvs)
     ranker = train_ranker(args.ranker, train, train_scorer, validation,
@@ -107,7 +113,7 @@ def evaluate_train(args, device: torch.device) -> Ranker:
     if args.test or split_test is not None:
         test = (split_test if split_test is not None else
                 _prepare(args.test, feature_fids, args.missingZero,
-                         n_features=train.n_features))
+                         n_features=train.n_features, norm=args.norm))
         m_test, per_q = score_dataset(test_scorer, test,
                                       ranker.eval_dataset(test, device),
                                       device)
@@ -124,7 +130,8 @@ def evaluate_test_only(args, device: torch.device) -> None:
     scorer = create_scorer(args.metric2T or args.metric2t, gmax=args.gmax)
     ranker = load_ranker_file(args.load)
     feature_fids = read_feature_file(args.feature) if args.feature else None
-    test = _prepare(args.test, feature_fids, missing_zero=args.missingZero)
+    test = _prepare(args.test, feature_fids, missing_zero=args.missingZero,
+                    norm=args.norm)
     m, per_q = score_dataset(scorer, test, ranker.eval_dataset(test, device),
                              device)
     result(f"{scorer.name} on test data: {m:.4f}")
@@ -136,7 +143,8 @@ def evaluate_rank(args, device: torch.device) -> None:
     """Flow 3.3: -load model -rank file [-score out] [-indri out]."""
     ranker = load_ranker_file(args.load)
     feature_fids = read_feature_file(args.feature) if args.feature else None
-    data = _prepare(args.rank, feature_fids, missing_zero=args.missingZero)
+    data = _prepare(args.rank, feature_fids, missing_zero=args.missingZero,
+                    norm=args.norm)
     scores = ranker.eval_dataset(data, device)
     if args.score:
         write_score_file(args.score, data, scores)

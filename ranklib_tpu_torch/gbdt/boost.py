@@ -37,6 +37,18 @@ def round_capacity(n_trees: int) -> int:
     return cap
 
 
+def run_silent_rounds(step, state, n_rounds: int, *data, block: int = 50):
+    """Silent-mode round loop of RankBoost and AdaRank (the reference's
+    ``run_silent_blocks``): rounds run back to back, and the device's
+    ``active`` flag is read once every ``block`` rounds to stop
+    dispatching rounds that can no longer change the model."""
+    for t in range(n_rounds):
+        state = step(state, t, *data)
+        if (t + 1) % block == 0 and not bool(state.active):
+            break
+    return state
+
+
 @dataclass
 class BoostData:
     """Per-fit device tensors."""

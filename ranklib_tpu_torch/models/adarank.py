@@ -1,0 +1,252 @@
+"""AdaRank (`-ranker 3`; ranklib_tpu.models.adarank; ref:
+learning/boosting/AdaRank.java).
+
+Listwise boosting whose weak rankers are single features (a query's
+documents ranked by one feature, descending). With query weights P
+(uniform at first), a round:
+
+* picks the feature maximizing Σ_q P(q)·metric(q ranked by the feature);
+* weighs it α = ½ln(Σ P(1 + s) / Σ P(1 − s)), s the feature's per-query
+  metric; the strong ranker H = Σ α_t·feature_{f_t} is linear;
+* reweighs P ∝ exp(−metric(q, H));
+* ``-noeq`` forbids picking the last feature again, ``-max`` (5) caps
+  consecutive picks of one feature, ``-tolerance`` (0.002) stops when the
+  train metric stalls, and a round that lowers the train metric is rolled
+  back.
+
+A query's ranking by a feature never changes, so the weak-metric matrix
+S[q, f] is computed once (``LinearMetricEvaluator.per_query_matrix`` of
+the identity). A round — the pick, α, the strong model's per-query
+metric, P, the guards and the stop rules as flags — runs on the device
+and reads nothing back; the console table reads a round's values when it
+prints them. Flags: ``-round`` 500, ``-tolerance``, ``-noeq``, ``-max``.
+Dense input on one device; ``-sparse`` and data parallelism are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ranklib_tpu_torch.data.dataset import Dataset
+from ranklib_tpu_torch.device import choose_device
+from ranklib_tpu_torch.gbdt.boost import round_capacity, run_silent_rounds
+from ranklib_tpu_torch.metrics.base import MetricScorer
+from ranklib_tpu_torch.models.base import (
+    Ranker, model_header, parse_model_params, register_ranker,
+)
+from ranklib_tpu_torch.ops.batched_eval import (
+    LinearMetricEvaluator, full_f32_products, linear_scores,
+)
+from ranklib_tpu_torch.utils.errors import RankLibError
+from ranklib_tpu_torch.utils.logging import is_silent, log
+
+
+@dataclass
+class AdaState:
+    """The round's carry, updated in place."""
+
+    P: torch.Tensor              # [Q] query weights
+    w: torch.Tensor              # [F] accumulated α per feature
+    last_fid: torch.Tensor       # [] int64 (-1 at first)
+    consec: torch.Tensor         # [] int64 consecutive picks of last_fid
+    prev_train: torch.Tensor     # [] f32
+    active: torch.Tensor         # [] bool
+    hfid: torch.Tensor           # [CAP] int64 picked feature per round
+    halpha: torch.Tensor         # [CAP] f32
+    hact: torch.Tensor           # [CAP] bool, round kept
+    train_m: torch.Tensor        # [CAP] f32
+    val_m: torch.Tensor          # [CAP] f32
+
+
+def init_state(Q: int, F: int, CAP: int, device) -> AdaState:
+    f32 = dict(dtype=torch.float32, device=device)
+    i64 = dict(dtype=torch.int64, device=device)
+    return AdaState(
+        P=torch.full((Q,), 1.0 / Q, **f32),
+        w=torch.zeros(F, **f32),
+        last_fid=torch.full((), -1, **i64),
+        consec=torch.zeros((), **i64),
+        prev_train=torch.full((), -torch.inf, **f32),
+        active=torch.ones((), dtype=torch.bool, device=device),
+        hfid=torch.zeros(CAP, **i64),
+        halpha=torch.zeros(CAP, **f32),
+        hact=torch.zeros(CAP, dtype=torch.bool, device=device),
+        train_m=torch.full((CAP,), torch.nan, **f32),
+        val_m=torch.full((CAP,), torch.nan, **f32))
+
+
+def device_buckets(ev: LinearMetricEvaluator, n_queries: int) -> list:
+    """The evaluator's chunks with each row's query index on the device,
+    pad rows → the sentinel ``n_queries``."""
+    out = []
+    for feats, labels, mask, qidx in ev.buckets:
+        q = np.full(feats.shape[0], n_queries, np.int64)
+        q[: len(qidx)] = qidx
+        out.append((feats, labels, mask,
+                    torch.from_numpy(q).to(feats.device)))
+    return out
+
+
+def make_ada_step(scorer, *, no_eq: bool, max_sel: int, tolerance: float,
+                  n_queries: int, n_vqueries: int):
+    """The round: ``step(state, t, S, tb, vb) → state`` with ``S [Q, F]``
+    and ``tb``/``vb`` :func:`device_buckets`, on one device, with no host
+    sync."""
+
+    def perq_and_mean(wvec, buckets, nq):
+        """Per-query metric [nq] of the linear model ``wvec`` and its
+        mean."""
+        perq = torch.zeros(nq + 1, dtype=torch.float32, device=wvec.device)
+        for feats, labels, mask, qidx in buckets:
+            sc = torch.matmul(feats, wvec)
+            perq[qidx] = scorer.score_from_scores(labels, sc, mask)
+        perq = perq[:-1]
+        return perq, perq.sum() / nq
+
+    def step(state: AdaState, t: int, S, tb, vb) -> AdaState:
+        F = state.w.shape[0]
+        weighted = state.P @ S                                 # [F]
+        blocked = (torch.arange(F, device=S.device) == state.last_fid) & (
+            (state.consec >= max_sel) | no_eq)
+        fid = torch.argmax(torch.where(blocked, -torch.inf, weighted))
+        s = S.index_select(1, fid.view(1))[:, 0]
+        num = state.P @ (1.0 + s)
+        den = state.P @ (1.0 - s)
+        degenerate = (num <= 0) | (den <= 0)
+        alpha = 0.5 * torch.log(torch.where(degenerate, 1.0, num / den))
+        w_new = state.w.index_add(0, fid.view(1), alpha.view(1))
+        perq, m_train = perq_and_mean(w_new, tb, n_queries)
+        backtrack = m_train < state.prev_train
+        keep = state.active & ~degenerate & ~backtrack
+        e = torch.exp(-perq)
+        state.w = torch.where(keep, w_new, state.w)
+        state.P = torch.where(keep, e / e.sum(), state.P)
+        state.consec = torch.where(
+            keep, torch.where(fid == state.last_fid, state.consec + 1, 1),
+            state.consec)
+        state.last_fid = torch.where(keep, fid, state.last_fid)
+        # the tolerance stop keeps its round; later rounds are no-ops
+        tol_stop = keep & (m_train - state.prev_train < tolerance) & (t > 0)
+        state.active = keep & ~tol_stop
+        state.prev_train = torch.where(keep, m_train, state.prev_train)
+        if vb:
+            state.val_m[t] = perq_and_mean(state.w, vb, n_vqueries)[1]
+        state.hfid[t] = fid
+        state.halpha[t] = alpha
+        state.hact[t] = keep
+        state.train_m[t] = m_train
+        return state
+
+    return step
+
+
+@register_ranker
+class AdaRank(Ranker):
+    NAME = "AdaRank"
+
+    def __init__(self, **hp):
+        self.n_rounds = 500
+        self.tolerance = 0.002
+        self.no_eq = False           # -noeq: never reselect the last feature
+        self.max_sel_count = 5       # consecutive-pick cap otherwise
+        self.weights = None          # np.float64 [F] accumulated α per fid
+        self.history: list[tuple[int, float]] = []   # (fid, α) per round
+        self.fit_state = None        # the last fit's AdaState
+        super().__init__(**hp)
+
+    def prepare_fit(self, train: Dataset, scorer: MetricScorer, validation,
+                    device):
+        """Upload, compute S and build the round: (step, state, S, tb,
+        vb)."""
+        F = train.n_features
+        Q = len(train.queries)
+        ev = LinearMetricEvaluator(train, scorer, device)
+        # S[q, f]: the metric of query q ranked by feature f alone
+        S = torch.from_numpy(ev.per_query_matrix(
+            np.eye(F, dtype=np.float32)).astype(np.float32)).to(device)
+        tb = device_buckets(ev, Q)
+        vb, n_vq = [], 1
+        if validation is not None:
+            n_vq = len(validation.queries)
+            vb = device_buckets(
+                LinearMetricEvaluator(validation, scorer, device), n_vq)
+        step = make_ada_step(
+            scorer, no_eq=bool(self.no_eq), max_sel=self.max_sel_count,
+            tolerance=self.tolerance, n_queries=Q, n_vqueries=n_vq)
+        state = init_state(Q, F, round_capacity(self.n_rounds), device)
+        return step, state, S, tb, vb
+
+    def fit(self, train: Dataset, scorer: MetricScorer,
+            validation: Dataset | None = None,
+            device: torch.device | None = None) -> None:
+        """Train on ``device`` (default: :func:`choose_device`'s)."""
+        device = choose_device(quiet=True) if device is None else device
+        step, state, S, tb, vb = self.prepare_fit(train, scorer, validation,
+                                                  device)
+        log("Training starts...")
+        head = f"{'#iter':<8}| {'Feature':<8}| {scorer.name + '-T':<11}"
+        if validation is not None:
+            head += f"| {scorer.name + '-V':<11}"
+        log(head)
+        silent = is_silent()
+        with full_f32_products():
+            if silent:
+                state = run_silent_rounds(step, state, self.n_rounds, S, tb,
+                                          vb)
+            for t in ([] if silent else range(self.n_rounds)):
+                state = step(state, t, S, tb, vb)
+                if not bool(state.hact[t]):
+                    log(f"Stop at round {t + 1} (degenerate or rolled back)")
+                    break
+                line = (f"{t + 1:<8}| {int(state.hfid[t]) + 1:<8}| "
+                        f"{float(state.train_m[t]):<11.4f}")
+                if validation is not None:
+                    line += f"| {float(state.val_m[t]):<11.4f}"
+                log(line)
+                if not bool(state.active):
+                    break
+        self.fit_state = state
+        hfid, halpha, hact, val_m = (a.cpu().numpy() for a in (
+            state.hfid, state.halpha, state.hact, state.val_m))
+        kept = [t for t in range(self.n_rounds) if hact[t]]
+        self.history = [(int(hfid[t]) + 1, float(halpha[t])) for t in kept]
+        if validation is not None and kept:
+            best = int(np.nanargmax(val_m[kept]))
+            self.history = self.history[: best + 1]
+        w = np.zeros(train.n_features, np.float64)
+        for fid, alpha in self.history:
+            w[fid - 1] += alpha
+        self.weights = w
+
+    def eval_dataset(self, ds: Dataset, device: torch.device):
+        if self.weights is None:
+            raise RankLibError("Model not trained/loaded")
+        return linear_scores(ds, self.weights, device)
+
+    def model_str(self) -> str:
+        head = model_header(self.NAME, {
+            "Iteration": self.n_rounds,
+            # -noeq turns enqueue-style retraining OFF (ref AdaRank
+            # trainWithEnqueue = true by default)
+            "Train with 'enqueue'": "No" if self.no_eq else "Yes",
+        })
+        body = " ".join(f"{fid}:{alpha}" for fid, alpha in self.history)
+        return head + body + "\n"
+
+    def load_str(self, text: str) -> None:
+        _, body = parse_model_params(text)
+        self.history = []
+        for line in body:
+            for tok in line.split():
+                fid, _, a = tok.partition(":")
+                self.history.append((int(fid), float(a)))
+        if not self.history:
+            raise RankLibError("Empty AdaRank model body")
+        w = np.zeros(max(fid for fid, _ in self.history), np.float64)
+        for fid, alpha in self.history:
+            w[fid - 1] += alpha
+        self.weights = w

@@ -6,9 +6,11 @@ learning/RankerFactory.java:~30); those and the ``## <Name>`` model-file
 header line are API surface and preserved exactly. Scoring takes an
 explicit ``torch.device``.
 
-Ported rankers: LambdaMART and MART (``models.gbdt``) and Random Forests
-(``models.rf``). A known name that is not ported yet raises RankLibError
-saying so. Hyperparameters are per-instance attributes set from ``**hp``
+Ported rankers: LambdaMART and MART (``models.gbdt``), Random Forests
+(``models.rf``), Coordinate Ascent (``models.coorascent``), Linear
+Regression (``models.linear``), RankBoost (``models.rankboost``) and
+AdaRank (``models.adarank``). A known name that is not ported yet (the
+neural rankers) raises RankLibError saying so. Hyperparameters are per-instance attributes set from ``**hp``
 (the reference sets public static fields; neither package keeps that
 global state).
 """
@@ -47,7 +49,9 @@ def register_ranker(cls):
 def get_ranker_class(name):
     """Resolve a display name (a model file's ``## <Name>``) or a
     ``-ranker N`` id to a class."""
-    from ranklib_tpu_torch.models import gbdt, rf  # noqa: F401  (register)
+    from ranklib_tpu_torch.models import (  # noqa: F401  (register)
+        adarank, coorascent, gbdt, linear, rankboost, rf,
+    )
 
     if isinstance(name, int):
         if name not in RANKER_NAMES:

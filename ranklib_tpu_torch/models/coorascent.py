@@ -1,0 +1,210 @@
+"""Coordinate Ascent (`-ranker 4`, the CLI's default;
+ranklib_tpu.models.coorascent; ref: learning/CoorAscent.java).
+
+A linear model wᵀx that maximizes the metric directly by cyclic
+coordinate line search: weights start uniform 1/F; each restart visits
+the features in its own shuffled order; a coordinate's candidates are a
+geometric ladder of deltas in both signs, its sign flip and its zeroing;
+weights renormalize to Σ|w| = 1; a change is kept only when the metric
+gains more than ``-tolerance``; the best restart wins. ``-reg`` subtracts
+λΣw² from the objective.
+
+The R restarts advance in lockstep, and every candidate of a coordinate
+(R x (2·depth + 2)) is scored by one batched product and metric call a
+bucket chunk (``ops.batched_eval``). A sweep over all coordinates runs on
+the device with no host sync; the host reads once a sweep, the restarts'
+improved flags.
+
+Flags and defaults: ``-r`` 5, ``-i`` 25 (ladder depth), ``-tolerance``
+0.001, ``-reg`` off, ``-randomSeed`` → ``seed`` (offsets the restarts'
+shuffles). Dense input on one device; ``-sparse`` and data parallelism
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ranklib_tpu_torch.data.dataset import Dataset
+from ranklib_tpu_torch.device import choose_device
+from ranklib_tpu_torch.metrics.base import MetricScorer
+from ranklib_tpu_torch.models.base import (
+    Ranker, model_header, parse_model_params, register_ranker,
+)
+from ranklib_tpu_torch.ops.batched_eval import (
+    LinearMetricEvaluator, candidate_metrics, full_f32_products,
+    linear_scores,
+)
+from ranklib_tpu_torch.utils.errors import RankLibError
+from ranklib_tpu_torch.utils.logging import log
+
+
+def restart_orders(n_features: int, n_restart: int, seed: int) -> np.ndarray:
+    """``[F, R]`` coordinate order of each restart: restart r visits
+    ``np.random.default_rng(seed + r).permutation(F)``, the reference's
+    draws exactly."""
+    return np.stack([np.random.default_rng(seed + r).permutation(n_features)
+                     for r in range(n_restart)], axis=1)
+
+
+def make_sweep(scorer, *, n_features: int, depth: int, reg: float | None,
+               tolerance: float, n_queries: int, step_base: float,
+               step_scale: float):
+    """One sweep over every coordinate: ``sweep(w, cur, order_T, buckets)
+    → (w, cur, improved)`` with ``w [R, F]``, ``cur [R]``, ``order_T
+    [F, R]`` int64 and ``buckets`` (feats, labels, mask) chunks, all on
+    one device; nothing is read back. ``sweep.coordinate_step`` is one
+    coordinate's step."""
+    F = n_features
+
+    def mean_metric(Wc, buckets):
+        """Wc [R, C, F] → mean metric [R, C] over all queries (f32)."""
+        R, C = Wc.shape[0], Wc.shape[1]
+        Wf = Wc.reshape(R * C, F).T
+        total = torch.zeros(R * C, dtype=torch.float32, device=Wc.device)
+        for feats, labels, mask in buckets:
+            total += candidate_metrics(scorer, feats, labels, mask,
+                                       Wf).sum(dim=0)
+        return total.view(R, C) / n_queries
+
+    def coordinate_step(w, cur, improved, f, buckets):
+        R = w.shape[0]
+        dev = w.device
+        rr = torch.arange(R, device=dev)
+        w_f = w[rr, f]
+        base = step_base * torch.clamp(w_f.abs(), min=0.05)
+        mags = base[:, None] * (step_scale ** torch.arange(
+            depth, dtype=torch.float32, device=dev))
+        deltas = torch.cat([mags, -mags, -w_f[:, None], -2.0 * w_f[:, None]],
+                           dim=1)                              # [R, C]
+        onehot = (torch.arange(F, device=dev)[None, :]
+                  == f[:, None]).to(torch.float32)
+        Wc = w[:, None, :] + deltas[:, :, None] * onehot[:, None, :]
+        norms = Wc.abs().sum(dim=2)                            # [R, C]
+        ok = norms > 1e-12
+        Wc = Wc / torch.where(ok, norms, 1.0)[:, :, None]
+        vals = mean_metric(Wc, buckets)
+        if reg is not None:
+            vals = vals - reg * (Wc * Wc).sum(dim=2)
+        vals = torch.where(ok, vals, -torch.inf)
+        cbest = vals.argmax(dim=1)                            # first max
+        vbest = vals[rr, cbest]
+        gain = vbest > cur + tolerance
+        w = torch.where(gain[:, None], Wc[rr, cbest], w)
+        cur = torch.where(gain, vbest, cur)
+        return w, cur, improved | gain
+
+    def sweep(w, cur, order_T, buckets):
+        improved = torch.zeros(w.shape[0], dtype=torch.bool, device=w.device)
+        with full_f32_products():
+            for f in order_T:
+                w, cur, improved = coordinate_step(w, cur, improved, f,
+                                                   buckets)
+        return w, cur, improved
+
+    sweep.coordinate_step = coordinate_step
+    return sweep
+
+
+@register_ranker
+class CoorAscent(Ranker):
+    NAME = "Coordinate Ascent"
+
+    STEP_BASE = 0.05
+    STEP_SCALE = 2.0
+
+    def __init__(self, **hp):
+        self.n_restart = 5
+        self.n_max_iteration = 25     # geometric-ladder depth per coordinate
+        self.tolerance = 0.001
+        self.reg = None               # L2 penalty weight (None = off)
+        self.max_passes = 25          # full feature sweeps per restart
+        self.seed = 0                 # -randomSeed: offsets restart shuffles
+        self.weights = None           # np.float64 [F], Σ|w| = 1
+        super().__init__(**hp)
+
+    def prepare_fit(self, train: Dataset, scorer: MetricScorer, device):
+        """Upload and build the sweep: (sweep, w, cur, order_T, buckets),
+        the restarts' state at the uniform start."""
+        F = train.n_features
+        R = self.n_restart
+        ev = LinearMetricEvaluator(train, scorer, device)
+        buckets = [(f, lab, m) for f, lab, m, _ in ev.buckets]
+        order_T = torch.from_numpy(restart_orders(F, R, self.seed)).to(device)
+        sweep = make_sweep(
+            scorer, n_features=F, depth=max(1, self.n_max_iteration),
+            reg=self.reg, tolerance=self.tolerance,
+            n_queries=len(train.queries), step_base=self.STEP_BASE,
+            step_scale=self.STEP_SCALE)
+        w = torch.full((R, F), 1.0 / F, dtype=torch.float32, device=device)
+        cur0 = float(ev.mean_metric(np.full((F, 1), 1.0 / F,
+                                            np.float32))[0])
+        if self.reg is not None:
+            cur0 -= self.reg * (1.0 / F)     # Σ(1/F)² over F coordinates
+        cur = torch.full((R,), cur0, dtype=torch.float32, device=device)
+        return sweep, w, cur, order_T, buckets
+
+    def fit(self, train: Dataset, scorer: MetricScorer, validation=None,
+            device: torch.device | None = None) -> None:
+        """Train on ``device`` (default: :func:`choose_device`'s)."""
+        device = choose_device(quiet=True) if device is None else device
+        R = self.n_restart
+        sweep, w, cur, order_T, buckets = self.prepare_fit(train, scorer,
+                                                           device)
+        log(f"Training starts... [{self.NAME}] optimizing {scorer.name} "
+            f"({R} restarts in lockstep)")
+        for sweep_i in range(self.max_passes):
+            w, cur, improved = sweep(w, cur, order_T, buckets)
+            imp = improved.cpu().numpy()               # one read a sweep
+            curs = cur.cpu().numpy()
+            log(f"  pass {sweep_i + 1}: {scorer.name} = "
+                f"{float(curs.max()):.4f} "
+                f"({int(imp.sum())}/{R} restarts improving)")
+            if not imp.any():
+                break
+        curs = cur.cpu().numpy().astype(np.float64)
+        ws = w.cpu().numpy().astype(np.float64)
+        best = int(np.argmax(curs))
+        # the model file's Σ|w| = 1 holds at double precision
+        wbest = ws[best]
+        norm = np.abs(wbest).sum()
+        self.weights = wbest / (norm if norm > 0 else 1.0)
+        log("-" * 40)
+        log(f"Finished successfully. {scorer.name} on training data: "
+            f"{curs[best]:.4f}")
+        if validation is not None:
+            vm = LinearMetricEvaluator(validation, scorer, device).mean_metric(
+                self.weights[:, None].astype(np.float32))[0]
+            log(f"{scorer.name} on validation data: {float(vm):.4f}")
+
+    def eval_dataset(self, ds: Dataset, device: torch.device):
+        if self.weights is None:
+            raise RankLibError("Model not trained/loaded")
+        return linear_scores(ds, self.weights, device)
+
+    def model_str(self) -> str:
+        hdr = model_header(self.NAME, {
+            "Restart": self.n_restart,
+            "MaxIteration": self.n_max_iteration,
+            "StepBase": self.STEP_BASE,
+            "StepScale": self.STEP_SCALE,
+            "Tolerance": self.tolerance,
+            "Regularized": self.reg is not None,
+            "Slack": self.reg if self.reg is not None else 0,
+        })
+        body = " ".join(f"{i + 1}:{self.weights[i]}"
+                        for i in range(len(self.weights)))
+        return hdr + body + "\n"
+
+    def load_str(self, text: str) -> None:
+        _, body = parse_model_params(text)
+        if not body:
+            raise RankLibError("Empty Coordinate Ascent model body")
+        pairs = body[0].split()
+        max_fid = max(int(p.split(":")[0]) for p in pairs)
+        w = np.zeros(max_fid, np.float64)
+        for p in pairs:
+            fid, _, v = p.partition(":")
+            w[int(fid) - 1] = float(v)
+        self.weights = w

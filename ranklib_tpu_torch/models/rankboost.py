@@ -1,0 +1,327 @@
+"""RankBoost (`-ranker 2`; ranklib_tpu.models.rankboost; ref:
+learning/boosting/RankBoost.java, RBWeakRanker.java).
+
+Pairwise boosting over every (winner, loser) document pair with a
+distribution D over pairs. A round picks the binary weak ranker
+(feature f, threshold θ; q(d) = 1 iff value > θ) maximizing
+r = Σ D(x, y)(q(x) − q(y)), weighs it α = ½ln((1 + r)/(1 − r)) and moves
+D toward the pairs it orders wrongly. The final score is
+H(d) = Σ α_t q_t(d). Candidate thresholds: ``-tc`` (10) evenly spaced
+values between a feature's min and max.
+
+D is never stored: the multiplicative updates telescope to
+D(x, y) ∝ exp(−(H(x) − H(y))), so the round's pair potential
+π(d) = Σ_y D(d, y) − Σ_x D(x, d) and the normalizer Z are sums of
+exponentials per (query, label level), O(N·L). A per-query midrange shift
+of H, which cancels inside every pair product, bounds the f32 exponents.
+The weak search histograms π by (feature, bin) — bin = the number of
+thresholds below the value, T + 1 bins — with ``ops.histogram`` (the
+CUDA kernel on the card), then r(f, t) = Σ_{b > t} hist[f, b] is a
+reversed cumulative sum and the pick a first argmax.
+
+A round runs on the device and reads nothing back; the weak rankers are
+read once after the fit. The console table reads a round's metrics when
+it prints them. Flags: ``-round`` 300, ``-tc`` 10. Dense input on one
+device; ``-sparse`` and data parallelism are not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ranklib_tpu_torch.data.dataset import Dataset, flatten
+from ranklib_tpu_torch.device import choose_device
+from ranklib_tpu_torch.gbdt.binning import bin_features
+from ranklib_tpu_torch.gbdt.boost import (
+    _bucket_metric_sum, _host_buckets, _upload, round_capacity,
+    run_silent_rounds,
+)
+from ranklib_tpu_torch.metrics.base import MetricScorer
+from ranklib_tpu_torch.models.base import (
+    Ranker, model_header, parse_model_params, register_ranker,
+)
+from ranklib_tpu_torch.ops.batched_eval import full_f32_products
+from ranklib_tpu_torch.ops.histogram import histogram
+from ranklib_tpu_torch.utils.errors import RankLibError
+from ranklib_tpu_torch.utils.logging import is_silent, log
+
+
+def bin_dtype(T: int):
+    """Narrowest signed dtype holding bins in [0, T]: int16, or int32 when
+    -tc ≥ 32767 would wrap it."""
+    return np.int16 if T < np.iinfo(np.int16).max else np.int32
+
+
+def threshold_grid(feats: np.ndarray, T: int) -> np.ndarray:
+    """``[F, T]`` f32: T evenly spaced thresholds strictly inside each
+    feature's [min, max] (a constant feature's all equal, never a useful
+    split)."""
+    lo = feats.min(axis=0)
+    hi = feats.max(axis=0)
+    return lo[:, None] + (hi - lo)[:, None] * (
+        np.arange(1, T + 1, dtype=np.float32)[None, :] / (T + 1))
+
+
+@dataclass
+class RBData:
+    """Per-fit device tensors."""
+
+    binned_T: torch.Tensor   # [F, N] int16/int32, bin = #thresholds < value
+    ones: torch.Tensor       # [N] bool, the weak search's histogram mask
+    tb: list                 # train chunks: (labels, mask, didx → N pads)
+    uniq: torch.Tensor       # [L] f32 sorted distinct label values
+    vq_T: torch.Tensor       # [F, Nv] validation bins on the same grid
+    vb: list                 # validation chunks (may be empty)
+
+
+@dataclass
+class RBState:
+    """Scores (which imply the pair distribution) and the weak-ranker
+    record; updated in place."""
+
+    scores: torch.Tensor     # [N + 1] f32 (slot N takes the pads)
+    vscores: torch.Tensor    # [Nv + 1] f32
+    wf: torch.Tensor         # [CAP] int64 picked feature
+    wt: torch.Tensor         # [CAP] int64 picked threshold index
+    walpha: torch.Tensor     # [CAP] f32
+    wact: torch.Tensor       # [CAP] bool (False once degenerate)
+    active: torch.Tensor     # [] bool
+    train_m: torch.Tensor    # [CAP] f32 (NaN until written)
+    val_m: torch.Tensor      # [CAP] f32
+
+
+def pair_potential(scores: torch.Tensor, tb: list, uniq: torch.Tensor,
+                   N: int) -> torch.Tensor:
+    """π over the N documents, normalized by Z (≥ 1e-30): per query,
+
+    π(d) = e^{−H̃(d)}·Σ_{lab < lab(d)} e^{H̃}
+           − e^{H̃(d)}·Σ_{lab > lab(d)} e^{−H̃}
+
+    with H̃ = H − midrange_q(H), and Z = Σ over winners of the first term."""
+    L = uniq.shape[0]
+    pot = torch.zeros(N + 1, dtype=torch.float32, device=scores.device)
+    Z = torch.zeros((), dtype=torch.float32, device=scores.device)
+    for lab, msk, didx in tb:
+        H = scores[didx]                                       # [Bc, D]
+        mf = msk.to(torch.float32)
+        hmax = torch.where(msk, H, -torch.inf).amax(dim=1, keepdim=True)
+        hmin = torch.where(msk, H, torch.inf).amin(dim=1, keepdim=True)
+        c = torch.where(torch.isfinite(hmax), 0.5 * (hmax + hmin), 0.0)
+        Ht = (H - c) * mf
+        e_pos = torch.exp(Ht) * mf
+        e_neg = torch.exp(-Ht) * mf
+        # label values come verbatim from uniq's f32 source: exact ranks
+        lv = torch.clamp(torch.searchsorted(uniq, lab), 0, L - 1)
+        oh = (lv[..., None] == torch.arange(L, device=lv.device)).to(
+            torch.float32) * mf[..., None]
+        S = (oh * e_pos[..., None]).sum(dim=1)                 # [Bc, L]
+        Tn = (oh * e_neg[..., None]).sum(dim=1)
+        # exclusive prefix (levels below) and suffix (levels above)
+        Wc = torch.cumsum(S, dim=1) - S
+        Lc = Tn.sum(dim=1, keepdim=True) - torch.cumsum(Tn, dim=1)
+        win = torch.gather(Wc, 1, lv) * mf
+        lose = torch.gather(Lc, 1, lv) * mf
+        Z = Z + (e_neg * win).sum()
+        pot.index_add_(0, didx.reshape(-1),
+                       (e_neg * win - e_pos * lose).reshape(-1))
+    return pot[:N] / torch.clamp(Z, min=1e-30)
+
+
+def weak_search(binned_T: torch.Tensor, pot: torch.Tensor,
+                ones: torch.Tensor, T: int):
+    """(hist [F, T+1], r_all [F, T+1]): the histogram of π by (feature,
+    bin) — one ``ops.histogram`` call at B = T + 1 — and r(f, t) =
+    Σ_{b > t} hist[f, b], with the always-zero column t = T."""
+    hist = histogram(binned_T, pot, ones, T + 1)[..., 0]
+    rev = torch.flip(torch.cumsum(torch.flip(hist, [1]), dim=1), [1])
+    r_all = torch.cat([rev[:, 1:], torch.zeros_like(rev[:, :1])], dim=1)
+    return hist, r_all
+
+
+def make_rb_step(scorer, *, n_thresholds: int, n_queries: int,
+                 n_vqueries: int, train_metric: bool = True):
+    """The round: ``step(state, t, data) → state``, on the data's device,
+    with no host sync. ``train_metric=False`` skips the train metric, which
+    only feeds the console table."""
+    T = n_thresholds
+
+    def step(state: RBState, t: int, data: RBData) -> RBState:
+        N = data.binned_T.shape[1]
+        pot = pair_potential(state.scores, data.tb, data.uniq, N)
+        _, r_all = weak_search(data.binned_T, pot, data.ones, T)
+        flat = r_all.reshape(-1)
+        idx = torch.argmax(flat)                               # first max
+        f_s = idx // (T + 1)
+        t_s = idx % (T + 1)
+        r = torch.clamp(flat.gather(0, idx.view(1))[0], -0.999999, 0.999999)
+        # t_s == T: the zero column won, no real candidate has r > 0; r ==
+        # 0 gives α = 0 forever. Either way this and every later round
+        # deactivate, and the fit keeps the rounds before.
+        active = state.active & (t_s < T) & (r > 0)
+        alpha = torch.where(active, 0.5 * torch.log((1.0 + r) / (1.0 - r)),
+                            0.0)
+        q = data.binned_T.index_select(0, f_s.view(1))[0] > t_s
+        state.scores[:-1] += alpha * q.to(torch.float32)
+        if train_metric:
+            state.train_m[t] = (_bucket_metric_sum(scorer, data.tb,
+                                                   state.scores) / n_queries)
+        if data.vb:
+            vq = data.vq_T.index_select(0, f_s.view(1))[0] > t_s
+            state.vscores[:-1] += alpha * vq.to(torch.float32)
+            state.val_m[t] = (_bucket_metric_sum(scorer, data.vb,
+                                                 state.vscores) / n_vqueries)
+        state.wf[t] = f_s
+        state.wt[t] = t_s
+        state.walpha[t] = alpha
+        state.wact[t] = active
+        state.active = active
+        return state
+
+    return step
+
+
+@register_ranker
+class RankBoost(Ranker):
+    NAME = "RankBoost"
+
+    def __init__(self, **hp):
+        self.n_rounds = 300
+        self.n_threshold = 10
+        self.weaks: list[tuple[int, float, float]] = []  # (fid, θ, α)
+        self.fit_state = None        # the last fit's RBState
+        super().__init__(**hp)
+
+    def prepare_fit(self, train: Dataset, scorer: MetricScorer, validation,
+                    device):
+        """Bin, upload and build the round: (step, state, data, grid);
+        ``step(state, t, data)`` runs round t."""
+        T = int(self.n_threshold)
+        feats, _, _ = flatten(train)
+        N, F = feats.shape
+        grid = threshold_grid(feats, T)
+        binned = bin_features(feats, grid)
+        # the initial D, uniform over correctly ordered pairs, is H = 0;
+        # the pairs are counted only to refuse data that has none
+        uniq = np.unique(np.concatenate(
+            [q.labels.astype(np.float32) for q in train.queries]))
+        n_pairs = 0
+        for q in train.queries:
+            _, cnt = np.unique(q.labels.astype(np.float32),
+                               return_counts=True)
+            n_pairs += int((cnt * (np.cumsum(cnt) - cnt)).sum())
+        if n_pairs == 0:
+            raise RankLibError("RankBoost: no correctly-ordered pairs in data")
+        bdt = bin_dtype(T)
+
+        def upload_T(b):
+            return torch.from_numpy(np.ascontiguousarray(
+                b.T.astype(bdt, copy=False))).to(device)
+
+        Nv, vb = 0, []
+        vq_T = torch.zeros((F, 0), dtype=torch.int32, device=device)
+        if validation is not None:
+            vbinned = bin_features(flatten(validation)[0], grid)
+            Nv = vbinned.shape[0]
+            vq_T = upload_T(vbinned)
+            vb = _upload(_host_buckets(validation, Nv), device)
+        data = RBData(
+            binned_T=upload_T(binned),
+            ones=torch.ones(N, dtype=torch.bool, device=device),
+            tb=_upload(_host_buckets(train, N), device),
+            uniq=torch.from_numpy(uniq).to(device), vq_T=vq_T, vb=vb)
+        step = make_rb_step(
+            scorer, n_thresholds=T, n_queries=len(train.queries),
+            n_vqueries=len(validation.queries) if validation is not None
+            else 1, train_metric=not is_silent())
+        CAP = round_capacity(self.n_rounds)
+        f32 = dict(dtype=torch.float32, device=device)
+        i64 = dict(dtype=torch.int64, device=device)
+        state = RBState(
+            scores=torch.zeros(N + 1, **f32),
+            vscores=torch.zeros(Nv + 1, **f32),
+            wf=torch.zeros(CAP, **i64), wt=torch.zeros(CAP, **i64),
+            walpha=torch.zeros(CAP, **f32),
+            wact=torch.zeros(CAP, dtype=torch.bool, device=device),
+            active=torch.ones((), dtype=torch.bool, device=device),
+            train_m=torch.full((CAP,), torch.nan, **f32),
+            val_m=torch.full((CAP,), torch.nan, **f32))
+        return step, state, data, grid
+
+    def fit(self, train: Dataset, scorer: MetricScorer,
+            validation: Dataset | None = None,
+            device: torch.device | None = None) -> None:
+        """Train on ``device`` (default: :func:`choose_device`'s)."""
+        device = choose_device(quiet=True) if device is None else device
+        step, state, data, grid = self.prepare_fit(train, scorer, validation,
+                                                   device)
+        log("Training starts...")
+        head = f"{'#iter':<8}| {scorer.name + '-T':<11}"
+        if validation is not None:
+            head += f"| {scorer.name + '-V':<11}"
+        log(head)
+        silent = is_silent()
+        if silent:
+            state = run_silent_rounds(step, state, self.n_rounds, data)
+        for t in ([] if silent else range(self.n_rounds)):
+            state = step(state, t, data)
+            if not bool(state.wact[t]):
+                log(f"Stop at round {t + 1}: no useful weak ranker")
+                break
+            line = f"{t + 1:<8}| {float(state.train_m[t]):<11.4f}"
+            if validation is not None:
+                line += f"| {float(state.val_m[t]):<11.4f}"
+            log(line)
+        self.fit_state = state
+        # one read of the whole record
+        wf, wt, walpha, wact, val_m = (a.cpu().numpy() for a in (
+            state.wf, state.wt, state.walpha, state.wact, state.val_m))
+        built = 0
+        for t in range(self.n_rounds):
+            if not wact[t]:
+                break
+            built = t + 1
+        keep = built
+        if validation is not None and built:
+            keep = int(np.nanargmax(val_m[:built])) + 1
+        self.weaks = [(int(wf[t]) + 1, float(grid[wf[t], wt[t]]),
+                       float(walpha[t])) for t in range(keep)]
+
+    def eval_dataset(self, ds: Dataset, device: torch.device):
+        """H(d) = Σ_t α_t·[v_{f_t}(d) > θ_t], on ``device`` in f32."""
+        if not self.weaks:
+            raise RankLibError("Model not trained/loaded")
+        F = ds.n_features
+        fids = np.array([min(w[0] - 1, F - 1) for w in self.weaks])
+        inrange = np.array([w[0] <= F for w in self.weaks], np.float32)
+        thetas = np.array([w[1] for w in self.weaks], np.float32)
+        alphas = np.array([w[2] for w in self.weaks], np.float32) * inrange
+        feats, _, qptr = flatten(ds)
+        X = torch.from_numpy(feats).to(device)
+        q = (X[:, torch.from_numpy(fids).to(device)]
+             > torch.from_numpy(thetas).to(device)).to(torch.float32)
+        with full_f32_products():
+            flat = torch.matmul(q, torch.from_numpy(alphas).to(device))
+        flat = flat.cpu().numpy()
+        return [flat[qptr[i]: qptr[i + 1]] for i in range(len(ds.queries))]
+
+    def model_str(self) -> str:
+        head = model_header(self.NAME, {
+            "Iteration": self.n_rounds,
+            "No. of threshold candidates": self.n_threshold,
+        })
+        body = "\n".join(f"{fid}:{theta}:{alpha}"
+                         for fid, theta, alpha in self.weaks)
+        return head + body + "\n"
+
+    def load_str(self, text: str) -> None:
+        _, body = parse_model_params(text)
+        self.weaks = []
+        for line in body:
+            for tok in line.split():
+                fid, theta, alpha = tok.split(":")
+                self.weaks.append((int(fid), float(theta), float(alpha)))
+        if not self.weaks:
+            raise RankLibError("Empty RankBoost model body")

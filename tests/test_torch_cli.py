@@ -5,9 +5,12 @@ A tiny LambdaMART model is trained once by ranklib_tpu on the CPU; both
 packages then load it and run ``-load -test -idv`` and ``-load -rank
 -score -indri``. Per-query values are compared parsed, to 1e-5 (the score
 file prints %.6f, and f32 reassociation may move its last digit). Model
-files round-trip byte for byte in both directions. A subprocess pins that
-the port serves, trains (LambdaMART and Random Forests) and combines with
-JAX unimportable and never loads the reference.
+files round-trip byte for byte in both directions. ``-train`` of the
+linear and boosting rankers — Coordinate Ascent with no ``-ranker``,
+RankBoost, AdaRank, Linear Regression — under ``-norm`` prints the
+reference's metric lines, and each saved model scores alike in the other
+package. A subprocess pins that the port serves, trains (every ported
+ranker) and combines with JAX unimportable and never loads the reference.
 """
 
 import os
@@ -119,13 +122,14 @@ def test_feature_subset_matches_reference(files):
 
 @pytest.mark.parametrize("extra", [
     ["-train", "x.txt", "-resume", "m.txt"], ["-train", "x.txt", "-kcv", "3"],
-    ["-sparse"], ["-qrel", "q.txt"], ["-norm", "zscore"], ["-ana"],
+    ["-sparse"], ["-qrel", "q.txt"], ["-norm", "zscore", "-sparse"], ["-ana"],
     ["-combine", "d"],
 ], ids=["train", "kcv", "sparse", "qrel", "norm", "ana", "combine"])
 def test_unported_flows_exit_cleanly(files, extra, capsys):
     """-train itself is ported; the training flags that are not (here
-    -resume and -kcv) still exit cleanly. -combine is ported, and without
-    -o exits with the reference's error."""
+    -resume and -kcv) still exit cleanly. -norm is ported, but not with
+    -sparse. -combine is ported, and without -o exits with the reference's
+    error."""
     _, model, test = files
     rc = port_main(["-load", model, "-test", test, *extra])
     assert rc == 1
@@ -134,6 +138,46 @@ def test_unported_flows_exit_cleanly(files, extra, capsys):
             if flag != "-combine"
             else "Error: -combine requires -o <output model file>")
     assert want in capsys.readouterr().out
+
+
+def _result_lines(text):
+    return [ln for ln in text.splitlines() if " on " in ln and "data:" in ln]
+
+
+@pytest.mark.parametrize("args", [
+    ["-r", "2", "-i", "8"],
+    ["-norm", "zscore", "-r", "2", "-i", "8", "-reg", "0.001"],
+    ["-ranker", "2", "-norm", "sum", "-round", "30"],
+    ["-ranker", "3", "-norm", "linear", "-round", "40"],
+    ["-ranker", "9", "-norm", "zscore", "-L2", "0.1"],
+], ids=["coorascent-default", "coorascent-zscore", "rankboost-sum",
+        "adarank-linear", "linear-zscore"])
+def test_linear_and_boosting_train_flows_match_reference(files, tmp_path,
+                                                         capsys, args):
+    """-train -validate -test -save with the same lines as the reference's
+    (training, validation, test metrics); then each package's model
+    scores the test file alike in the other package."""
+    d, _, test = files
+    vali = str(tmp_path / "vali.txt")
+    write_letor_text(synth_dataset(n_queries=5, n_features=6, seed=23,
+                                   w_seed=21, signal=3.0), vali)
+    norm = args[args.index("-norm"):][:2] if "-norm" in args else []
+    out, models = {}, {}
+    for name, main in (("ref", ref_main), ("port", port_main)):
+        models[name] = str(tmp_path / f"{name}.txt")
+        assert main(["-train", str(d / "train.txt"), "-metric2t", "NDCG@10",
+                     "-validate", vali, "-test", test, *args,
+                     "-save", models[name]]) == 0
+        out[name] = _result_lines(capsys.readouterr().out)
+    assert out["port"] == out["ref"] and len(out["ref"]) >= 3
+    assert open(models["port"]).readline() == open(models["ref"]).readline()
+    for model in models.values():
+        lines = []
+        for main in (ref_main, port_main):
+            assert main(["-load", model, "-test", test, *norm,
+                         "-metric2T", "NDCG@10"]) == 0
+            lines.append(_result_lines(capsys.readouterr().out))
+        assert lines[0] == lines[1] == [out["ref"][-1]]
 
 
 def test_errors_exit_1(files, tmp_path, capsys, monkeypatch):
@@ -205,6 +249,14 @@ def test_port_runs_without_jax_or_the_reference(files):
         f"rc = main(['-combine', {str(d / 'nojax_bags')!r}, '-o', "
         f"{str(d / 'nojax_combined.txt')!r}])\n"
         "assert rc == 0, rc\n"
+        "for r in ('4', '2', '3', '9'):\n"
+        f"    m = os.path.join({str(d)!r}, 'nojax_' + r + '.txt')\n"
+        f"    rc = main(['-train', {str(d / 'train.txt')!r}, '-ranker', r, "
+        f"'-norm', 'zscore', '-r', '1', '-i', '4', '-round', '5', "
+        f"'-test', {test!r}, '-save', m])\n"
+        "    assert rc == 0, rc\n"
+        f"    rc = main(['-load', m, '-test', {test!r}, '-norm', 'zscore'])\n"
+        "    assert rc == 0, rc\n"
         "assert sys.modules['jax'] is None\n"
         "bad = [m for m in sys.modules if m == 'ranklib_tpu' or "
         "m.startswith(('ranklib_tpu.', 'jax.', 'jaxlib'))]\n"

@@ -283,13 +283,16 @@ def test_trained_models_load_across_packages(files, capsys):
     assert lines["port"] == lines["ref"]
 
 
+# -norm is ported, but not with -sparse: its case keeps its id
 @pytest.mark.parametrize("extra,flag", [
     (["-kcv", "3"], "-kcv"), (["-sparse"], "-sparse"),
-    (["-qrel", "q.txt"], "-qrel"), (["-norm", "zscore"], "-norm"),
+    (["-qrel", "q.txt"], "-qrel"), (["-norm", "zscore", "-sparse"], "-sparse"),
     (["-resume", "m.txt"], "-resume"), (["-ckpt", "5"], "-ckpt"),
     (["-dp", "2"], "-dp"), (["-eventlog", "e.jsonl"], "-eventlog"),
     (["-profile", "trace"], "-profile"),
-])
+], ids=["extra0--kcv", "extra1--sparse", "extra2--qrel", "extra3--norm",
+        "extra4--resume", "extra5--ckpt", "extra6--dp", "extra7--eventlog",
+        "extra8--profile"])
 def test_unported_training_flags_exit_1(files, capsys, extra, flag):
     _, paths = files
     assert port_main(["-train", paths["train"], "-ranker", "6",
@@ -299,6 +302,7 @@ def test_unported_training_flags_exit_1(files, capsys, extra, flag):
 
 
 def test_other_rankers_are_not_ported(files, capsys):
+    """The neural rankers (RankNet here) are not ported yet."""
     _, paths = files
-    assert port_main(["-train", paths["train"], "-ranker", "4"]) == 1
+    assert port_main(["-train", paths["train"], "-ranker", "1"]) == 1
     assert "not yet ported" in capsys.readouterr().out
