@@ -1,9 +1,10 @@
 """On-card smoke test of ranklib_tpu_torch's main paths (one NVIDIA GPU):
 serving, LambdaMART/MART training, Random Forests, the f32 forest route,
 the linear and boosting rankers (Coordinate Ascent, the CLI's default;
-RankBoost; AdaRank; Linear Regression), and the opt-in routes and tools
-that hold the last kernels: fused lambdas, split bin-space serving, the
-predicate epilogue and the compiler probes.
+RankBoost; AdaRank; Linear Regression), the neural rankers (RankNet,
+LambdaRank, ListNet), ``-kcv`` and ``-qrel``, and the opt-in routes and
+tools that hold the last kernels: fused lambdas, split bin-space serving,
+the predicate epilogue and the compiler probes.
 
 Run from the repository root with no arguments::
 
@@ -140,7 +141,23 @@ Phases, none of whose failures is caught:
     Coordinate Ascent one restart one pass, AdaRank's first 20 picks);
     the CLI: ``-train`` with no ``-ranker`` and with ``-ranker 2|3|9``
     (RankBoost cut to 100 rounds), each with ``-norm zscore -validate
-    -test -save``, then ``-load -test``.
+    -test -save``, then ``-load -test``;
+17. the neural rankers on phase 5's data (its 300 validation queries as
+    validation), RankLib's default nets — RankNet and LambdaRank 1 x 10
+    at lr 5e-5, ListNet linear at lr 1e-5 — with epochs cut from 100, 100
+    and 1,500 to 2, 2 and 3 for the time limit; TF32 enabled outside the
+    fits and every query step and forward pass checked to run in full
+    f32; per ranker the wall per epoch, µs per query step, CUDA kernels
+    per query step and the device's busy share of a profiled epoch, peak
+    memory, one query step under ``set_sync_debug_mode("error")`` and the
+    kept parameters rescored against the best epoch; card vs CPU on 200
+    queries, 1 epoch each from the same seeded draws (parameters within
+    1e-5); the CLI: ``-kcv 3 -ranker 6`` with the histogram, split-scan
+    and frombins counters at 0 (each must rise; each ``-kcvmd`` fold model
+    loads with ``-load -test``), ``-kcv 3 -ranker 1``, ``-ranker 5|7``
+    with ``-validate -test -save`` then ``-load -test``, and ``-load -test
+    -qrel`` of permuted judgments, which must print the same line on the
+    card as on the CPU.
 
 Every kernel's line in the JSON record carries its launches on its paths
 (the histogram's: LambdaMART's fit and RankBoost's, each also under
@@ -189,6 +206,9 @@ FIT_NPAD = 180224             # the training set's 179,440 docs, padded
 # linear and boosting rankers at the same width: RankLib's defaults, with
 # Coordinate Ascent cut from 25 sweeps to 2 for the time limit
 CA_PASSES, RB_ROUNDS, RB_TC, ADA_ROUNDS = 2, 300, 10, 500
+# the neural rankers at the same width: RankLib's default nets, epochs of
+# RankNet, LambdaRank and ListNet cut from 100, 100 and 1,500
+NN_EPOCHS = (2, 2, 3)
 FMAX = float(np.finfo(np.float32).max)
 
 
@@ -2555,6 +2575,253 @@ def linear_boosting_cli(tmp) -> None:
               "the loaded model's test metric differs from training's")
 
 
+def neural_phase(dev, train, vali, smi) -> dict:
+    """RankLib's default nets on phase 5's data (1,500 queries x 136
+    features, 300 validation queries): RankNet and LambdaRank 1 x 10 at lr
+    5e-5, ListNet linear at lr 1e-5, NDCG@10. Epochs cut from 100, 100
+    and 1,500 to 2, 2 and 3 for the time limit. TF32 is enabled outside
+    the fits, and every query step and forward pass must run in full f32.
+    Per ranker: median wall ms an epoch, µs a query step (every 5th step
+    alone, synchronised), CUDA kernels a query step and the device's busy share
+    of an epoch (``torch.profiler``), peak memory, one query step under
+    ``set_sync_debug_mode("error")``, and the kept parameters rescored on
+    the validation queries against the fit's best epoch."""
+    from ranklib_tpu_torch.metrics.base import create_scorer
+    from ranklib_tpu_torch.models import neural as PN
+
+    scorer = create_scorer("NDCG@10")
+    modes = []
+    watched = {}
+    for name in ("query_step", "_forward"):
+        orig = getattr(PN, name)
+
+        def watch(*a, _orig=orig, **kw):
+            modes.append((torch.backends.cuda.matmul.allow_tf32,
+                          torch.get_float32_matmul_precision()))
+            return _orig(*a, **kw)
+
+        watched[name] = orig
+        setattr(PN, name, watch)
+    out = {}
+    try:
+        for cls, epochs in ((PN.RankNet, NN_EPOCHS[0]),
+                            (PN.LambdaRank, NN_EPOCHS[1]),
+                            (PN.ListNet, NN_EPOCHS[2])):
+            out[cls.NAME] = neural_fit(dev, cls, epochs, train, vali, scorer,
+                                       modes, smi)
+    finally:
+        for name, orig in watched.items():
+            setattr(PN, name, orig)
+        torch.set_float32_matmul_precision("highest")
+    check(modes and all(m == (False, "highest") for m in modes),
+          "a neural ranker's product ran with TF32 enabled")
+    print(f"  {len(modes)} query steps and forward passes, each in full f32 "
+          f"(TF32 enabled outside the fits)")
+    return out
+
+
+def neural_fit(dev, cls, epochs, train, vali, scorer, modes, smi) -> dict:
+    """One ranker of :func:`neural_phase`."""
+    from ranklib_tpu_torch.metrics.base import score_dataset
+    from ranklib_tpu_torch.ops.batched_eval import full_f32_products
+
+    r = cls(n_epoch=epochs)
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.set_float32_matmul_precision("high")        # TF32 outside the fit
+    t0 = time.perf_counter()
+    with timed_steps(cls, times):
+        _, text = quiet(r.fit, train, scorer, vali, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    table = [ln.strip() for ln in text.splitlines()
+             if ln[:1].isdigit() and "|" in ln]
+    m, _ = score_dataset(scorer, vali, r.eval_dataset(vali, dev), dev)
+    vals = [float(ln.split("|")[2]) for ln in table]
+    check(all(np.isfinite(W).all() and np.isfinite(b).all()
+              for W, b in r.params), f"{cls.NAME}: parameters not finite")
+    check(len(times) == epochs and all(np.isfinite(vals)),
+          f"{cls.NAME}: the fit did not run its epochs")
+    check(abs(m - max(vals)) <= 1e-4, f"{cls.NAME}: the kept parameters "
+                                      f"do not score the best epoch's "
+                                      f"validation metric")
+    step, state, data, vb = r.prepare_fit(train, scorer, vali, dev)
+    rows = data.rows
+    with full_f32_products():
+        step.query_step(state.params, rows[0])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step.query_step(state.params, rows[1])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        sample = rows[::5]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for row in sample:
+            step.query_step(state.params, row)
+        torch.cuda.synchronize()
+        us_step = (time.perf_counter() - t1) * 1e6 / len(sample)
+    k_epoch, busy, ep_wall = kernel_profile(
+        lambda: step(state, 0, data, vb))
+    check(all(bool(torch.isfinite(W).all()) for W, _ in state.params),
+          f"{cls.NAME}: a query step gave NaN")
+    ms_epoch = float(np.median(times))
+    k_step = k_epoch / len(rows)
+    print(f"  {cls.NAME} {r._layer_sizes(train.n_features)}, lr "
+          f"{r.learning_rate:g}, {epochs} epochs (of RankLib's "
+          f"{cls().n_epoch}): {'; '.join(table)}; kept parameters score "
+          f"validation NDCG@10 {m:.4f}")
+    print(f"    wall per epoch (median of {len(times)}) {ms_epoch:.1f} ms; "
+          f"{us_step:.1f} us a query step (every 5th of {len(rows)} "
+          f"alone, synchronised); a profiled epoch: {k_epoch} CUDA kernels, "
+          f"{k_step:.1f} a query step (the epoch's validation and pair "
+          f"count included), device busy {busy:.3f} ms of {ep_wall:.1f} ms "
+          f"({100 * busy / ep_wall:.1f}%); fit {wall:.2f} s; peak device "
+          f"memory {peak / 2**20:.1f} MiB; one query step ran under "
+          f"set_sync_debug_mode('error')  [{smi}]")
+    return {"ms_epoch": ms_epoch, "us_step": us_step,
+            "kernels_step": k_step, "busy": busy / ep_wall,
+            "peak": peak}
+
+
+def kernel_profile(fn) -> tuple:
+    """(CUDA kernels, device-busy ms, wall ms) of one call of fn under
+    ``torch.profiler``, tracing the device only. It reads the profiler's
+    raw events, not ``key_averages``, which builds a Python object per
+    event of an epoch's ~164K kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+          if e.device_type() == torch.autograd.DeviceType.CUDA]
+    check(len(ns) > 0, "the profiler saw no kernels")
+    return len(ns), sum(ns) / 1e6, wall
+
+
+def neural_card_vs_cpu(dev) -> None:
+    """200 queries, 1 epoch of each neural ranker on the CPU and on the
+    card from the same seeded initial draws (the CPU generator's), at 10x
+    RankLib's learning rates so that the parameters move well past the
+    tolerance: parameters within 1e-5."""
+    from ranklib_tpu_torch.metrics.base import create_scorer
+    from ranklib_tpu_torch.models import neural as PN
+
+    ds = synth_queries(200, N_FEATURES, seed=5, w_seed=11)
+    scorer = create_scorer("NDCG@10")
+    for cls in (PN.RankNet, PN.LambdaRank, PN.ListNet):
+        init = PN._init_params(torch.Generator().manual_seed(0),
+                               cls()._layer_sizes(N_FEATURES))
+        fits = []
+        for d in (torch.device("cpu"), dev):
+            r = cls(n_epoch=1)
+            r.learning_rate *= 10
+            t0 = time.perf_counter()
+            quiet(r.fit, ds, scorer, device=d)
+            fits.append(r.params)
+            print(f"  {cls.NAME} {d.type}: {time.perf_counter() - t0:.1f} s")
+        err = max(float(np.abs(a - b).max())
+                  for pa, pb in zip(*fits) for a, b in zip(pa, pb))
+        moved = max(float(np.abs(a - b.numpy()).max())
+                    for pa, pb in zip(fits[0], init) for a, b in zip(pa, pb))
+        print(f"  {cls.NAME}: card vs CPU parameters differ by at most "
+              f"{err:.2e} (the CPU's moved up to {moved:.2e} from the start)")
+        check(err <= 1e-5, f"{cls.NAME}: parameters differ card vs CPU")
+
+
+def neural_cli(tmp) -> None:
+    """-kcv 3 with -ranker 6 (the histogram, split-scan and frombins
+    counters at 0 must rise; each fold model loads with -load -test) and
+    with -ranker 1 -epoch 1; -ranker 5 and 7 -epoch 1 with -validate -test
+    -save, then -load -test; -load -test -qrel of a qrel file with
+    permuted labels, on the card and on the CPU: the same line."""
+    from ranklib_tpu_torch import cli
+    from ranklib_tpu_torch.ops import forest_eval as fe
+    from ranklib_tpu_torch.ops import histogram as H
+    from ranklib_tpu_torch.ops import split_scan as SS
+
+    paths = {n: os.path.join(tmp, f"{n}.txt")
+             for n in ("train", "vali", "test")}
+    kdir = os.path.join(tmp, "kcv")
+    H.histogram.launches = 0
+    SS.best_splits.launches = 0
+    fe.forest_eval_frombins.launches = 0
+    t0 = time.perf_counter()
+    rc, out = quiet(cli.main, ["-train", paths["train"], "-ranker", "6",
+                               "-tree", "20", "-leaf", str(N_LEAVES),
+                               "-metric2t", "NDCG@10", "-kcv", "3",
+                               "-kcvmd", kdir, "-kcvmn", "lm"])
+    torch.cuda.synchronize()
+    launches = {"histogram": H.histogram.launches,
+                "split_scan": SS.best_splits.launches,
+                "forest_eval_frombins": fe.forest_eval_frombins.launches}
+    check(rc == 0, f"-kcv 3 -ranker 6 failed:\n{out[-2000:]}")
+    summary = out.splitlines()[out.splitlines().index("Summary:"):]
+    print(f"  -train -ranker 6 -tree 20 -kcv 3 ({time.perf_counter() - t0:.1f}"
+          f" s): launches {launches}; {' / '.join(summary[-4:])}")
+    check(all(v > 0 for v in launches.values()),
+          "-kcv -ranker 6 did not launch the histogram, split-scan and "
+          "frombins kernels")
+    for k in (1, 2, 3):
+        rc, out = quiet(cli.main, ["-load", os.path.join(kdir, f"f{k}.lm"),
+                                   "-test", paths["test"]])
+        check(rc == 0 and "on test data" in out,
+              f"-load of the fold model f{k}.lm failed")
+    rc, out = quiet(cli.main, ["-train", paths["train"], "-ranker", "1",
+                               "-epoch", "1", "-kcv", "3"])
+    check(rc == 0 and "Summary:" in out, "-kcv 3 -ranker 1 failed")
+    print(f"  -train -ranker 1 -epoch 1 -kcv 3: "
+          f"{out.splitlines()[-1].strip()}")
+    for ranker in ("5", "7"):
+        model = os.path.join(tmp, f"neural{ranker}.txt")
+        rc, out = quiet(cli.main, [
+            "-train", paths["train"], "-ranker", ranker, "-epoch", "1",
+            "-metric2t", "NDCG@10", "-validate", paths["vali"], "-test",
+            paths["test"], "-save", model])
+        check(rc == 0, f"-train -ranker {ranker} failed:\n{out[-2000:]}")
+        trained = [ln for ln in out.splitlines()
+                   if " on " in ln and "data:" in ln]
+        rc, out = quiet(cli.main, ["-load", model, "-test", paths["test"],
+                                   "-metric2T", "NDCG@10"])
+        loaded = [ln for ln in out.splitlines() if " on test data" in ln]
+        print(f"  -train -ranker {ranker} -epoch 1: {'; '.join(trained)}; "
+              f"-load: {loaded[0] if loaded else '-'}")
+        check(rc == 0 and loaded[0] == trained[-1],
+              "the loaded model's test metric differs from training's")
+    qrel = os.path.join(tmp, "test.qrel")
+    rng = np.random.default_rng(9)
+    with open(paths["test"]) as f, open(qrel, "w") as g:
+        for line in f:
+            qid, doc = line.split()[1][4:], line.split("#")[1].strip()
+            g.write(f"{qid} 0 {doc} {int(rng.integers(0, 5))}\n")
+    lines = {}
+    for model in (os.path.join(tmp, "neural5.txt"),
+                  os.path.join(kdir, "f1.lm")):
+        for where in ("cuda", "cpu"):
+            os.environ["RANKLIB_TPU_TORCH_DEVICE"] = where
+            try:
+                rc, out = quiet(cli.main, ["-load", model, "-test",
+                                           paths["test"], "-qrel", qrel,
+                                           "-metric2T", "NDCG@10"])
+            finally:
+                del os.environ["RANKLIB_TPU_TORCH_DEVICE"]
+            check(rc == 0 and "Relevance judgments loaded" in out,
+                  f"-qrel on {where} failed")
+            lines[where] = [ln for ln in out.splitlines()
+                            if " on test data" in ln]
+        print(f"  -load {os.path.basename(model)} -test -qrel (permuted "
+              f"labels): card {lines['cuda']}, CPU {lines['cpu']}")
+        check(lines["cuda"] == lines["cpu"],
+              "-qrel prints another line on the card than on the CPU")
+
+
 def write_letor(path, X, labels, qptr):
     with open(path, "w") as f:
         for q in range(len(qptr) - 1):
@@ -2890,6 +3157,22 @@ def main() -> int:
           f"round; AdaRank {adalin['ada_ms_round']:.3f} ms a round; Linear "
           f"Regression fit {adalin['lr_fit_s']:.3f} s, scoring "
           f"{adalin['lr_score_ms']:.3f} ms  [{smi}]")
+
+    header(f"== phase 17: neural rankers at the training width "
+           f"({FIT_QUERIES} queries x {N_FEATURES} features, NDCG@10), "
+           f"-kcv and -qrel")
+    t17 = time.perf_counter()
+    nn = neural_phase(dev, fit["train"], fit["vali"], smi)
+    print(" card vs CPU (200 queries, 1 epoch)")
+    neural_card_vs_cpu(dev)
+    print(" the CLI")
+    neural_cli(tmp)
+    print("  " + "; ".join(
+        f"{name} {v['ms_epoch']:.1f} ms an epoch, {v['us_step']:.1f} us and "
+        f"{v['kernels_step']:.1f} kernels a query step, "
+        f"{100 * v['busy']:.1f}% busy, peak {v['peak'] / 2**20:.1f} MiB"
+        for name, v in nn.items()) + f"; phase 17 "
+        f"{time.perf_counter() - t17:.1f} s  [{smi}]")
     tmpdir.cleanup()
     print(f"total {time.perf_counter() - t_start:.1f} s")
 

@@ -9,12 +9,13 @@ few host-side modules it needs (LETOR parsing, datasets, errors, logging)
 are carried as its own copies, and the reference's native C++ parser and
 binner are compiled by file path (``native.loader``).
 
-Ported so far, on dense LETOR files: MART, LambdaMART and Random Forests —
-training, saving, loading, ``-test``/``-rank`` and ``-combine``. Every
-Pallas kernel of the reference has a hand-written CUDA counterpart in
-``csrc/`` (forest evaluation, histograms, the split scan, the fused
-lambdas, the compiler probes in ``tools.probes``). The other rankers are
-later slices.
+Ported so far, on dense LETOR files and one device: all ten rankers —
+training (with ``-norm``, ``-qrel`` and ``-kcv``), saving, loading,
+``-test``/``-rank`` and ``-combine``. Every Pallas kernel of the reference
+has a hand-written CUDA counterpart in ``csrc/`` (forest evaluation,
+histograms, the split scan, the fused lambdas, the compiler probes in
+``tools.probes``). ``-sparse``, ``-ana``, ``-dp`` and the training
+extensions are later slices.
 """
 
 __version__ = "0.1.0"

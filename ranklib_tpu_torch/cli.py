@@ -16,16 +16,21 @@ The argument parser is the reference's, flag for flag. The ported flows::
     python -m ranklib_tpu_torch -combine models_dir -o combined.txt
     python -m ranklib_tpu_torch -train train.txt [-ranker 4] -norm zscore \
         -r 5 -i 25 -tolerance 0.001 -test test.txt -save ca.txt
+    python -m ranklib_tpu_torch -train train.txt -ranker 1 -epoch 100 \
+        -layer 1 -node 10 -lr 0.00005 -validate vali.txt -save net.txt
+    python -m ranklib_tpu_torch -train train.txt -ranker 6 -kcv 5 \
+        -kcvmd models -kcvmn lm
+    python -m ranklib_tpu_torch -load model.txt -test test.txt -qrel q.txt
 
-Training takes every ranker but the neural ones: MART (``-ranker 0``),
+Training takes all ten rankers: MART (``-ranker 0``), RankNet (``1``),
 RankBoost (``2``), AdaRank (``3``), Coordinate Ascent (``4``, the
-default), LambdaMART (``6``), Random Forests (``8``) and Linear Regression
-(``9``), with ``-norm sum|zscore|linear`` on every flow. Flows and flags
-not ported yet (``-kcv``, ``-ana``, ``-sparse``, ``-qrel``; with
-``-train`` also ``-resume``, ``-ckpt``, ``-dp``, ``-eventlog`` and
-``-profile``) exit with a clean error and rc 1 rather than being ignored.
-Hyperparameter flags of other rankers are accepted and unused, as in the
-reference.
+default), LambdaRank (``5``), LambdaMART (``6``), ListNet (``7``), Random
+Forests (``8``) and Linear Regression (``9``), with ``-norm
+sum|zscore|linear``, ``-qrel`` and, for training, ``-kcv`` on every flow.
+Flows and flags not ported yet (``-ana``, ``-sparse``; with ``-train``
+also ``-resume``, ``-ckpt``, ``-dp``, ``-eventlog`` and ``-profile``) exit
+with a clean error and rc 1 rather than being ignored. Hyperparameter
+flags of other rankers are accepted and unused, as in the reference.
 """
 
 from __future__ import annotations
@@ -129,11 +134,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 # (cli flag, ranker ids, attribute) — per-ranker hyperparameter routing,
-# the reference's rows for the ported rankers (MART 0, RankBoost 2, AdaRank
-# 3, Coordinate Ascent 4, LambdaMART 6, Random Forests 8, Linear
-# Regression 9). As there, -mls reaches Random Forests, which has no such
-# hyperparameter and says so.
+# the reference's rows less its extensions (-ckpt). As there, -mls
+# reaches Random Forests, which has no such hyperparameter and says so.
 _HPARAM_ROUTES = [
+    ("epoch", {1, 5, 7}, "n_epoch"),
+    ("layer", {1, 5}, "n_layers"),
+    ("node", {1, 5}, "n_hidden_per_layer"),
+    ("lr", {1, 5, 7}, "learning_rate"),
     ("tree", {0, 6, 8}, "n_trees"),
     ("leaf", {0, 6, 8}, "n_leaves"),
     ("shrinkage", {0, 6, 8}, "learning_rate"),
@@ -158,7 +165,7 @@ _HPARAM_ROUTES = [
 def collect_hparams(args) -> dict:
     hp = {attr: getattr(args, flag) for flag, rankers, attr in _HPARAM_ROUTES
           if getattr(args, flag) is not None and args.ranker in rankers}
-    if args.randomSeed and args.ranker in (4, 8):
+    if args.randomSeed and args.ranker in (1, 4, 5, 7, 8):
         hp.setdefault("seed", args.randomSeed)
     return hp
 
@@ -179,12 +186,9 @@ def _unported(args) -> str | None:
         return "-ana"
     if args.combine:
         return None
-    for flag in ("sparse", "qrel"):
-        if getattr(args, flag):
-            return f"-{flag}"
+    if args.sparse:
+        return "-sparse"
     if args.train:
-        if args.kcv > 0:
-            return "-kcv"
         for flag in ("resume", "ckpt", "dp", "eventlog", "profile"):
             if getattr(args, flag):
                 return f"-{flag}"
@@ -201,9 +205,9 @@ def main(argv=None) -> int:
         flag = _unported(args)
         if flag:
             raise RankLibError(f"{flag} is not yet ported to "
-                               f"ranklib_tpu_torch (ported: -train, -load "
-                               f"with -test or -rank, on dense input, "
-                               f"-norm and -combine)")
+                               f"ranklib_tpu_torch (ported: -train, -kcv, "
+                               f"-load with -test or -rank, on dense input, "
+                               f"-norm, -qrel and -combine)")
         if args.combine:
             from ranklib_tpu_torch.combiner import combine
 
@@ -213,12 +217,14 @@ def main(argv=None) -> int:
             return 0
         from ranklib_tpu_torch.device import choose_device
         from ranklib_tpu_torch.evaluator import (
-            evaluate_rank, evaluate_test_only, evaluate_train,
+            evaluate_kcv, evaluate_rank, evaluate_test_only, evaluate_train,
         )
 
         device = choose_device()
         args.hparams = collect_hparams(args)
-        if args.train:
+        if args.train and args.kcv > 0:
+            evaluate_kcv(args, device)
+        elif args.train:
             evaluate_train(args, device)
         elif args.rank:
             evaluate_rank(args, device)

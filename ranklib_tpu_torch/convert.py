@@ -1,5 +1,5 @@
-"""Carry a reference ensemble, Random Forest, linear or boosting ranker,
-or training state into the port.
+"""Carry a reference ensemble, Random Forest, linear, boosting or neural
+ranker, or training state into the port.
 
 Duck-typed: it reads numpy-convertible fields and imports nothing from
 ``ranklib_tpu``, so tests can feed one model or one mid-training state to
@@ -108,4 +108,19 @@ def rankboost_from_reference(ref):
 
     out = _copy_hparams(ref, RankBoost, ("n_rounds", "n_threshold"))
     out.weaks = [(int(f), float(th), float(a)) for f, th, a in ref.weaks]
+    return out
+
+
+def neural_from_reference(ref):
+    """A reference ``RankNet``, ``LambdaRank`` or ``ListNet`` → the port's
+    class of the same name: its hyperparameters and f32 copies of its
+    ``(W, b)`` layers."""
+    from ranklib_tpu_torch.models.base import get_ranker_class
+
+    out = _copy_hparams(ref, get_ranker_class(ref.NAME), (
+        "n_epoch", "n_layers", "n_hidden_per_layer", "learning_rate",
+        "seed"))
+    out.params = [(np.array(W, np.float32), np.array(b, np.float32))
+                  for W, b in ref.params]
+    out.n_features = ref.n_features
     return out

@@ -4,7 +4,8 @@ of ranklib_tpu.data.dataset).
 * :class:`Query` — one ranked list: labels[n], feats[n, F];
 * :class:`Dataset` — file-ordered list of queries;
 * :class:`QueryBucket` — queries padded to a common doc count D and
-  stacked as ``labels[B, D]``, ``mask[B, D]`` (metrics run on these).
+  stacked as ``labels[B, D]``, ``mask[B, D]`` (metrics run on these),
+  with ``feats[B, D, F]`` when asked for (the neural rankers).
 
 Numpy only; tensors start at the device boundary (metrics, forest eval).
 """
@@ -100,11 +101,13 @@ def read_feature_file(path: str):
 
 @dataclass
 class QueryBucket:
-    """Labels and masks of queries padded to the same doc count."""
+    """Labels and masks (and features, if asked for) of queries padded to
+    the same doc count."""
 
     labels: np.ndarray      # [B, D] float32 (padding = 0)
     mask: np.ndarray        # [B, D] bool (True = real doc)
     qidx: np.ndarray        # [B] int32 — index of the query in Dataset.queries
+    feats: np.ndarray | None = None   # [B, D, F] float32 (padding = 0)
 
     @property
     def B(self) -> int:
@@ -127,11 +130,12 @@ def bucketize(ds: Dataset) -> list:
     return list(iter_buckets(ds))
 
 
-def iter_buckets(ds: Dataset):
-    """Group queries into :class:`QueryBucket`\\ s by padded doc count;
-    query order inside a bucket follows file order (macro-averaged
-    metrics are order-independent). The reference's buckets can also
-    carry features; the port's metrics need only labels."""
+def iter_buckets(ds: Dataset, with_feats: bool = False):
+    """Group queries into :class:`QueryBucket`\\ s by padded doc count,
+    smallest first; query order inside a bucket follows file order (the
+    neural rankers' per-query SGD visits queries in this order).
+    ``with_feats`` adds the ``[B, D, F]`` feature block, which metrics do
+    not need."""
     groups = {}
     for qi, q in enumerate(ds.queries):
         groups.setdefault(padded_size(q.n), []).append(qi)
@@ -140,12 +144,16 @@ def iter_buckets(ds: Dataset):
         B = len(idxs)
         labels = np.zeros((B, D), dtype=np.float32)
         mask = np.zeros((B, D), dtype=bool)
+        feats = (np.zeros((B, D, ds.n_features), dtype=np.float32)
+                 if with_feats else None)
         for b, qi in enumerate(idxs):
             q = ds.queries[qi]
             labels[b, : q.n] = q.labels
             mask[b, : q.n] = True
+            if with_feats:
+                feats[b, : q.n] = q.feats
         yield QueryBucket(labels=labels, mask=mask,
-                          qidx=np.asarray(idxs, dtype=np.int32))
+                          qidx=np.asarray(idxs, dtype=np.int32), feats=feats)
 
 
 def flatten_meta(ds: Dataset):

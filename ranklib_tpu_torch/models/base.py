@@ -6,13 +6,13 @@ learning/RankerFactory.java:~30); those and the ``## <Name>`` model-file
 header line are API surface and preserved exactly. Scoring takes an
 explicit ``torch.device``.
 
-Ported rankers: LambdaMART and MART (``models.gbdt``), Random Forests
-(``models.rf``), Coordinate Ascent (``models.coorascent``), Linear
-Regression (``models.linear``), RankBoost (``models.rankboost``) and
-AdaRank (``models.adarank``). A known name that is not ported yet (the
-neural rankers) raises RankLibError saying so. Hyperparameters are per-instance attributes set from ``**hp``
-(the reference sets public static fields; neither package keeps that
-global state).
+All ten rankers are ported: LambdaMART and MART (``models.gbdt``),
+Random Forests (``models.rf``), Coordinate Ascent
+(``models.coorascent``), Linear Regression (``models.linear``),
+RankBoost (``models.rankboost``), AdaRank (``models.adarank``) and
+RankNet, LambdaRank and ListNet (``models.neural``). Hyperparameters are
+per-instance attributes set from ``**hp`` (the reference sets public
+static fields; neither package keeps that global state).
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ def get_ranker_class(name):
     """Resolve a display name (a model file's ``## <Name>``) or a
     ``-ranker N`` id to a class."""
     from ranklib_tpu_torch.models import (  # noqa: F401  (register)
-        adarank, coorascent, gbdt, linear, rankboost, rf,
+        adarank, coorascent, gbdt, linear, neural, rankboost, rf,
     )
 
     if isinstance(name, int):
@@ -59,10 +59,6 @@ def get_ranker_class(name):
         name = RANKER_NAMES[name]
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in RANKER_NAMES.values():
-        raise RankLibError(
-            f"Ranker '{name}' is not yet ported to ranklib_tpu_torch "
-            f"(ported: {', '.join(sorted(_REGISTRY))})")
     raise RankLibError(f"Unknown ranker '{name}'")
 
 

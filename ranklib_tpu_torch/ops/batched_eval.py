@@ -67,23 +67,17 @@ class LinearMetricEvaluator:
         self.device = device
         self.n_queries = len(ds.queries)
         self.n_features = ds.n_features
-        feats, _, qptr = flatten(ds)
         self.buckets = []
-        for b in iter_buckets(ds):
+        for b in iter_buckets(ds, with_feats=True):
             rows = max(1, min(b.B, _DOC_BUDGET // b.D))
             for lo in range(0, b.B, rows):
                 hi = min(lo + rows, b.B)
-                X = np.zeros((rows, b.D, ds.n_features), np.float32)
-                for r, qi in enumerate(b.qidx[lo:hi]):
-                    X[r, : qptr[qi + 1] - qptr[qi]] = feats[qptr[qi]:
-                                                           qptr[qi + 1]]
-                pad = rows - (hi - lo)
+                pad = ((0, rows - (hi - lo)), (0, 0))
                 self.buckets.append((
-                    torch.from_numpy(X).to(device),
-                    torch.from_numpy(np.pad(b.labels[lo:hi],
-                                            ((0, pad), (0, 0)))).to(device),
-                    torch.from_numpy(np.pad(b.mask[lo:hi],
-                                            ((0, pad), (0, 0)))).to(device),
+                    torch.from_numpy(np.pad(b.feats[lo:hi],
+                                            pad + ((0, 0),))).to(device),
+                    torch.from_numpy(np.pad(b.labels[lo:hi], pad)).to(device),
+                    torch.from_numpy(np.pad(b.mask[lo:hi], pad)).to(device),
                     b.qidx[lo:hi]))
 
     def _candidates(self, W) -> torch.Tensor:

@@ -10,7 +10,8 @@ linear and boosting rankers — Coordinate Ascent with no ``-ranker``,
 RankBoost, AdaRank, Linear Regression — under ``-norm`` prints the
 reference's metric lines, and each saved model scores alike in the other
 package. A subprocess pins that the port serves, trains (every ported
-ranker) and combines with JAX unimportable and never loads the reference.
+ranker, also with ``-qrel`` and ``-kcv``) and combines with JAX
+unimportable and never loads the reference.
 """
 
 import os
@@ -121,15 +122,16 @@ def test_feature_subset_matches_reference(files):
 
 
 @pytest.mark.parametrize("extra", [
-    ["-train", "x.txt", "-resume", "m.txt"], ["-train", "x.txt", "-kcv", "3"],
-    ["-sparse"], ["-qrel", "q.txt"], ["-norm", "zscore", "-sparse"], ["-ana"],
-    ["-combine", "d"],
+    ["-train", "x.txt", "-resume", "m.txt"],
+    ["-train", "x.txt", "-kcv", "3", "-sparse"],
+    ["-sparse"], ["-qrel", "q.txt", "-sparse"], ["-norm", "zscore", "-sparse"],
+    ["-ana"], ["-combine", "d"],
 ], ids=["train", "kcv", "sparse", "qrel", "norm", "ana", "combine"])
 def test_unported_flows_exit_cleanly(files, extra, capsys):
     """-train itself is ported; the training flags that are not (here
-    -resume and -kcv) still exit cleanly. -norm is ported, but not with
-    -sparse. -combine is ported, and without -o exits with the reference's
-    error."""
+    -resume) still exit cleanly. -kcv, -qrel and -norm are ported, but not
+    with -sparse. -combine is ported, and without -o exits with the
+    reference's error."""
     _, model, test = files
     rc = port_main(["-load", model, "-test", test, *extra])
     assert rc == 1
@@ -186,7 +188,7 @@ def test_errors_exit_1(files, tmp_path, capsys, monkeypatch):
     other = tmp_path / "ranknet.txt"
     other.write_text("## RankNet\n")
     assert port_main(["-load", str(other), "-test", test]) == 1
-    assert "not yet ported" in capsys.readouterr().out
+    assert "RankNet model missing 'Layer sizes'" in capsys.readouterr().out
     assert port_main(["-load", str(tmp_path / "missing.txt"), "-test",
                       test]) == 1
     monkeypatch.setenv("RANKLIB_TPU_TORCH_DEVICE", "cuda")
@@ -217,6 +219,11 @@ def test_train_without_a_card_refuses(files, capsys, monkeypatch):
 
 def test_port_runs_without_jax_or_the_reference(files):
     d, model, test = files
+    qrel = str(d / "nojax.qrel")
+    with open(qrel, "w") as f:
+        for line in open(test):
+            qid, doc = line.split()[1][4:], line.split("#")[1].strip()
+            f.write(f"{qid} 0 {doc} {int(line.split()[0]) % 3}\n")
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"          # any `import jax` now fails
@@ -249,14 +256,18 @@ def test_port_runs_without_jax_or_the_reference(files):
         f"rc = main(['-combine', {str(d / 'nojax_bags')!r}, '-o', "
         f"{str(d / 'nojax_combined.txt')!r}])\n"
         "assert rc == 0, rc\n"
-        "for r in ('4', '2', '3', '9'):\n"
+        "for r in ('4', '2', '3', '9', '1', '5', '7'):\n"
         f"    m = os.path.join({str(d)!r}, 'nojax_' + r + '.txt')\n"
         f"    rc = main(['-train', {str(d / 'train.txt')!r}, '-ranker', r, "
         f"'-norm', 'zscore', '-r', '1', '-i', '4', '-round', '5', "
-        f"'-test', {test!r}, '-save', m])\n"
+        f"'-epoch', '2', '-test', {test!r}, '-qrel', {qrel!r}, "
+        f"'-save', m])\n"
         "    assert rc == 0, rc\n"
         f"    rc = main(['-load', m, '-test', {test!r}, '-norm', 'zscore'])\n"
         "    assert rc == 0, rc\n"
+        f"rc = main(['-train', {str(d / 'train.txt')!r}, '-ranker', '1', "
+        f"'-epoch', '1', '-kcv', '3', '-kcvmd', {str(d / 'nojax_kcv')!r}])\n"
+        "assert rc == 0, rc\n"
         "assert sys.modules['jax'] is None\n"
         "bad = [m for m in sys.modules if m == 'ranklib_tpu' or "
         "m.startswith(('ranklib_tpu.', 'jax.', 'jaxlib'))]\n"
@@ -271,6 +282,11 @@ def test_port_runs_without_jax_or_the_reference(files):
     assert open(d / "nojax_model.txt").readline() == "## LambdaMART\n"
     assert (open(d / "nojax_combined.txt").read(40)
             .startswith("## Random Forests\n## No. of bags = 2\n"))
+    for r, name in (("1", "RankNet"), ("5", "LambdaRank"), ("7", "ListNet")):
+        assert open(d / f"nojax_{r}.txt").readline() == f"## {name}\n"
+    assert sorted(os.listdir(d / "nojax_kcv")) == ["f1.model", "f2.model",
+                                                   "f3.model"]
+    assert "Relevance judgments loaded from" in proc.stdout
     assert port_main(["-load", model, "-rank", test, "-score",
                       str(d / "inproc.score")]) == 0
     np.testing.assert_array_equal(np.loadtxt(d / "nojax.score", usecols=2),

@@ -283,10 +283,12 @@ def test_trained_models_load_across_packages(files, capsys):
     assert lines["port"] == lines["ref"]
 
 
-# -norm is ported, but not with -sparse: its case keeps its id
+# -kcv, -qrel and -norm are ported, but not with -sparse: their cases keep
+# their ids
 @pytest.mark.parametrize("extra,flag", [
-    (["-kcv", "3"], "-kcv"), (["-sparse"], "-sparse"),
-    (["-qrel", "q.txt"], "-qrel"), (["-norm", "zscore", "-sparse"], "-sparse"),
+    (["-kcv", "3", "-sparse"], "-sparse"), (["-sparse"], "-sparse"),
+    (["-qrel", "q.txt", "-sparse"], "-sparse"),
+    (["-norm", "zscore", "-sparse"], "-sparse"),
     (["-resume", "m.txt"], "-resume"), (["-ckpt", "5"], "-ckpt"),
     (["-dp", "2"], "-dp"), (["-eventlog", "e.jsonl"], "-eventlog"),
     (["-profile", "trace"], "-profile"),
@@ -302,7 +304,8 @@ def test_unported_training_flags_exit_1(files, capsys, extra, flag):
 
 
 def test_other_rankers_are_not_ported(files, capsys):
-    """The neural rankers (RankNet here) are not ported yet."""
+    """All ten of RankLib's rankers are ported; a ranker id outside them
+    exits 1 with the reference's error."""
     _, paths = files
-    assert port_main(["-train", paths["train"], "-ranker", "1"]) == 1
-    assert "not yet ported" in capsys.readouterr().out
+    assert port_main(["-train", paths["train"], "-ranker", "11"]) == 1
+    assert "Error: Unknown ranker type 11" in capsys.readouterr().out
