@@ -2,9 +2,10 @@
 serving, LambdaMART/MART training, Random Forests, the f32 forest route,
 the linear and boosting rankers (Coordinate Ascent, the CLI's default;
 RankBoost; AdaRank; Linear Regression), the neural rankers (RankNet,
-LambdaRank, ListNet), ``-kcv`` and ``-qrel``, and the opt-in routes and
-tools that hold the last kernels: fused lambdas, split bin-space serving,
-the predicate epilogue and the compiler probes.
+LambdaRank, ListNet), ``-kcv`` and ``-qrel``, ``-sparse`` for the tree
+rankers and ``-ana``, and the opt-in routes and tools that hold the last
+kernels: fused lambdas, split bin-space serving, the predicate epilogue
+and the compiler probes.
 
 Run from the repository root with no arguments::
 
@@ -157,11 +158,26 @@ Phases, none of whose failures is caught:
     loads with ``-load -test``), ``-kcv 3 -ranker 1``, ``-ranker 5|7``
     with ``-validate -test -save`` then ``-load -test``, and ``-load -test
     -qrel`` of permuted judgments, which must print the same line on the
-    card as on the CPU.
+    card as on the CPU;
+18. ``-sparse`` at the Yahoo! LTR Set 1 width: a seeded file of 500
+    queries of 80-160 documents x 700 features listing the ~10% present
+    (and 50 validation queries); the streamed load's wall and host peak
+    RSS beside the dense pipeline's (each in a process of its own); with
+    the counters at 0, ``-train -ranker 6 -tree 20 -leaf 10 -validate``
+    and ``-ranker 8 -bag 4`` through the CLI with and without ``-sparse``
+    (byte-equal models and the same printed lines; the fit must receive
+    the streamed ``BinnedDataset``, no fallback; B1 and B2 20 x 9 times,
+    B7, and B4 launched), ms a round; ``-load -test`` with and without
+    ``-sparse`` (the same line, B4 launched); ``-ana -np 10000`` and the
+    randomization test timed on the card, equal to the CPU's p-value
+    under the same injected signs; B1 at the streamed matrix's shape
+    against its plain version and ``index_add_``.
 
 Every kernel's line in the JSON record carries its launches on its paths
-(the histogram's: LambdaMART's fit and RankBoost's, each also under
-``paths`` with its shape and times), its error against the plain
+(the histogram's: LambdaMART's fit, RankBoost's and phase 18's
+``-sparse`` fit, each also under ``paths`` with its shape and times;
+B2's, B4's and B7's also phase 18's ``-sparse`` runs), its error against
+the plain
 version, its time and the plain version's, its bound (bytes over 3.35
 TB/s or operations over the published peak, whichever is larger, from
 this run's inputs) and, where one PyTorch call computes the same
@@ -209,6 +225,11 @@ CA_PASSES, RB_ROUNDS, RB_TC, ADA_ROUNDS = 2, 300, 10, 500
 # the neural rankers at the same width: RankLib's default nets, epochs of
 # RankNet, LambdaRank and ListNet cut from 100, 100 and 1,500
 NN_EPOCHS = (2, 2, 3)
+# -sparse at the feature width of the Yahoo! Learning to Rank Challenge
+# Set 1 (700 features, labels 0-4), about 10% of the features present in a
+# document; LambdaMART -tree 20 -leaf 10 and Random Forests at 4 bags
+SP_FEATURES, SP_QUERIES, SP_VQUERIES, SP_DENSITY = 700, 500, 50, 0.1
+SP_TREES, SP_BAGS, SP_PERMS = 20, 4, 10_000
 FMAX = float(np.finfo(np.float32).max)
 
 
@@ -828,11 +849,12 @@ def scan_small_checks(dev) -> float:
 
 
 def synth_queries(n_queries, n_features, seed, w_seed, min_docs=80,
-                  max_docs=160, gmax=4, signal=2.5):
+                  max_docs=160, gmax=4, signal=2.5, density=None):
     """The repo's synthetic LETOR draws (its test fixtures' linear-signal
     branch, copied because the fixtures import the JAX package): per
     query, N(0,1) features and graded labels 0..gmax by quantiles of a
-    planted linear score plus noise."""
+    planted linear score plus noise. ``density``: the share of features
+    present in a document (the others 0, drawn before the labels)."""
     from ranklib_tpu_torch.data.dataset import Dataset, Query
 
     rng = np.random.default_rng(seed)
@@ -842,6 +864,8 @@ def synth_queries(n_queries, n_features, seed, w_seed, min_docs=80,
     for qi in range(n_queries):
         n = int(rng.integers(min_docs, max_docs + 1))
         feats = rng.normal(size=(n, n_features)).astype(np.float32)
+        if density is not None:
+            feats *= rng.random((n, n_features)) < density
         raw = signal * feats @ w_true + rng.normal(size=n)
         qtiles = np.quantile(raw, np.linspace(0, 1, gmax + 2)[1:-1])
         labels = np.digitize(raw, qtiles).astype(np.float32)
@@ -1508,8 +1532,8 @@ def rf_training_phase(dev, train, group: int) -> dict:
     from ranklib_tpu_torch.ops import split_scan as SS
 
     scorer = create_scorer("NDCG@10")
-    feats, labels, _, thr, N, F = flatten_binned(train, 256)
-    binned, labels_pad, Npad = pad_binned(feats, thr, labels, N)
+    feats, labels, _, thr, _, N, F = flatten_binned(train, 256)
+    binned, labels_pad, Npad = pad_binned(feats, None, thr, labels, N)
     B = thr.shape[1]
     check(RF.bag_group_size(2 * RF_LEAVES - 1, F, B, Npad, RF_BAGS, dev)
           == group and RF_BAGS >= group, "the RF group size moved")
@@ -2822,6 +2846,495 @@ def neural_cli(tmp) -> None:
               "-qrel prints another line on the card than on the CPU")
 
 
+def write_sparse_letor(path, ds) -> None:
+    """LETOR lines that list only the features present in a document (the
+    non-zero ones), as the Yahoo! files do."""
+    from ranklib_tpu_torch.data.dataset import flatten
+
+    X, labels, qptr = flatten(ds)
+    with open(path, "w") as f:
+        for q in range(len(qptr) - 1):
+            for i in range(qptr[q], qptr[q + 1]):
+                feats = " ".join(f"{j + 1}:{X[i, j]:.6g}"
+                                 for j in np.flatnonzero(X[i]))
+                f.write(f"{int(labels[i])} qid:{q + 1} {feats} "
+                        f"# doc{q + 1}_{i - qptr[q]}\n")
+
+
+# one load in a process of its own, for its wall and peak RSS (VmRSS read
+# every millisecond by a thread: a forked child's ru_maxrss starts from its
+# parent's, and not every kernel reports VmHWM): the streamed loader
+# (-sparse) or the dense pipeline's host work before the upload (parse,
+# flatten, grid, int32 bins)
+_LOAD_CODE = """
+import json, sys, threading, time
+sys.path.insert(0, sys.argv[1])
+from ranklib_tpu_torch.data.binned import read_letor_binned
+from ranklib_tpu_torch.data.dataset import flatten
+from ranklib_tpu_torch.data.letor import read_letor
+from ranklib_tpu_torch.gbdt.binning import bin_features, compute_thresholds
+from ranklib_tpu_torch.utils.logging import set_silent
+set_silent(True)
+def rss():
+    with open('/proc/self/status') as f:
+        return next(int(ln.split()[1]) * 1024 for ln in f
+                    if ln.startswith('VmRSS:'))
+before = rss()
+peak = [before]
+done = threading.Event()
+def sample():
+    while not done.is_set():
+        peak[0] = max(peak[0], rss())
+        time.sleep(0.001)
+sampler = threading.Thread(target=sample)
+sampler.start()
+t0 = time.perf_counter()
+if sys.argv[3] == 'sparse':
+    shape = read_letor_binned(sys.argv[2]).binned.shape
+else:
+    feats = flatten(read_letor(sys.argv[2], missing_zero=True))[0]
+    shape = bin_features(feats, compute_thresholds(feats, 256)[0]).shape
+wall = time.perf_counter() - t0
+done.set()
+sampler.join()
+peak = max(peak[0], rss())
+print(json.dumps({'s': wall, 'before': before, 'peak': peak,
+                  'shape': list(shape)}))
+"""
+
+
+def _cloned(x):
+    """``x`` with every tensor in it cloned (tuples, lists and dicts
+    walked; anything else kept as it is)."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_cloned(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _cloned(v) for k, v in x.items()}
+    return x
+
+
+@contextlib.contextmanager
+def kept_calls(module, name: str, calls: list):
+    """Inside the block ``module.<name>``, a kernel wrapper that the module
+    calls by that name, becomes one that calls it and appends clones of
+    its arguments and of its result to ``calls``, so that every launch of
+    a run can be held against the plain version afterwards on the very
+    tensors the run gave it. The wrapper's own launch count is untouched."""
+    orig = getattr(module, name)
+
+    def kept(*args, **kw):
+        out = orig(*args, **kw)
+        calls.append((_cloned(args), _cloned(kw), _cloned(out)))
+        return out
+
+    setattr(module, name, kept)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def hold_scans(calls: list, what: str) -> float:
+    """Each kept split-scan launch against the plain version on its own
+    histograms. The fits' gradient sums are float sums with cancellation
+    (a query's lambdas sum to zero), so two f32 orders differ by more than
+    a fixed rtol; the gains are held instead against the f64 scan, within
+    the f32 error bound of each candidate: a prefix of B terms errs by at
+    most B·u·Σ|g| (u = 2^-24, Σ|g| the row's absolute gradient sum; the
+    right side's, total minus prefix, by twice that), which moves s²/c by
+    at most (2|s|δ + δ²)/c; the bound is the largest over the node's valid
+    candidates, plus 4u of the gain. Checked per node: ok flags equal to
+    the plain version's; the kernel's gain within the bound of the f64
+    gain at its own pick; that pick a best split up to twice the bound;
+    and on the histograms rounded to integers every output exact. The
+    counts (Σ of integer document weights) must be integers, as the bound
+    assumes. Returns the largest |kernel gain − f64 gain at its pick|."""
+    from ranklib_tpu_torch.ops import split_scan as SS
+
+    u = 2.0 ** -24
+    err = 0.0
+    for args, kw, got in calls:
+        hist, mls = args[0], args[1]
+        fmask = args[2] if len(args) > 2 else kw.get("fmask")
+        want = SS.best_splits_plain(hist, mls, fmask)
+        check(torch.equal(got[3], want[3]),
+              f"split scan on {what}: ok flags differ from the plain version")
+        h = (hist if isinstance(hist, torch.Tensor)
+             else torch.cat(list(hist))).double()
+        check(torch.equal(h[..., 1], h[..., 1].round()),
+              f"split scan on {what}: counts are not integers")
+        B = h.shape[2]
+        c_l = torch.cumsum(h[..., 1], dim=2)
+        s_l = torch.cumsum(h[..., 0], dim=2)
+        c_r = c_l[..., -1:] - c_l
+        s_r = s_l[..., -1:] - s_l
+        gain = s_l * s_l / c_l.clamp(min=1.0) + s_r * s_r / c_r.clamp(min=1.0)
+        d = B * u * h[..., 0].abs().sum(dim=2, keepdim=True)
+        slack = ((2 * s_l.abs() * d + d * d) / c_l.clamp(min=1.0)
+                  + (4 * s_r.abs() * d + 4 * d * d) / c_r.clamp(min=1.0))
+        valid = (c_l >= max(float(mls), 1e-9)) & (c_r >= max(float(mls), 1e-9))
+        if fmask is not None:
+            valid = valid & fmask[:, :, None]
+        gain = torch.where(valid, gain, -torch.inf)
+        Cn = h.shape[0]
+        best = gain.reshape(Cn, -1).max(dim=1).values
+        tol = (torch.where(valid, slack, 0.0).reshape(Cn, -1).max(dim=1)
+               .values + 4 * u * best.abs())
+        node = torch.arange(Cn, device=h.device)
+        at_pick = gain[node, got[1].long(), got[2].long()]
+        ok = got[3]
+        gap = (got[0].double() - at_pick).abs()[ok]
+        check(bool((gap <= tol[ok]).all()), f"split scan on {what}: a gain "
+              f"is off the f64 gain at its pick by more than the f32 bound")
+        check(bool((at_pick[ok] >= best[ok] - 2 * tol[ok]).all()),
+              f"split scan on {what}: a pick is not a best split within "
+              f"the f32 bound")
+        if ok.any():
+            err = max(err, float(gap.max()))
+        ints = (hist.round() if isinstance(hist, torch.Tensor)
+                else tuple(p.round() for p in hist))
+        for a, b in zip(SS.best_splits(ints, mls, fmask),
+                        SS.best_splits_plain(ints, mls, fmask)):
+            check(torch.equal(a, b), f"split scan on {what}: not exact on "
+                                     f"the integer-rounded histograms")
+    return err
+
+
+def hold_frombins(calls: list, what: str) -> None:
+    """Each kept frombins launch bit-equal to the plain version on its own
+    ids and pack."""
+    from ranklib_tpu_torch.ops import forest_eval as fe
+
+    for (binsT, pack), _, got in calls:
+        want = fe.forest_eval_frombins_plain(
+            binsT, *pack.matmul_operands(), tree_chunk=pack.tree_chunk)
+        check(torch.equal(got, want), f"frombins on {what}: not bit-equal "
+                                      f"to the plain version")
+
+
+def hist_point(binsT, w, B: int = 256) -> tuple:
+    """The histogram kernel on ``binsT`` under weights ``w`` against its
+    plain version and the ``index_add_`` over the flat f*B + bin index:
+    (error, device times and the bound; the kernel's histogram). The
+    gradients are integers in
+    [-8, 8], so every sum is exact in f32 in any order and kernel and
+    plain version must agree exactly: at 90% zeros one bin of a feature
+    holds most documents, and N(0,1) sums that long differ in their last
+    bits with the order (HIST_TOL is set for bins of ~700 documents)."""
+    from ranklib_tpu_torch.ops import histogram as H
+
+    F, N = binsT.shape
+    dev = binsT.device
+    grad = torch.from_numpy(np.random.default_rng(9).integers(
+        -8, 9, size=N).astype(np.float32)).to(dev)
+    got = H.histogram(binsT, grad, w, B)
+    want = H.histogram_plain(binsT, grad, w, B)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want),
+          f"histogram differs from its plain version at [{F}, {N}]")
+    wf = w.to(torch.float32)
+    idx = (torch.arange(F, device=dev)[:, None] * B
+           + binsT.to(torch.int64)).reshape(-1)
+    # N(0,1) gradients: each f32 sum against the f64 one
+    g = torch.from_numpy(np.random.default_rng(10).normal(
+        size=N).astype(np.float32)).to(dev)
+    exact = torch.zeros(F * B, dtype=torch.float64, device=dev).index_add_(
+        0, idx, (g.double() * wf.double()).expand(F, N).reshape(-1))
+    errs = [float((h(binsT, g, w, B)[..., 0].reshape(-1).double()
+                   - exact).abs().max())
+            for h in (H.histogram, H.histogram_plain)]
+    print(f"  histogram [{F}, {N}], N(0,1) gradients, sums against f64: "
+          f"kernel max_abs_err {errs[0]:.3e}, plain (index_add_ in f32) "
+          f"{errs[1]:.3e}")
+    del exact
+    src = torch.stack([(grad * wf).expand(F, N).reshape(-1),
+                       wf.expand(F, N).reshape(-1)], dim=-1)
+    out = {"max_abs_err": float((got - want).abs().max()),
+           "ms": event_ms(lambda: H.histogram(binsT, grad, w, B), 20),
+           "plain_ms": event_ms(lambda: H.histogram_plain(binsT, grad, w, B),
+                                3),
+           "library_ms": event_ms(lambda: torch.zeros(
+               (F * B, 2), device=dev).index_add_(0, idx, src), 10)}
+    out["bound_ms"], out["bound_by"] = bound(nbytes(binsT, grad, w, got),
+                                             2 * F * int(w.sum()))
+    return out, got
+
+
+def sparse_phase(dev, tmp, smi) -> dict:
+    """-sparse at 700 features: the streamed load's wall and host peak RSS
+    beside the dense pipeline's; LambdaMART (validation) and Random Forests
+    trained through the CLI with and without -sparse (byte-equal models,
+    the streamed BinnedDataset reaching the fit, B1/B7, B2 and B4
+    launched); -load -test with and without -sparse (the same lines);
+    every split-scan and frombins launch of those runs held against its
+    plain version on the run's own tensors; -ana, and the randomization
+    test timed on the card (with injected signs its p-value equals the
+    CPU's); the histogram at the streamed bin matrix's shape, and the
+    split scan on its root histogram under integer gradients, exact."""
+    from ranklib_tpu_torch import cli, evaluator
+    from ranklib_tpu_torch.data.binned import read_letor_binned
+    from ranklib_tpu_torch.gbdt import ensemble as ens_mod
+    from ranklib_tpu_torch.gbdt import grow as grow_mod
+    from ranklib_tpu_torch.metrics.base import create_scorer
+    from ranklib_tpu_torch.models.gbdt import LambdaMART
+    from ranklib_tpu_torch.ops import forest_eval as fe
+    from ranklib_tpu_torch.ops import histogram as H
+    from ranklib_tpu_torch.ops import split_scan as SS
+    from ranklib_tpu_torch.stats.significance import randomization_test
+
+    counters = {"histogram": H.histogram,
+                "histogram_multi": H.histogram_multi,
+                "split_scan": SS.best_splits,
+                "forest_eval_frombins": fe.forest_eval_frombins}
+    paths = {}
+    t0 = time.perf_counter()
+    for name, nq, seed in (("train", SP_QUERIES, 21),
+                           ("vali", SP_VQUERIES, 22)):
+        paths[name] = os.path.join(tmp, f"sparse_{name}.txt")
+        write_sparse_letor(paths[name], synth_queries(
+            nq, SP_FEATURES, seed, 23, density=SP_DENSITY))
+    print(f"  wrote {SP_QUERIES} + {SP_VQUERIES} queries x {SP_FEATURES} "
+          f"features, {SP_DENSITY:.0%} present "
+          f"({os.path.getsize(paths['train']) / 2**20:.1f} MiB) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    root = os.path.dirname(os.path.abspath(__file__))
+    loads = {}
+    for mode in ("dense", "sparse"):
+        proc = subprocess.run([sys.executable, "-c", _LOAD_CODE, root,
+                               paths["train"], mode], capture_output=True,
+                              text=True, timeout=600)
+        check(proc.returncode == 0, f"the {mode} load failed:\n"
+                                    f"{proc.stderr[-2000:]}")
+        loads[mode] = json.loads(proc.stdout.strip().splitlines()[-1])
+        v = loads[mode]
+        print(f"  {mode} load of the training file ({v['shape'][0]} docs x "
+              f"{v['shape'][1]}): {v['s']:.3f} s wall, host peak RSS "
+              f"{v['peak'] / 2**20:.1f} MiB ({(v['peak'] - v['before']) / 2**20:.1f}"
+              f" MiB above the process before the load)")
+    check(loads["dense"]["shape"] == loads["sparse"]["shape"],
+          "the streamed bin matrix has another shape than the dense one")
+
+    seen = []
+    orig = evaluator.train_ranker
+
+    def recording(ranker_type, train, *a, **k):
+        seen.append(type(train).__name__)
+        return orig(ranker_type, train, *a, **k)
+
+    evaluator.train_ranker = recording
+    runs = {}
+    scan_calls, fb_calls = [], []
+    held = {"split_scan": 0, "forest_eval_frombins": 0}
+    scan_err = 0.0
+    def train(ranker, extra, model, mode):
+        return quiet(cli.main, [
+            "-train", paths["train"], "-ranker", ranker, *extra,
+            "-metric2t", "NDCG@10", "-tc", "256", "-missingZero",
+            "-save", model, *(["-sparse"] if mode == "sparse" else [])])
+
+    try:
+        for ranker, extra in (
+                ("6", ["-tree", str(SP_TREES), "-leaf", str(N_LEAVES),
+                       "-validate", paths["vali"]]),
+                ("8", ["-bag", str(SP_BAGS)])):
+            for mode in ("dense", "sparse"):
+                model = os.path.join(tmp, f"sparse_model{ranker}_{mode}.txt")
+                seen.clear()
+                times = []
+                for c in counters.values():
+                    c.launches = 0
+                t0 = time.perf_counter()
+                with timed_rounds(times):
+                    rc, out = train(ranker, extra, model, mode)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {k: c.launches for k, c in counters.items()}
+                check(rc == 0, f"-train -ranker {ranker} ({mode}) failed:"
+                               f"\n{out[-2000:]}")
+                lines = [ln for ln in out.splitlines()
+                         if " on " in ln and "data:" in ln]
+                runs[ranker, mode] = {"model": model, "lines": lines,
+                                      "launches": launches, "wall": wall,
+                                      "ms_round": (float(np.median(times))
+                                                   if times else None),
+                                      "dataset": list(seen)}
+                print(f"  -train -ranker {ranker} {mode}: {wall:.1f} s, "
+                      f"{len(times)} rounds"
+                      + (f" at {np.median(times):.3f} ms a round (median)"
+                         if times else "")
+                      + f"; launches {launches}; {'; '.join(lines)}")
+                if mode == "sparse":
+                    check("not applicable" not in out and seen ==
+                          ["BinnedDataset"], f"-sparse -ranker {ranker} "
+                          f"fell back to the dense pipeline ({seen})")
+            dense, sparse = runs[ranker, "dense"], runs[ranker, "sparse"]
+            with open(dense["model"]) as f, open(sparse["model"]) as g:
+                check(f.read() == g.read(), f"-ranker {ranker}: the -sparse "
+                      f"model differs from the dense one")
+            check(dense["lines"] == sparse["lines"],
+                  f"-ranker {ranker}: -sparse printed other metrics")
+            grow = "histogram" if ranker == "6" else "histogram_multi"
+            for k in (grow, "split_scan", "forest_eval_frombins"):
+                check(sparse["launches"][k] > 0, f"-sparse -ranker {ranker} "
+                      f"did not launch {k}")
+            if ranker == "6":
+                want = SP_TREES * (N_LEAVES - 1)
+                check(sparse["launches"]["histogram"] == want
+                      == sparse["launches"]["split_scan"],
+                      f"-sparse LambdaMART: histogram/split-scan launches "
+                      f"are not {SP_TREES} x {N_LEAVES - 1}")
+            print(f"  -ranker {ranker}: the -sparse model is byte-equal to "
+                  f"the dense one; the fit took a BinnedDataset")
+            # one more -sparse fit, untimed: every split-scan and frombins
+            # call of it held against the plain versions (kept out of the
+            # timed runs, where the clones would add launches to a
+            # launch-bound round)
+            model = os.path.join(tmp, f"sparse_model{ranker}_held.txt")
+            with kept_calls(grow_mod, "best_splits", scan_calls), \
+                    kept_calls(ens_mod, "forest_eval_frombins", fb_calls):
+                rc, out = train(ranker, extra, model, "sparse")
+            check(rc == 0, f"-train -ranker {ranker} -sparse failed:\n"
+                           f"{out[-2000:]}")
+            with open(model) as f, open(sparse["model"]) as g:
+                check(f.read() == g.read(), f"-ranker {ranker}: a second "
+                      f"-sparse fit wrote another model")
+            what = f"the -sparse -ranker {ranker} fit"
+            scan_err = max(scan_err, hold_scans(scan_calls, what))
+            hold_frombins(fb_calls, what)
+            check(len(scan_calls) >= sparse["launches"]["split_scan"] and
+                  len(fb_calls) >= sparse["launches"]["forest_eval_frombins"],
+                  f"{what}: a launch went past the kept calls")
+            held["split_scan"] += len(scan_calls)
+            held["forest_eval_frombins"] += len(fb_calls)
+            scan_calls.clear()
+            fb_calls.clear()
+    finally:
+        evaluator.train_ranker = orig
+
+    idv_dir = os.path.join(tmp, "sparse_idv")
+    os.makedirs(idv_dir, exist_ok=True)
+    scored = {}
+    for ranker in ("6", "8"):
+        for mode in ("dense", "sparse"):
+            for c in counters.values():
+                c.launches = 0
+            idv = os.path.join(tmp if ranker == "6" else idv_dir,
+                               f"idv{ranker}_{mode}.txt")
+            t0 = time.perf_counter()
+            with kept_calls(ens_mod, "forest_eval_frombins", fb_calls):
+                rc, out = quiet(cli.main, [
+                    "-load", runs[ranker, "sparse"]["model"], "-test",
+                    paths["train"], "-metric2T", "NDCG@10", "-missingZero",
+                    "-idv", idv, *(["-sparse"] if mode == "sparse" else [])])
+            torch.cuda.synchronize()
+            check(rc == 0, f"-load -test ({mode}) failed:\n{out[-2000:]}")
+            hold_frombins(fb_calls, f"-load -test ({mode}, -ranker {ranker} "
+                                    f"model)")
+            held["forest_eval_frombins"] += len(fb_calls)
+            check(len(fb_calls) >= fe.forest_eval_frombins.launches,
+                  "-load -test: a frombins launch went past the kept calls")
+            fb_calls.clear()
+            scored[ranker, mode] = (
+                [ln for ln in out.splitlines() if " on test data" in ln],
+                fe.forest_eval_frombins.launches, idv)
+            print(f"  -load (-ranker {ranker} model) -test {mode}: "
+                  f"{time.perf_counter() - t0:.2f} s, frombins launches "
+                  f"{scored[ranker, mode][1]}; {scored[ranker, mode][0]}")
+        check(scored[ranker, "dense"][0] == scored[ranker, "sparse"][0],
+              "-load -test -sparse printed another line than without")
+        check(scored[ranker, "sparse"][1] > 0,
+              "-load -test -sparse did not launch the frombins kernel")
+    os.remove(scored["8", "dense"][2])          # one run file for -ana
+    base_idv = scored["6", "sparse"][2]
+    rc, out = quiet(cli.main, ["-ana", "-all", idv_dir, "-base", base_idv,
+                               "-np", str(SP_PERMS)])
+    check(rc == 0 and "Detailed break down" in out, "-ana failed")
+    print("  -ana: " + " | ".join(out.splitlines()[4:6]))
+
+    def per_query(path):
+        with open(path) as f:
+            return np.array([float(ln.split()[2]) for ln in f
+                             if ln.split()[1] != "all"])
+
+    b = per_query(base_idv)
+    t = per_query(scored["8", "sparse"][2])
+    check(len(b) == SP_QUERIES, "the idv file has the wrong length")
+    ana_ms = wall_ms(lambda: randomization_test(b, t, SP_PERMS, seed=1,
+                                                device=dev), 5)
+    signs = np.where(np.random.default_rng(31).random(
+        (SP_PERMS, len(b))) < 0.5, -1.0, 1.0).astype(np.float32)
+
+    def injected(device):
+        pos = [0]
+
+        def draw(p, q):
+            pos[0] += p
+            return torch.from_numpy(signs[pos[0] - p:pos[0]]).to(device)
+        return draw
+
+    p_card = randomization_test(b, t, SP_PERMS, device=dev,
+                                draw=injected(dev))
+    p_cpu = randomization_test(b, t, SP_PERMS, device=torch.device("cpu"),
+                               draw=injected(torch.device("cpu")))
+    print(f"  randomization test, {SP_PERMS} permutations x {len(b)} "
+          f"queries on the card: {ana_ms:.3f} ms (wall, median); injected "
+          f"signs: p = {p_card:.4f} on the card, {p_cpu:.4f} on the CPU")
+    check(p_card == p_cpu, "the randomization test counts differently on "
+                           "the card and on the CPU")
+    # a pair whose p-value lies mid-range, where a miscount would show
+    near = np.round(b + np.random.default_rng(32).normal(0.002, 0.05,
+                                                         len(b)), 4)
+    p_card = randomization_test(b, near, SP_PERMS, device=dev,
+                                draw=injected(dev))
+    p_cpu = randomization_test(b, near, SP_PERMS, device=torch.device("cpu"),
+                               draw=injected(torch.device("cpu")))
+    print(f"  against a noisy copy of the baseline: p = {p_card:.4f} on the "
+          f"card, {p_cpu:.4f} on the CPU (injected signs)")
+    check(p_card == p_cpu and 0.01 < p_card < 0.99, "the randomization "
+          "test counts differently on the card and on the CPU")
+
+    bd = quiet(read_letor_binned, paths["train"])[0]
+    data = LambdaMART(n_leaves=N_LEAVES).prepare_fit(
+        bd, create_scorer("NDCG@10"), None, dev)[2]
+    hist, root = hist_point(data.binned_T, data.doc_mask)
+    hist["shape"] = list(data.binned_T.shape) + [256]
+    # the split scan on the streamed root histogram under integer gradients
+    # (exact sums, so every output exact), unmasked and under a 30% mask
+    F = root.shape[0]
+    fmask = torch.from_numpy(np.random.default_rng(11).random((1, F))
+                             < 0.3).to(dev)
+    for fm in (None, fmask):
+        check(all(torch.equal(a, b) for a, b in zip(
+            SS.best_splits(root[None], 1.0, fm),
+            SS.best_splits_plain(root[None], 1.0, fm))),
+            "split scan on the streamed root histogram (integer gradients) "
+            "differs from its plain version")
+    print(f"  held against the plain versions on the runs' own tensors: "
+          f"{held['split_scan']} split-scan calls (gains within the f32 "
+          f"bound of the f64 scan, max_abs_err {scan_err:.3e} against it; "
+          f"picks best within the bound; exact on the integer-rounded "
+          f"histograms), "
+          f"{held['forest_eval_frombins']} frombins calls (bit-equal); the "
+          f"split scan on the streamed root histogram [{F}, 256] under "
+          f"integer gradients: exact, with and without a feature mask")
+    print(f"  histogram at the streamed shape {hist['shape']}: kernel "
+          f"{hist['ms']:.4f} ms vs plain {hist['plain_ms']:.4f} ms, "
+          f"index_add_ {hist['library_ms']:.4f} ms, bound "
+          f"{hist['bound_ms']:.4f} ms ({hist['bound_by']}); max_abs_err "
+          f"{hist['max_abs_err']:.3e}  [{smi}]")
+    launches = {k: sum(r["launches"][k] for (_, m), r in runs.items()
+                       if m == "sparse") for k in counters}
+    launches["forest_eval_frombins"] += sum(
+        v[1] for (_, m), v in scored.items() if m == "sparse")
+    hist["launches"] = runs["6", "sparse"]["launches"]["histogram"]
+    return {"launches": launches, "hist": hist, "loads": loads,
+            "ms_round": runs["6", "sparse"]["ms_round"],
+            "ms_round_dense": runs["6", "dense"]["ms_round"],
+            "ana_ms": ana_ms}
+
+
 def write_letor(path, X, labels, qptr):
     with open(path, "w") as f:
         for q in range(len(qptr) - 1):
@@ -3173,6 +3686,15 @@ def main() -> int:
         f"{100 * v['busy']:.1f}% busy, peak {v['peak'] / 2**20:.1f} MiB"
         for name, v in nn.items()) + f"; phase 17 "
         f"{time.perf_counter() - t17:.1f} s  [{smi}]")
+
+    header(f"== phase 18: -sparse at {SP_FEATURES} features ({SP_QUERIES} "
+           f"queries, {SP_DENSITY:.0%} of the features present) and -ana")
+    t18 = time.perf_counter()
+    sp = sparse_phase(dev, tmp, smi)
+    print(f"  -sparse LambdaMART {sp['ms_round']:.3f} ms a round (dense "
+          f"{sp['ms_round_dense']:.3f}); launches on the -sparse paths "
+          f"{sp['launches']}; phase 18 {time.perf_counter() - t18:.1f} s  "
+          f"[{smi}]")
     tmpdir.cleanup()
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -3188,15 +3710,17 @@ def main() -> int:
     kernels = [
         entry("forest_eval_frombins", "forest_eval.cu",
               "ranklib_tpu/ops/forest_eval.py:524",
-              launches["forest_eval_frombins"], err_fb, ms_fb, plain_ms_fb,
-              bound_fb, None),
+              launches["forest_eval_frombins"]
+              + sp["launches"]["forest_eval_frombins"], err_fb, ms_fb,
+              plain_ms_fb, bound_fb, None),
         entry("forest_eval_bins", "forest_eval.cu",
               "ranklib_tpu/ops/forest_eval.py:269",
               launches["forest_eval_bins"], err_b, ms_b, plain_ms_b, bound_b,
               None),
         dict(entry("histogram", "histogram.cu",
                    "ranklib_tpu/ops/histogram.py:185",
-                   fit["launches"]["histogram"] + rb["launches"],
+                   fit["launches"]["histogram"] + rb["launches"]
+                   + sp["launches"]["histogram"],
                    hists["root"][1], hists["root"][2], hists["root"][3],
                    hists["root_bound"], hists["root_library"]),
              paths={
@@ -3211,14 +3735,19 @@ def main() -> int:
                      "launches": rb["launches"], "shape": rb["shape"],
                      "max_abs_err": rb["err"], "ms": rb["ms"],
                      "plain_ms": rb["plain_ms"], "bound_ms": rb["bound"][0],
-                     "library_ms": rb["library_ms"]}}),
+                     "library_ms": rb["library_ms"]},
+                 "sparse": {k: sp["hist"][k] for k in (
+                     "launches", "shape", "max_abs_err", "ms", "plain_ms",
+                     "bound_ms", "library_ms")}}),
         entry("split_scan", "split_scan.cu",
               "ranklib_tpu/ops/split_scan.py:43",
-              fit["launches"]["split_scan"], scans[2][0], scans[2][1],
+              fit["launches"]["split_scan"] + sp["launches"]["split_scan"],
+              scans[2][0], scans[2][1],
               scans[2][2], scans["bound"], None),
         entry("histogram_multi", "histogram_multi.cu",
               "ranklib_tpu/ops/histogram.py:51",
-              rf["launches"]["histogram_multi"], rf_hists["root"][0],
+              rf["launches"]["histogram_multi"]
+              + sp["launches"]["histogram_multi"], rf_hists["root"][0],
               rf_hists["root"][1], rf_hists["root"][2],
               rf_hists["root_bound"], rf_hists["root_library"]),
         entry("forest_eval_full", "forest_eval.cu",

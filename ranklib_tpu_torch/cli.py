@@ -21,16 +21,24 @@ The argument parser is the reference's, flag for flag. The ported flows::
     python -m ranklib_tpu_torch -train train.txt -ranker 6 -kcv 5 \
         -kcvmd models -kcvmn lm
     python -m ranklib_tpu_torch -load model.txt -test test.txt -qrel q.txt
+    python -m ranklib_tpu_torch -train wide.txt -ranker 6 -sparse \
+        [-norm zscore] [-tvs 0.8 | -tts 0.8 | -kcv 5] -save model.txt
+    python -m ranklib_tpu_torch -load model.txt -rank wide.txt -sparse \
+        -score s.txt
+    python -m ranklib_tpu_torch -ana -all idv_dir -base base.idv -np 10000
 
 Training takes all ten rankers: MART (``-ranker 0``), RankNet (``1``),
 RankBoost (``2``), AdaRank (``3``), Coordinate Ascent (``4``, the
 default), LambdaRank (``5``), LambdaMART (``6``), ListNet (``7``), Random
 Forests (``8``) and Linear Regression (``9``), with ``-norm
 sum|zscore|linear``, ``-qrel`` and, for training, ``-kcv`` on every flow.
-Flows and flags not ported yet (``-ana``, ``-sparse``; with ``-train``
-also ``-resume``, ``-ckpt``, ``-dp``, ``-eventlog`` and ``-profile``) exit
-with a clean error and rc 1 rather than being ignored. Hyperparameter
-flags of other rankers are accepted and unused, as in the reference.
+``-sparse`` serves the tree rankers (``-ranker 0|6|8``) and loaded tree
+models; ``-ana`` compares ``-idv`` files with the randomization test.
+Flows and flags not ported yet (``-sparse`` for the raw-value rankers 1,
+2, 3, 4, 5, 7 and 9 and their models; with ``-train`` also ``-resume``,
+``-ckpt``, ``-dp``, ``-eventlog`` and ``-profile``) exit with a clean
+error and rc 1 rather than being ignored. Hyperparameter flags of other
+rankers are accepted and unused, as in the reference.
 """
 
 from __future__ import annotations
@@ -181,13 +189,15 @@ def _has_flow(args) -> bool:
 
 
 def _unported(args) -> str | None:
-    """The first flow or flag the port does not serve yet."""
-    if args.ana:
-        return "-ana"
-    if args.combine:
+    """The first flow or flag the port does not serve yet (a loaded
+    model's -sparse is checked when the model is read)."""
+    if args.ana or args.combine:
         return None
-    if args.sparse:
-        return "-sparse"
+    from ranklib_tpu_torch.evaluator import _TREE_RANKERS
+
+    if args.train and args.sparse and args.ranker not in _TREE_RANKERS:
+        return (f"-sparse with -ranker {args.ranker} (the raw-value "
+                f"rankers' -sparse)")
     if args.train:
         for flag in ("resume", "ckpt", "dp", "eventlog", "profile"):
             if getattr(args, flag):
@@ -206,9 +216,12 @@ def main(argv=None) -> int:
         if flag:
             raise RankLibError(f"{flag} is not yet ported to "
                                f"ranklib_tpu_torch (ported: -train, -kcv, "
-                               f"-load with -test or -rank, on dense input, "
-                               f"-norm, -qrel and -combine)")
-        if args.combine:
+                               f"-load with -test or -rank, -norm, -qrel, "
+                               f"-ana, -combine, and -sparse for -ranker "
+                               f"0, 6 and 8)")
+        if args.ana and (not args.all or not args.base):
+            raise RankLibError("-ana requires -all <dir> and -base <file>")
+        if args.combine and not args.ana:
             from ranklib_tpu_torch.combiner import combine
 
             if not args.combine_out:
@@ -222,7 +235,11 @@ def main(argv=None) -> int:
 
         device = choose_device()
         args.hparams = collect_hparams(args)
-        if args.train and args.kcv > 0:
+        if args.ana:
+            from ranklib_tpu_torch.analyzer import analyze
+
+            analyze(args.all, args.base, args.n_permutations, device)
+        elif args.train and args.kcv > 0:
             evaluate_kcv(args, device)
         elif args.train:
             evaluate_train(args, device)

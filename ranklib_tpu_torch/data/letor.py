@@ -12,9 +12,10 @@ Line format (ref: learning/DataPoint.java:~120):
 * ``#`` at a token boundary starts a description kept verbatim;
 * gzip files are handled by the Python parser.
 
-Plain files go through the reference's native C++ parser (compiled by path,
-``native.loader``); missing compilers and malformed files fall back to the
-Python parser, which also owns the precise error messages.
+Plain files go through the port's native C++ parser (``native/``, built at
+first use by ``native.loader``); missing compilers and malformed files fall
+back to the Python parser, which also owns the precise error messages.
+:func:`read_descs` is the '#' side-pass of the ``-sparse`` loaders.
 """
 
 from __future__ import annotations
@@ -186,3 +187,35 @@ def _finish(path, queries, n_features, must_have_rel_doc=False) -> Dataset:
     if n_dropped:
         log(f"({n_dropped} queries with no relevant documents dropped)")
     return Dataset(queries=queries, n_features=n_features)
+
+
+def read_descs(path: str, n_docs: int | None = None) -> list:
+    """Per-data-line '#' descriptions ('' when absent), file order: the
+    side-pass the sparse loaders (CSR and streamed bins) use to carry
+    docids for ``-qrel``/``-indri`` without the features (ref:
+    learning/SparseDataPoint.java:~15 keeps the description). Native when
+    available, streamed Python otherwise (gzip inputs, oversized tokens).
+    Verbatim '#...' strings, as the dense parsers keep them."""
+    if n_docs is not None and not path.endswith(".gz"):
+        from ranklib_tpu_torch.native.loader import (
+            NativeParseError, native_letor_descs,
+        )
+        try:
+            descs = native_letor_descs(path, n_docs)
+        except (NativeParseError, OSError):
+            descs = None
+        if descs is not None:
+            return descs
+    descs = []
+    with open_text(path) as f:
+        for line in f:
+            s = line.strip()
+            if not s or s.startswith("#"):
+                continue
+            hp = _desc_pos(s)            # token-boundary '#' (native rule)
+            descs.append(s[hp:].rstrip() if hp >= 0 else "")
+    if n_docs is not None and len(descs) != n_docs:
+        raise RankLibError(
+            f"{path}: desc pass saw {len(descs)} data lines, "
+            f"expected {n_docs}")
+    return descs

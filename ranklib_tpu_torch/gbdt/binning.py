@@ -6,8 +6,8 @@ all unique values when there are few enough, else an evenly spaced grid
 between min and max. A doc goes left at a split iff ``value <= threshold``;
 with a per-feature grid, ``bin = searchsorted(thresholds_f, value, 'left')``
 gives ``value <= thresholds_f[b]  ⟺  bin <= b``, so growth runs on integer
-bins. The native C++ (the reference's ``native/binner.cpp``, compiled by
-path in ``native.loader``) does both passes; numpy is the fallback.
+bins. The native C++ (the port's ``native/binner.cpp``, built at first use
+by ``native.loader``) does both passes; numpy is the fallback.
 """
 
 from __future__ import annotations

@@ -122,6 +122,33 @@ class TreeEnsemble:
     def __len__(self):
         return len(self.trees)
 
+    def to_bin_space(self, thresholds: np.ndarray) -> "TreeEnsemble":
+        """This ensemble with every split threshold t on feature f rewritten
+        to its bin id ``b = searchsorted(thresholds[f], t, 'left')`` (ref
+        ``to_bin_space``, :90), so that it scores a bin matrix exactly:
+        ``value <= t ⟺ bin <= b`` whenever t is a grid point, as it is for
+        every model trained on this grid (the streamed ``-sparse`` data
+        keeps no raw values). Raises RankLibError when a split threshold
+        is off the grid (a model trained elsewhere)."""
+        out = TreeEnsemble()
+        B = thresholds.shape[1]
+        for tree, w in zip(self.trees, self.weights):
+            split = ~tree.is_leaf
+            rows = thresholds[tree.feature]                  # [S, B]
+            b = (rows < tree.threshold[:, None]).sum(axis=1)  # lower_bound
+            on_grid = np.take_along_axis(
+                rows, np.minimum(b, B - 1)[:, None], axis=1
+            )[:, 0] == tree.threshold
+            if not np.all(on_grid[split] & (b[split] < B)):
+                raise RankLibError(
+                    "ensemble has split thresholds off the binning grid; "
+                    "bin-space evaluation needs a model trained with this "
+                    "grid (use the dense pipeline instead)")
+            thr = np.where(split, b.astype(np.float32), 0.0)
+            out.add(Tree(tree.feature, thr, tree.left, tree.right,
+                         tree.is_leaf, tree.output), w)
+        return out
+
     # ---- packs (host numpy) ------------------------------------------------
 
     def _nodes_per_tree(self) -> int:

@@ -13,8 +13,10 @@ learning/tree/MART.java).
   best validation round.
 
 Flags and defaults: ``-tree`` 1000, ``-leaf`` 10, ``-shrinkage`` 0.1,
-``-tc`` 256, ``-mls`` 1, ``-estop`` 100. Dense input on one device; warm
-starts, checkpoints, ``-sparse`` and data parallelism are not ported yet.
+``-tc`` 256, ``-mls`` 1, ``-estop`` 100. One device, on dense input or on
+the streamed bin matrix of ``-sparse`` (``data.binned.BinnedDataset``,
+trained bit-identically to the dense path and scored in bin space); warm
+starts, checkpoints and data parallelism are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ranklib_tpu_torch.data.dataset import Dataset, flatten
+from ranklib_tpu_torch.data.dataset import Dataset, flatten, flatten_meta
 from ranklib_tpu_torch.device import choose_device
 from ranklib_tpu_torch.gbdt.binning import bin_features, compute_thresholds
 from ranklib_tpu_torch.gbdt.boost import (
@@ -59,28 +61,36 @@ class LambdaMART(Ranker):
             raise RankLibError(f"-leaf must be >= 2 (got {self.n_leaves})")
 
     def fit(self, train: Dataset, scorer, validation: Dataset | None = None,
-            device: torch.device | None = None) -> None:
+            device: torch.device | None = None,
+            feature_mask: np.ndarray | None = None) -> None:
         """Train on ``device`` (default: :func:`choose_device`'s, as the
-        CLI picks it)."""
+        CLI picks it). ``feature_mask``: optional [F] bool, features
+        outside it are never split on (``-feature`` on the streamed
+        ``-sparse`` path)."""
         device = choose_device(quiet=True) if device is None else device
         step, state, data, thresholds = self.prepare_fit(
-            train, scorer, validation, device)
+            train, scorer, validation, device, feature_mask)
         log("Training starts...")
         self._boost_loop(step, state, data, scorer, validation is not None,
                          thresholds)
 
-    def prepare_fit(self, train: Dataset, scorer, validation, device):
-        """Bin, upload and build the round: (step, state, data,
-        thresholds); ``step(state, t, data)`` runs round t."""
-        feats, labels, _, thresholds, N, F = flatten_binned(
+    def prepare_fit(self, train: Dataset, scorer, validation, device,
+                    feature_mask=None):
+        """Bin (or take the streamed bins), upload and build the round:
+        (step, state, data, thresholds); ``step(state, t, data)`` runs
+        round t."""
+        feats, labels, _, thresholds, binned_real, N, F = flatten_binned(
             train, self.n_threshold)
-        binned, labels_pad, Npad = pad_binned(feats, thresholds, labels, N)
+        binned, labels_pad, Npad = pad_binned(feats, binned_real, thresholds,
+                                              labels, N)
         vbinned = None
         if validation is not None:
-            vbinned = bin_features(flatten(validation)[0], thresholds)
+            vbinned = (validation.binned
+                       if getattr(validation, "binned", None) is not None
+                       else bin_features(flatten(validation)[0], thresholds))
         data, Npad, Nvpad = make_boost_data(
             train, binned, labels_pad, N, validation, vbinned, device,
-            scorer=None if self._POINTWISE else scorer)
+            feature_mask, scorer=None if self._POINTWISE else scorer)
         step = make_round_step(
             scorer, n_bins=thresholds.shape[1], n_leaves=self.n_leaves,
             min_leaf_support=self.min_leaf_support,
@@ -192,15 +202,48 @@ class MART(LambdaMART):
 
 def eval_ensemble_dataset(ensemble: TreeEnsemble, ds: Dataset,
                           device: torch.device):
-    """Per-query scores of a TreeEnsemble over a dense dataset (ref
-    ``eval_ensemble_dataset``, :434): flatten, pad the width to the
-    model's largest fid, one ``eval_matrix`` call."""
+    """Per-query scores of a TreeEnsemble (ref ``eval_ensemble_dataset``,
+    :434), shared by the GBDT family and Random Forests: a streamed
+    ``BinnedDataset`` in bin space (:func:`_eval_binned`; exact for a model
+    trained on its grid); a CSR dataset in bounded dense chunks through
+    ``eval_matrix``; a dense one flattened, its width padded to the
+    model's largest fid, in one ``eval_matrix`` call."""
     max_fid = 1 + max(int(t.feature.max()) for t in ensemble.trees)
-    feats, _, qptr = flatten(ds)
-    if feats.shape[1] < max_fid:
-        feats = np.pad(feats, ((0, 0), (0, max_fid - feats.shape[1])))
-    flat = ensemble.eval_matrix(feats, device)
+    if getattr(ds, "binned", None) is not None:
+        flat = _eval_binned(ensemble.to_bin_space(ds.thresholds), ds.binned,
+                            device)
+        _, qptr = flatten_meta(ds)
+    elif hasattr(ds, "materialize_rows"):
+        from ranklib_tpu_torch.data.sparse import _chunk_bytes
+
+        F = max(ds.n_features, max_fid)
+        rows = max(1, _chunk_bytes() // (F * 4))
+        N = ds.n_docs
+        flat = np.concatenate([
+            ensemble.eval_matrix(
+                ds.materialize_rows(lo, min(lo + rows, N), width=F), device)
+            for lo in range(0, N, rows)])
+        _, qptr = flatten_meta(ds)
+    else:
+        feats, _, qptr = flatten(ds)
+        if feats.shape[1] < max_fid:
+            feats = np.pad(feats, ((0, 0), (0, max_fid - feats.shape[1])))
+        flat = ensemble.eval_matrix(feats, device)
     return [flat[qptr[i]: qptr[i + 1]] for i in range(len(ds.queries))]
+
+
+def _eval_binned(ens_bin: TreeEnsemble, bins: np.ndarray,
+                 device: torch.device, chunk: int = 1 << 18) -> np.ndarray:
+    """Scores of a bin-space ensemble (:meth:`TreeEnsemble.to_bin_space`)
+    over an int16 bin matrix (ref ``_eval_binned``): the ids cast to f32
+    in doc chunks, so no second full-size matrix is held, each through
+    ``eval_matrix`` (on the card the frombins kernel)."""
+    out = np.empty(bins.shape[0], np.float64)
+    for lo in range(0, bins.shape[0], chunk):
+        hi = min(lo + chunk, bins.shape[0])
+        out[lo:hi] = ens_bin.eval_matrix(bins[lo:hi].astype(np.float32),
+                                         device)
+    return out
 
 
 def _stop_round(hist: np.ndarray, estop: int):
@@ -220,21 +263,31 @@ def _stop_round(hist: np.ndarray, estop: int):
 
 
 def flatten_binned(train: Dataset, n_threshold: int):
-    """The fit preamble on dense data: (feats [N, F], labels [N],
-    qptr [Q+1], thresholds [F, B], N, F), the grid from real docs only."""
+    """The fit preamble (ref ``flatten_binned``): (feats [N, F] or None,
+    labels [N], qptr [Q+1], thresholds [F, B], binned [N, F] or None, N,
+    F). A streamed ``-sparse`` dataset brings its bin matrix and grid and
+    no raw values; dense data takes its grid from the real docs only."""
+    if getattr(train, "binned", None) is not None:
+        labels, qptr = flatten_meta(train)
+        N, F = train.binned.shape
+        return None, labels, qptr, train.thresholds, train.binned, N, F
     feats, labels, qptr = flatten(train)
     N, F = feats.shape
     thresholds, _ = compute_thresholds(feats, n_threshold)
-    return feats, labels, qptr, thresholds, N, F
+    return feats, labels, qptr, thresholds, None, N, F
 
 
-def pad_binned(feats, thresholds, labels, N: int):
-    """Pad the doc axis to :func:`_pad_doc_count` and bin after padding
-    (pad rows bin wherever 0.0 lands; their doc weight is 0, so they are
-    inert). Returns (binned [Npad, F] int32, labels_pad [Npad] f32,
-    Npad)."""
+def pad_binned(feats, binned_real, thresholds, labels, N: int):
+    """Pad the doc axis to :func:`_pad_doc_count`. Dense data bins after
+    padding (pad rows bin wherever 0.0 lands), pre-binned data pads with
+    bin 0; pad docs weigh 0 either way, so they are inert. Returns
+    (binned [Npad, F], labels_pad [Npad] f32, Npad)."""
     Npad = _pad_doc_count(N)
-    binned = bin_features(np.pad(feats, ((0, Npad - N), (0, 0))), thresholds)
+    if binned_real is None:
+        binned = bin_features(np.pad(feats, ((0, Npad - N), (0, 0))),
+                              thresholds)
+    else:
+        binned = np.pad(binned_real, ((0, Npad - N), (0, 0)))
     labels_pad = np.pad(labels, (0, Npad - N)).astype(np.float32)
     return binned, labels_pad, Npad
 

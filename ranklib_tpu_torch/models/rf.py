@@ -21,7 +21,9 @@ the bags' ``<ensemble>`` blocks under one ``## Random Forests`` header.
   (``gbdt.boost``) with the bag's weights and feature mask; lambdas use
   every query, as in the reference.
 
-Not ported: the mesh path (``-dp``) and streamed ``-sparse`` bags.
+On a streamed ``-sparse`` dataset (``data.binned.BinnedDataset``) the bags
+weigh rows of its bin matrix the same way, and a bag's console train
+metric scores its rows in bin space. Not ported: the mesh path (``-dp``).
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ from ranklib_tpu_torch.models.base import (
     Ranker, model_header, parse_model_params, register_ranker,
 )
 from ranklib_tpu_torch.models.gbdt import (
-    _export, _export_tree, eval_ensemble_dataset, flatten_binned, pad_binned,
+    _eval_binned, _export, _export_tree, eval_ensemble_dataset,
+    flatten_binned, pad_binned,
 )
 from ranklib_tpu_torch.utils.errors import RankLibError
 from ranklib_tpu_torch.utils.logging import is_silent, log
@@ -54,11 +57,24 @@ from ranklib_tpu_torch.utils.logging import is_silent, log
 _CPU_GROUP_BYTES = 2 << 30
 
 
-def _bag_train_metric(ens: TreeEnsemble, sampled: Dataset, scorer,
+def _bag_train_metric(ens: TreeEnsemble, sampled: Dataset, qidx, qptr,
+                      binned, thresholds, scorer,
                       device: torch.device) -> float:
-    """A bag's train metric on its own sample, for the console table."""
-    sfeats, _, sqptr = flatten(sampled)
-    flat = ens.eval_matrix(sfeats, device)
+    """A bag's train metric on its own sample, for the console table (ref
+    ``_bag_train_metric``, rf.py:34). Dense bags score their features; a
+    streamed bag has none, so the ensemble is rebased to bin space and
+    scores the sampled rows of the shared bin matrix (``binned``; exact,
+    its thresholds are grid points)."""
+    if binned is not None:
+        rows = (np.concatenate([np.arange(qptr[i], qptr[i + 1])
+                                for i in qidx])
+                if len(qidx) else np.zeros(0, np.int64))
+        flat = _eval_binned(ens.to_bin_space(thresholds), binned[rows],
+                            device)
+    else:
+        flat = ens.eval_matrix(flatten(sampled)[0], device)
+    sqptr = np.zeros(len(sampled.queries) + 1, np.int64)
+    np.cumsum([q.n for q in sampled.queries], out=sqptr[1:])
     scores = [flat[sqptr[i]: sqptr[i + 1]]
               for i in range(len(sampled.queries))]
     return score_dataset(scorer, sampled, scores, device)[0]
@@ -116,31 +132,38 @@ class RFRanker(Ranker):
             raise RankLibError(
                 "Random Forests supports -rtype 0 (MART) or 6 (LambdaMART)")
 
-    def _draw_bag(self, train: Dataset, F: int, rng):
+    def _draw_bag(self, train: Dataset, F: int, rng, feature_mask=None):
         """(sampled Dataset, its query indices, [Q] f32 multiplicities,
-        [F] bool feature mask): one bag's draws, in the reference's
-        order."""
+        [F] bool feature mask): one bag's draws, in the reference's order;
+        the feature sample is intersected with ``feature_mask``."""
         sampled, _, qidx = sample_queries(train, self.sub_sampling_rate, rng)
         fids = sample_features(F, self.feature_sampling_rate, rng)
         fmask = np.zeros(F, bool)
         fmask[[f - 1 for f in fids]] = True
+        if feature_mask is not None:
+            fmask &= feature_mask
         mult = np.bincount(qidx, minlength=len(train.queries))
         return sampled, qidx, mult.astype(np.float32), fmask
 
     def fit(self, train: Dataset, scorer, validation: Dataset | None = None,
-            device: torch.device | None = None) -> None:
+            device: torch.device | None = None,
+            feature_mask: np.ndarray | None = None) -> None:
         """Train on ``device`` (default: :func:`choose_device`'s, as the
-        CLI picks it). ``validation`` is ignored, as in the reference."""
+        CLI picks it). ``validation`` is ignored, as in the reference.
+        ``feature_mask``: optional [F] bool (``-feature`` on the streamed
+        ``-sparse`` path), intersected with every bag's feature sample."""
         device = choose_device(quiet=True) if device is None else device
         if self.ranker_type == 0:
-            return self._fit_bags_batched(train, scorer, device)
+            return self._fit_bags_batched(train, scorer, device,
+                                          feature_mask)
         rng = np.random.default_rng(self.seed)
         log("Training starts...")
-        feats, labels, qptr, thresholds, N, F = flatten_binned(
+        feats, labels, qptr, thresholds, binned_real, N, F = flatten_binned(
             train, self.n_threshold)
         doc_counts = np.diff(qptr)
         B = thresholds.shape[1]
-        binned, labels_pad, Npad = pad_binned(feats, thresholds, labels, N)
+        binned, labels_pad, Npad = pad_binned(feats, binned_real, thresholds,
+                                              labels, N)
         data, Npad, _ = make_boost_data(train, binned, labels_pad, N, None,
                                         None, device, scorer=scorer)
         step = make_round_step(
@@ -150,7 +173,8 @@ class RFRanker(Ranker):
         self.ensembles = []
         silent = is_silent()
         for bag in range(self.n_bags):
-            sampled, _, mult, fmask = self._draw_bag(train, F, rng)
+            sampled, qidx, mult, fmask = self._draw_bag(train, F, rng,
+                                                        feature_mask)
             doc_w = np.zeros(Npad, np.float32)
             doc_w[:N] = np.repeat(mult, doc_counts)
             bag_data = dataclasses.replace(
@@ -163,26 +187,29 @@ class RFRanker(Ranker):
             ens = _export(state, self.n_trees, thresholds, self.learning_rate)
             self.ensembles.append(ens)
             if not silent:
-                m = _bag_train_metric(ens, sampled, scorer, device)
+                m = _bag_train_metric(ens, sampled, qidx, qptr, binned_real,
+                                      thresholds, scorer, device)
                 log(f"bag {bag + 1:<5}| {scorer.name}-bag: {m:.4f}")
         self._merged = None
 
     def _fit_bags_batched(self, train: Dataset, scorer,
-                          device: torch.device) -> None:
+                          device: torch.device, feature_mask=None) -> None:
         """``-rtype 0`` (the default): groups of bags grow their trees in
         lockstep (:func:`group_step`). Bag draws happen upfront in bag
         order, so every bag is the per-bag path's; the host reads the
         trees once per group."""
         rng = np.random.default_rng(self.seed)
         log("Training starts...")
-        feats, labels, qptr, thresholds, N, F = flatten_binned(
+        feats, labels, qptr, thresholds, binned_real, N, F = flatten_binned(
             train, self.n_threshold)
         Q = len(train.queries)
         B = thresholds.shape[1]
-        binned, labels_pad, Npad = pad_binned(feats, thresholds, labels, N)
+        binned, labels_pad, Npad = pad_binned(feats, binned_real, thresholds,
+                                              labels, N)
         binned_T = upload_bins(np.ascontiguousarray(binned.T), device)
         labels_dev = torch.from_numpy(labels_pad).to(device)
-        bags = [self._draw_bag(train, F, rng) for _ in range(self.n_bags)]
+        bags = [self._draw_bag(train, F, rng, feature_mask)
+                for _ in range(self.n_bags)]
         # doc → query, with a zero-weight sentinel query Q for pad docs
         qod = np.full(Npad, Q, np.int64)
         qod[:N] = np.repeat(np.arange(Q), np.diff(qptr))
@@ -208,14 +235,16 @@ class RFRanker(Ranker):
                                           labels_dev, B, self.n_leaves, lr)
                 rounds.append(tree)
             rounds = [[a.cpu().numpy() for a in tree] for tree in rounds]
-            for c, (sampled, *_) in enumerate(group):
+            for c, (sampled, qidx, *_) in enumerate(group):
                 ens = TreeEnsemble()
                 for tf, tb, tl, tr, tlf, tn, out in rounds:
                     ens.add(_export_tree(tf[c], tb[c], tl[c], tr[c], tlf[c],
                                          out[c], int(tn[c]), thresholds), lr)
                 self.ensembles.append(ens)
                 if not silent:
-                    m = _bag_train_metric(ens, sampled, scorer, device)
+                    m = _bag_train_metric(ens, sampled, qidx, qptr,
+                                          binned_real, thresholds, scorer,
+                                          device)
                     log(f"bag {lo + c + 1:<5}| {scorer.name}-bag: {m:.4f}")
         self._merged = None
 

@@ -18,10 +18,14 @@ from ranklib_tpu_torch.utils.logging import log
 
 def train_ranker(ranker_type, train: Dataset, scorer: MetricScorer,
                  validation: Dataset | None, hparams: dict | None,
-                 device: torch.device) -> Ranker:
+                 device: torch.device, feature_mask=None) -> Ranker:
+    """``feature_mask`` (``-feature`` on the streamed ``-sparse`` path, a
+    tree ranker's) reaches the fit as a split mask: for trees exactly the
+    dense pipeline's column zeroing."""
     ranker = get_ranker_class(ranker_type)(**dict(hparams or {}))
+    kwargs = {} if feature_mask is None else {"feature_mask": feature_mask}
     t0 = time.perf_counter()
-    ranker.fit(train, scorer, validation, device=device)
+    ranker.fit(train, scorer, validation, device=device, **kwargs)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     log("")

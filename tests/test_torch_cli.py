@@ -10,8 +10,9 @@ linear and boosting rankers — Coordinate Ascent with no ``-ranker``,
 RankBoost, AdaRank, Linear Regression — under ``-norm`` prints the
 reference's metric lines, and each saved model scores alike in the other
 package. A subprocess pins that the port serves, trains (every ported
-ranker, also with ``-qrel`` and ``-kcv``) and combines with JAX
-unimportable and never loads the reference.
+ranker, also with ``-qrel`` and ``-kcv``), trains and serves tree models
+with ``-sparse``, runs ``-ana`` and combines with JAX unimportable and never
+loads the reference.
 """
 
 import os
@@ -124,21 +125,30 @@ def test_feature_subset_matches_reference(files):
 @pytest.mark.parametrize("extra", [
     ["-train", "x.txt", "-resume", "m.txt"],
     ["-train", "x.txt", "-kcv", "3", "-sparse"],
-    ["-sparse"], ["-qrel", "q.txt", "-sparse"], ["-norm", "zscore", "-sparse"],
+    ["-train", "x.txt", "-ranker", "1", "-sparse"],
+    ["-train", "x.txt", "-ranker", "2", "-qrel", "q.txt", "-sparse"],
+    ["-train", "x.txt", "-ranker", "9", "-norm", "zscore", "-sparse"],
     ["-ana"], ["-combine", "d"],
 ], ids=["train", "kcv", "sparse", "qrel", "norm", "ana", "combine"])
 def test_unported_flows_exit_cleanly(files, extra, capsys):
     """-train itself is ported; the training flags that are not (here
-    -resume) still exit cleanly. -kcv, -qrel and -norm are ported, but not
-    with -sparse. -combine is ported, and without -o exits with the
-    reference's error."""
+    -resume) still exit cleanly. -sparse is ported for the tree rankers
+    only: with a raw-value ranker (here the default Coordinate Ascent,
+    RankNet, RankBoost and Linear Regression) it is refused, with -kcv,
+    -qrel and -norm too. -ana and -combine are ported, and without -all
+    -base or -o exit with the reference's errors."""
     _, model, test = files
     rc = port_main(["-load", model, "-test", test, *extra])
     assert rc == 1
     flag = [a for a in extra if a.startswith("-")][-1]
-    want = (f"Error: {flag} is not yet ported to ranklib_tpu_torch"
-            if flag != "-combine"
-            else "Error: -combine requires -o <output model file>")
+    ranker = extra[extra.index("-ranker") + 1] if "-ranker" in extra else "4"
+    want = {"-sparse": f"Error: -sparse with -ranker {ranker} (the "
+                       f"raw-value rankers' -sparse) is not yet ported to "
+                       f"ranklib_tpu_torch",
+            "-ana": "Error: -ana requires -all <dir> and -base <file>",
+            "-combine": "Error: -combine requires -o <output model file>",
+            }.get(flag, f"Error: {flag} is not yet ported to "
+                        f"ranklib_tpu_torch")
     assert want in capsys.readouterr().out
 
 
@@ -268,6 +278,27 @@ def test_port_runs_without_jax_or_the_reference(files):
         f"rc = main(['-train', {str(d / 'train.txt')!r}, '-ranker', '1', "
         f"'-epoch', '1', '-kcv', '3', '-kcvmd', {str(d / 'nojax_kcv')!r}])\n"
         "assert rc == 0, rc\n"
+        "for r in ('6', '0', '8'):\n"
+        f"    m = os.path.join({str(d)!r}, 'nojax_sparse' + r + '.txt')\n"
+        f"    for extra in ([], ['-norm', 'zscore'], ['-kcv', '2']):\n"
+        f"        rc = main(['-train', {str(d / 'train.txt')!r}, '-ranker', "
+        f"r, '-tree', '2', '-leaf', '3', '-bag', '2', '-sparse', '-save', "
+        f"m, *extra])\n"
+        "        assert rc == 0, rc\n"
+        f"    rc = main(['-load', m, '-rank', {test!r}, '-sparse'])\n"
+        "    assert rc == 0, rc\n"
+        f"rc = main(['-train', {str(d / 'train.txt')!r}, '-ranker', '4', "
+        f"'-sparse'])\n"
+        "assert rc == 1, rc\n"
+        f"os.makedirs({str(d / 'nojax_idv')!r}, exist_ok=True)\n"
+        "for m in ('nojax_model.txt', 'nojax_4.txt', 'nojax_9.txt'):\n"
+        f"    rc = main(['-load', os.path.join({str(d)!r}, m), '-test', "
+        f"{test!r}, '-idv', os.path.join({str(d / 'nojax_idv')!r}, m)])\n"
+        "    assert rc == 0, rc\n"
+        f"rc = main(['-ana', '-all', {str(d / 'nojax_idv')!r}, '-base', "
+        f"os.path.join({str(d / 'nojax_idv')!r}, 'nojax_model.txt'), "
+        f"'-np', '500'])\n"
+        "assert rc == 0, rc\n"
         "assert sys.modules['jax'] is None\n"
         "bad = [m for m in sys.modules if m == 'ranklib_tpu' or "
         "m.startswith(('ranklib_tpu.', 'jax.', 'jaxlib'))]\n"
@@ -287,6 +318,9 @@ def test_port_runs_without_jax_or_the_reference(files):
     assert sorted(os.listdir(d / "nojax_kcv")) == ["f1.model", "f2.model",
                                                    "f3.model"]
     assert "Relevance judgments loaded from" in proc.stdout
+    assert "(streamed to bins)" in proc.stdout
+    assert "Detailed break down" in proc.stdout
+    assert "not applicable" not in proc.stdout
     assert port_main(["-load", model, "-rank", test, "-score",
                       str(d / "inproc.score")]) == 0
     np.testing.assert_array_equal(np.loadtxt(d / "nojax.score", usecols=2),

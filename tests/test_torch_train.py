@@ -283,12 +283,14 @@ def test_trained_models_load_across_packages(files, capsys):
     assert lines["port"] == lines["ref"]
 
 
-# -kcv, -qrel and -norm are ported, but not with -sparse: their cases keep
-# their ids
+# -kcv, -qrel, -norm and, for the tree rankers, -sparse are ported; the
+# extensions are refused with them too (-sparse -dp among them): the first
+# four cases keep their ids
 @pytest.mark.parametrize("extra,flag", [
-    (["-kcv", "3", "-sparse"], "-sparse"), (["-sparse"], "-sparse"),
-    (["-qrel", "q.txt", "-sparse"], "-sparse"),
-    (["-norm", "zscore", "-sparse"], "-sparse"),
+    (["-kcv", "3", "-sparse", "-dp", "2"], "-dp"),
+    (["-sparse", "-dp", "2"], "-dp"),
+    (["-qrel", "q.txt", "-sparse", "-resume", "m.txt"], "-resume"),
+    (["-norm", "zscore", "-sparse", "-ckpt", "5"], "-ckpt"),
     (["-resume", "m.txt"], "-resume"), (["-ckpt", "5"], "-ckpt"),
     (["-dp", "2"], "-dp"), (["-eventlog", "e.jsonl"], "-eventlog"),
     (["-profile", "trace"], "-profile"),
