@@ -2,8 +2,9 @@
 serving, LambdaMART/MART training, Random Forests, the f32 forest route,
 the linear and boosting rankers (Coordinate Ascent, the CLI's default;
 RankBoost; AdaRank; Linear Regression), the neural rankers (RankNet,
-LambdaRank, ListNet), ``-kcv`` and ``-qrel``, ``-sparse`` for the tree
-rankers and ``-ana``, and the opt-in routes and tools that hold the last
+LambdaRank, ListNet), ``-kcv`` and ``-qrel``, ``-sparse`` for every
+ranker (the raw-value rankers on both routes, the COO layer included)
+and ``-ana``, and the opt-in routes and tools that hold the last
 kernels: fused lambdas, split bin-space serving, the predicate epilogue
 and the compiler probes.
 
@@ -171,11 +172,33 @@ Phases, none of whose failures is caught:
     ``-sparse`` (the same line, B4 launched); ``-ana -np 10000`` and the
     randomization test timed on the card, equal to the CPU's p-value
     under the same injected signs; B1 at the streamed matrix's shape
-    against its plain version and ``index_add_``.
+    against its plain version and ``index_add_``;
+19. ``-sparse`` for the raw-value rankers on phase 18's 700-wide file,
+    whose dense [N, F] f32 (~167 MB) is under the device budget: each of
+    the seven fit on the dense file and on its host CSR (Coordinate
+    Ascent -r 1 -i 10, one sweep; RankBoost -round 100 -tc 10, the B1
+    counter at 0: one launch a round; AdaRank -round 500; Linear
+    Regression; the nets 2, 2 and 3 epochs, with validation): models and
+    scores byte-equal, RankBoost's card ids equal; B1 held on the fit's
+    ids (counts exact), timed by bare launches beside ``index_add_``; the
+    CLI's -ranker 9 -norm zscore and -ranker 3 with and without -sparse
+    (the same lines and model bytes, the fit handed a CSRDataset) and
+    ``-load -test -sparse``; then under ``RANKLIB_TPU_DEVICE_DENSE_MB=0``
+    the COO route: CA, AdaRank and the three nets twice each
+    (bit-identical) and within 2e-5 (CA; AdaRank's alphas, the same
+    picks) and 1e-6 (the nets) of the dense fits, the CA sweep's wall
+    beside the dense one's and the COO layer's device time at 260, 22
+    and 1 candidates; card vs CPU on 40 queries; and the reference's
+    wide shape (50,000 features, 200 queries of 40 documents, 10 features
+    a document; COO by default): AdaRank -round 5, RankNet -epoch 1 and
+    RankBoost -round 20 -tc 10 through the CLI in a process of its own
+    (wall, host peak RSS above the process after a warm-up on 2 queries,
+    B1 launches), and B1 held on RankBoost's [50,000, 8,000] ids.
 
 Every kernel's line in the JSON record carries its launches on its paths
-(the histogram's: LambdaMART's fit, RankBoost's and phase 18's
-``-sparse`` fit, each also under ``paths`` with its shape and times;
+(the histogram's: LambdaMART's fit, RankBoost's, phase 18's ``-sparse``
+fit and phase 19's two ``-sparse`` RankBoost fits, each also under
+``paths`` with its shape and times;
 B2's, B4's and B7's also phase 18's ``-sparse`` runs), its error against
 the plain
 version, its time and the plain version's, its bound (bytes over 3.35
@@ -3330,7 +3353,7 @@ def sparse_phase(dev, tmp, smi) -> dict:
         v[1] for (_, m), v in scored.items() if m == "sparse")
     hist["launches"] = runs["6", "sparse"]["launches"]["histogram"]
     return {"launches": launches, "hist": hist, "loads": loads,
-            "ms_round": runs["6", "sparse"]["ms_round"],
+            "paths": paths, "ms_round": runs["6", "sparse"]["ms_round"],
             "ms_round_dense": runs["6", "dense"]["ms_round"],
             "ana_ms": ana_ms}
 
@@ -3343,6 +3366,579 @@ def write_letor(path, X, labels, qptr):
                 f.write(f"{int(labels[i])} qid:{q + 1} {feats} "
                         f"# doc{q + 1}_{i - qptr[q]}\n")
 
+
+# -sparse for the raw-value rankers (phase 19): RankLib's flags as phases
+# 16-17 cut them, RankBoost to 100 rounds as the phase-16 CLI, and
+# Coordinate Ascent further, to 1 restart, an 11-rung ladder and 1 sweep
+# (-r 1 -i 10: a 700-coordinate sweep of the COO layer takes seconds)
+RAW_CA = dict(n_restart=1, n_max_iteration=10, max_passes=1)
+RAW_RB_ROUNDS, RAW_CPU_QUERIES = 100, 40
+# the reference's own wide shape (tests/test_sparse_csr.py:709-741): 50,000
+# features, 200 queries of 40 documents, 10 features a document
+WIDE_FEATURES, WIDE_QUERIES, WIDE_DOCS, WIDE_PRESENT = 50_000, 200, 40, 10
+BUDGET_ENV = "RANKLIB_TPU_DEVICE_DENSE_MB"
+
+
+def raw_rankers():
+    """(name, class, hyperparameters, takes validation) of the seven
+    raw-value rankers at phase 19's cut."""
+    from ranklib_tpu_torch.models.adarank import AdaRank
+    from ranklib_tpu_torch.models.coorascent import CoorAscent
+    from ranklib_tpu_torch.models.linear import LinearRegRank
+    from ranklib_tpu_torch.models.neural import LambdaRank, ListNet, RankNet
+    from ranklib_tpu_torch.models.rankboost import RankBoost
+
+    return [("CoorAscent", CoorAscent, RAW_CA, True),
+            ("RankBoost", RankBoost, dict(n_rounds=RAW_RB_ROUNDS,
+                                          n_threshold=RB_TC), True),
+            ("AdaRank", AdaRank, dict(n_rounds=ADA_ROUNDS), True),
+            ("LinearRegression", LinearRegRank, {}, False),
+            ("RankNet", RankNet, dict(n_epoch=NN_EPOCHS[0]), True),
+            ("LambdaRank", LambdaRank, dict(n_epoch=NN_EPOCHS[1]), True),
+            ("ListNet", ListNet, dict(n_epoch=NN_EPOCHS[2]), True)]
+
+
+@contextlib.contextmanager
+def budget(mb):
+    """``RANKLIB_TPU_DEVICE_DENSE_MB`` set to ``mb`` inside the block
+    (None: unset, the default 1,024)."""
+    old = os.environ.pop(BUDGET_ENV, None)
+    if mb is not None:
+        os.environ[BUDGET_ENV] = str(mb)
+    try:
+        yield
+    finally:
+        os.environ.pop(BUDGET_ENV, None)
+        if old is not None:
+            os.environ[BUDGET_ENV] = old
+
+
+@contextlib.contextmanager
+def kept_prepare(cls, store: list):
+    """Inside the block every ``cls.prepare_fit`` appends what it returns
+    to ``store`` (the fit's device data, for holding B1 afterwards)."""
+    orig = cls.prepare_fit
+
+    def prepare(self, *args, **kw):
+        out = orig(self, *args, **kw)
+        store.append(out)
+        return out
+
+    cls.prepare_fit = prepare
+    try:
+        yield
+    finally:
+        cls.prepare_fit = orig
+
+
+def fit_raw(cls, hp, train, vali, dev, scorer):
+    """(ranker, wall s) of one fit, console captured."""
+    r = cls(**hp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if cls.__name__ == "LinearRegRank":
+        quiet(r.fit, train)
+    else:
+        quiet(r.fit, train, scorer, vali, device=dev)
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
+
+
+def b1_hold(binsT, pot, B: int, what: str) -> dict:
+    """B1 on a RankBoost fit's ids and pair potential against its plain
+    version (counts exact, sums within HIST_TOL, two launches
+    bit-identical), its own time by bare launches, the plain version's,
+    ``index_add_``'s over the flat f*B + bin index, and the bound."""
+    from ranklib_tpu_torch.ops import histogram as H
+
+    F, N = binsT.shape
+    dev = binsT.device
+    ones = torch.ones(N, dtype=torch.bool, device=dev)
+    got = H.histogram(binsT, pot, ones, B)
+    want = H.histogram_plain(binsT, pot, ones, B)
+    torch.cuda.synchronize()
+    check(torch.equal(got[..., 1], want[..., 1]),
+          f"B1 counts differ from the plain version on {what}")
+    check(torch.allclose(got[..., 0], want[..., 0], **HIST_TOL),
+          f"B1 sums differ from the plain version on {what}")
+    check(torch.equal(got, H.histogram(binsT, pot, ones, B)),
+          f"B1 not reproducible on {what}")
+    fn, args, keep = hist_bare(binsT, pot, ones.to(torch.float32), B)
+    ms = bare_ms(fn, args)
+    check(torch.equal(keep[0], got), f"the bare B1 launches on {what} "
+                                     f"wrote another histogram")
+    plain_ms = event_ms(lambda: H.histogram_plain(binsT, pot, ones, B), 3)
+    idx = (torch.arange(F, device=dev)[:, None] * B
+           + binsT.to(torch.int64)).reshape(-1)
+    src = torch.stack([pot.expand(F, N).reshape(-1),
+                       torch.ones(F * N, device=dev)], dim=-1)
+    lib_ms = event_ms(lambda: torch.zeros((F * B, 2), device=dev).index_add_(
+        0, idx, src), 10)
+    del idx, src
+    bnd = bound(nbytes(binsT, pot, ones, got), 2 * F * N)
+    out = {"shape": [F, N, B], "max_abs_err": float((got - want).abs().max()),
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+           "bound_by": bnd[1], "library_ms": lib_ms}
+    print(f"  B1 on {what} [{F}, {N}] int16, B = {B}: max_abs_err "
+          f"{out['max_abs_err']:.3e} (counts exact); kernel {ms:.4f} ms (20 "
+          f"bare launches) vs plain {plain_ms:.4f} ms; index_add_ "
+          f"{lib_ms:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]})")
+    return out
+
+
+def raw_default_route(dev, paths, smi) -> dict:
+    """Phase 18's 700-wide file on the default route (its dense [N, F]
+    f32, ~167 MB, is under the device budget): each raw-value ranker fit
+    on the dense file and on its host CSR, on the card; the models and
+    the scores byte-equal. RankBoost's -sparse fit with the histogram
+    counter at 0 (one B1 launch a round) and its ids equal to the dense
+    fit's; B1 held on them. The CLI: -ranker 9 -norm zscore and -ranker 3
+    with -validate -test, with and without -sparse (the same lines, the
+    same model bytes, the fit handed a CSRDataset, no fallback); -load
+    -test -sparse of the CA and RankNet models."""
+    from ranklib_tpu_torch import cli, evaluator
+    from ranklib_tpu_torch.data.letor import read_letor
+    from ranklib_tpu_torch.data.sparse import read_letor_sparse
+    from ranklib_tpu_torch.metrics.base import create_scorer
+    from ranklib_tpu_torch.models import rankboost as PRB
+    from ranklib_tpu_torch.ops import histogram as H
+    from ranklib_tpu_torch.ops.sparse_eval import wants_sparse_eval
+
+    scorer = create_scorer("NDCG@10")
+    t0 = time.perf_counter()
+    dense = read_letor(paths["train"], missing_zero=True)
+    vdense = read_letor(paths["vali"], missing_zero=True,
+                        n_features=dense.n_features).with_width(
+        dense.n_features)
+    t1 = time.perf_counter()
+    csr = read_letor_sparse(paths["train"], quiet=True)
+    vcsr = read_letor_sparse(paths["vali"], quiet=True,
+                             n_features=csr.n_features)
+    vcsr = vcsr.with_width(csr.n_features)
+    print(f"  loads: dense {t1 - t0:.2f} s, CSR {time.perf_counter() - t1:.2f}"
+          f" s ({csr.nnz} stored values, {csr.n_docs} docs x "
+          f"{csr.n_features})")
+    check(not wants_sparse_eval(csr), "the 700-wide file should take the "
+                                      "default route")
+    fits, out = {}, {"walls": {}}
+    rb_data = []
+    for name, cls, hp, val in raw_rankers():
+        pair = {}
+        for mode, tr, va in (("dense", dense, vdense), ("sparse", csr, vcsr)):
+            va = va if val else None
+            if name == "RankBoost" and mode == "sparse":
+                H.histogram.launches = 0
+                rounds = []
+                with kept_prepare(PRB.RankBoost, rb_data), \
+                        timed_steps(PRB.RankBoost, rounds):
+                    pair[mode] = fit_raw(cls, hp, tr, va, dev, scorer)
+                out["rb_launches"] = H.histogram.launches
+                check(out["rb_launches"] == len(rounds) > 0,
+                      "RankBoost -sparse did not launch B1 once a round")
+                out["rb_rounds"] = len(rounds)
+            elif name == "RankBoost":
+                with kept_prepare(PRB.RankBoost, rb_data):
+                    pair[mode] = fit_raw(cls, hp, tr, va, dev, scorer)
+            elif name == "CoorAscent":
+                with timed_steps(cls, out.setdefault("ca_sweeps", {})
+                                 .setdefault(mode, [])):
+                    pair[mode] = fit_raw(cls, hp, tr, va, dev, scorer)
+            else:
+                pair[mode] = fit_raw(cls, hp, tr, va, dev, scorer)
+        (rd, wd), (rs, ws) = pair["dense"], pair["sparse"]
+        check(rd.model_str() == rs.model_str(),
+              f"{name}: the -sparse fit's model differs from the dense fit's")
+        sd, ss = rd.eval_dataset(dense, dev), rs.eval_dataset(csr, dev)
+        check(all(np.array_equal(a, b) for a, b in zip(sd, ss)),
+              f"{name}: the CSR scores differ from the dense scores")
+        fits[name] = rd
+        out["walls"][name] = (wd, ws)
+        print(f"  {name} {hp}: dense {wd:.2f} s, -sparse {ws:.2f} s: the "
+              f"same model bytes and scores")
+    (_, _, dd, _), (step, state, sd, _) = rb_data[0], rb_data[1]
+    check(torch.equal(dd.binned_T, sd.binned_T),
+          "RankBoost's CSR ids differ from the dense ids on the card")
+    rb = fits["RankBoost"]
+    pot = PRB.pair_potential(rb.fit_state.scores, sd.tb, sd.uniq,
+                             sd.binned_T.shape[1])
+    out["b1"] = b1_hold(sd.binned_T, pot, RB_TC + 1,
+                        f"the 700-wide -sparse fit's ids (round "
+                        f"{out['rb_rounds']}'s pi)")
+    out["b1"]["launches"] = out["rb_launches"]
+    del rb_data
+
+    seen = []
+    orig = evaluator.train_ranker
+
+    def recording(ranker_type, train, *a, **k):
+        seen.append(type(train).__name__)
+        return orig(ranker_type, train, *a, **k)
+
+    evaluator.train_ranker = recording
+    try:
+        for ranker, flags in (("9", ["-norm", "zscore"]),
+                              ("3", ["-round", str(ADA_ROUNDS)])):
+            got = {}
+            for mode in ("dense", "sparse"):
+                model = os.path.join(os.path.dirname(paths["train"]),
+                                     f"raw{ranker}_{mode}.txt")
+                seen.clear()
+                t0 = time.perf_counter()
+                rc, text = quiet(cli.main, [
+                    "-train", paths["train"], "-ranker", ranker, *flags,
+                    "-metric2t", "NDCG@10", "-validate", paths["vali"],
+                    "-test", paths["vali"], "-missingZero", "-save", model,
+                    *(["-sparse"] if mode == "sparse" else [])])
+                check(rc == 0, f"-train -ranker {ranker} ({mode}) failed:\n"
+                               f"{text[-2000:]}")
+                with open(model) as f:
+                    got[mode] = ([ln for ln in text.splitlines()
+                                  if " on " in ln and "data:" in ln],
+                                 f.read(), list(seen), text,
+                                 time.perf_counter() - t0)
+            check(got["dense"][:2] == got["sparse"][:2],
+                  f"-ranker {ranker} -sparse printed other lines or saved "
+                  f"another model")
+            check(got["sparse"][2] == ["CSRDataset"]
+                  and "not applicable" not in got["sparse"][3],
+                  f"-ranker {ranker} -sparse fell back ({got['sparse'][2]})")
+            print(f"  CLI -ranker {ranker} {' '.join(flags)} -validate -test:"
+                  f" dense {got['dense'][4]:.1f} s, -sparse "
+                  f"{got['sparse'][4]:.1f} s, the same lines "
+                  f"({'; '.join(got['sparse'][0])}) and model bytes")
+    finally:
+        evaluator.train_ranker = orig
+    for name in ("CoorAscent", "RankNet"):
+        model = os.path.join(os.path.dirname(paths["train"]),
+                             f"raw_{name}.txt")
+        fits[name].save(model)
+        lines = []
+        for extra in ([], ["-sparse"]):
+            rc, text = quiet(cli.main, [
+                "-load", model, "-test", paths["train"], "-metric2T",
+                "NDCG@10", "-missingZero", *extra])
+            check(rc == 0, f"-load -test of the {name} model failed")
+            lines.append([ln for ln in text.splitlines()
+                          if " on test data" in ln])
+        check(lines[0] == lines[1] and len(lines[0]) == 1,
+              f"-load -test -sparse of the {name} model printed another "
+              f"line")
+        print(f"  -load ({name}) -test -sparse: {lines[1][0]}, as dense")
+    print(f"  [{smi}]")
+    out.update(csr=csr, vcsr=vcsr, dense=dense, vdense=vdense, fits=fits)
+    return out
+
+
+def raw_coo_route(dev, raw, smi) -> dict:
+    """The same file under RANKLIB_TPU_DEVICE_DENSE_MB=0: Coordinate Ascent
+    (-r 1 -i 10, 1 sweep), AdaRank and the three nets through the COO
+    layer, each twice (bit-identical models), against the dense fits
+    within the reference's tolerances: CA weights 2e-5, AdaRank's picks
+    identical and alphas 2e-5, the nets' parameters 1e-6. The sweep's
+    wall beside the dense one's, and the COO layer's device time."""
+    from ranklib_tpu_torch.metrics.base import create_scorer
+    from ranklib_tpu_torch.models import coorascent as PCA
+    from ranklib_tpu_torch.models import neural as PN
+    from ranklib_tpu_torch.ops import sparse_eval as SE
+
+    scorer = create_scorer("NDCG@10")
+    csr, vcsr = raw["csr"], raw["vcsr"]
+    calls = {"segment_rows": 0, "sparse_rows": 0}
+    origs = {"segment_rows": SE.segment_rows, "sparse_rows": PN.sparse_rows}
+
+    def counting(mod, name):
+        def fn(*a, **k):
+            calls[name] += 1
+            return origs[name](*a, **k)
+        setattr(mod, name, fn)
+
+    sweeps = {"dense": raw["ca_sweeps"]["dense"]}
+    out = {"walls": {}}
+    counting(SE, "segment_rows")
+    counting(PN, "sparse_rows")
+    try:
+        with budget(0):
+            check(SE.wants_sparse_eval(csr), "a budget of 0 should route "
+                                             "the CSR to the COO layer")
+            for name, cls, hp, val in raw_rankers():
+                if name in ("RankBoost", "LinearRegression"):
+                    continue
+                want = raw["fits"][name]
+                runs = []
+                for _ in range(2):
+                    before = dict(calls)
+                    times = sweeps.setdefault("coo", []) \
+                        if name == "CoorAscent" else []
+                    with timed_steps(cls, times):
+                        runs.append(fit_raw(cls, hp, csr,
+                                            vcsr if val else None, dev,
+                                            scorer))
+                    used = ("sparse_rows" if name in (
+                        "RankNet", "LambdaRank", "ListNet")
+                        else "segment_rows")
+                    check(calls[used] > before[used], f"{name} did not take "
+                                                      f"the COO route")
+                (a, wa), (b, wb) = runs
+                check(a.model_str() == b.model_str(), f"{name}: two COO "
+                      f"fits on the card are not bit-identical")
+                if name == "CoorAscent":
+                    err = float(np.abs(a.weights - want.weights).max())
+                    check(err <= 2e-5, f"CA on the COO route: weights off "
+                                       f"the dense fit's by {err:.2e}")
+                elif name == "AdaRank":
+                    check([f for f, _ in a.history]
+                          == [f for f, _ in want.history],
+                          "AdaRank on the COO route picked other features")
+                    err = max((abs(x - y) for (_, x), (_, y) in zip(
+                        a.history, want.history)), default=0.0)
+                    check(err <= 2e-5, f"AdaRank on the COO route: alphas "
+                                       f"off by {err:.2e}")
+                else:
+                    err = max(float(np.abs(x - y).max())
+                              for pa, pb in zip(a.params, want.params)
+                              for x, y in zip(pa, pb))
+                    check(err <= 1e-6, f"{name} on the COO route: parameters "
+                                       f"off the dense fit's by {err:.2e}")
+                out["walls"][name] = (wa, wb)
+                print(f"  {name} COO: {wa:.2f} s and {wb:.2f} s, "
+                      f"bit-identical; off the dense fit by {err:.2e}")
+            # the layer alone: CA's candidate count at RankLib's -r 5 -i 25
+            # (260) and AdaRank's strong model (1)
+            chunks, buckets, N = SE.build_sparse_data(csr, dev)
+            ent = sum(c[0].numel() for c in chunks)
+            layer = {}
+            for K in (260, 22, 1):
+                W = torch.from_numpy(np.random.default_rng(K).normal(
+                    size=(csr.n_features, K)).astype(np.float32)).to(dev)
+                layer[K] = (
+                    event_ms(lambda: SE.sparse_scores_flat(W, chunks, N), 5),
+                    event_ms(lambda: SE.sparse_mean_metric(
+                        scorer, W, chunks, buckets, N, len(csr.queries)), 3))
+    finally:
+        SE.segment_rows = origs["segment_rows"]
+        PN.sparse_rows = origs["sparse_rows"]
+    out["layer"] = layer
+    out["entries"] = ent
+    out["ms_sweep"] = {k: float(np.median(v)) for k, v in sweeps.items()}
+    print(f"  Coordinate Ascent -r 1 -i 10, a sweep of {csr.n_features} "
+          f"coordinates: dense {out['ms_sweep']['dense']:.1f} ms, COO "
+          f"{out['ms_sweep']['coo']:.1f} ms (median)")
+    print("  COO layer, " + f"{ent} entries in {len(chunks)} chunks: "
+          + "; ".join(f"K = {K}: scores {a:.3f} ms, mean metric {b:.3f} ms"
+                      for K, (a, b) in layer.items()) + f"  [{smi}]")
+    return out
+
+
+def raw_card_vs_cpu(dev, raw) -> None:
+    """The first 40 queries of the 700-wide CSR on the CPU and on the card
+    (default route): RankBoost's first 20 weak rankers identical, alphas
+    within 1e-4 relative; Coordinate Ascent (-r 1 -i 10, 1 sweep) and the
+    nets (1 epoch at 10x RankLib's rates, the same seeded draws) within
+    1e-5; AdaRank's first 20 picks identical; Linear Regression's scores
+    within 1e-5 of the CPU's."""
+    from ranklib_tpu_torch.metrics.base import create_scorer
+    from ranklib_tpu_torch.models import neural as PN
+    from ranklib_tpu_torch.models.adarank import AdaRank
+    from ranklib_tpu_torch.models.coorascent import CoorAscent
+    from ranklib_tpu_torch.models.linear import LinearRegRank
+    from ranklib_tpu_torch.models.rankboost import RankBoost
+
+    sub = raw["csr"].subset_queries(range(RAW_CPU_QUERIES))
+    scorer = create_scorer("NDCG@10")
+    cpu = torch.device("cpu")
+    fits = []
+    for d in (cpu, dev):
+        t0 = time.perf_counter()
+        f = {}
+        fits.append(f)
+        f["rb"] = fit_raw(RankBoost, dict(n_rounds=20, n_threshold=RB_TC),
+                          sub, None, d, scorer)[0].weaks
+        f["ca"] = fit_raw(CoorAscent, RAW_CA, sub, None, d,
+                          scorer)[0].weights
+        f["ada"] = [x for x, _ in fit_raw(AdaRank, dict(n_rounds=20), sub,
+                                          None, d, scorer)[0].history]
+        for cls in (PN.RankNet, PN.LambdaRank, PN.ListNet):
+            r = cls(n_epoch=1)
+            r.learning_rate *= 10
+            quiet(r.fit, sub, scorer, device=d)
+            f[cls.NAME] = r.params
+        lin = LinearRegRank()
+        lin.fit(sub)
+        f["lin"] = np.concatenate(lin.eval_dataset(sub, d))
+        print(f"  {d.type}: the seven rankers on {RAW_CPU_QUERIES} queries x "
+              f"{sub.n_features} (CSR) in {time.perf_counter() - t0:.1f} s")
+    c, g = fits
+    check([w[:2] for w in c["rb"]] == [w[:2] for w in g["rb"]]
+          and len(c["rb"]) == 20, "RankBoost's weak rankers differ card vs "
+                                  "CPU on the CSR")
+    alpha = max(abs(a[2] - b[2]) / abs(a[2]) for a, b in zip(c["rb"], g["rb"]))
+    check(alpha <= 1e-4, "RankBoost's alphas differ card vs CPU on the CSR")
+    ca = float(np.abs(c["ca"] - g["ca"]).max())
+    check(ca <= 1e-5, "Coordinate Ascent differs card vs CPU on the CSR")
+    check(c["ada"] == g["ada"], "AdaRank's picks differ card vs CPU on the "
+                                "CSR")
+    nets = {n: max(float(np.abs(a - b).max()) for pa, pb in zip(c[n], g[n])
+                   for a, b in zip(pa, pb))
+            for n in ("RankNet", "LambdaRank", "ListNet")}
+    check(max(nets.values()) <= 1e-5, f"the nets differ card vs CPU on the "
+                                      f"CSR: {nets}")
+    lin = float(np.abs(c["lin"] - g["lin"]).max())
+    check(lin <= 1e-5, "Linear Regression's scores differ card vs CPU")
+    print(f"  card vs CPU: RankBoost's 20 weak rankers identical (alphas "
+          f"{alpha:.2e} relative), CA {ca:.2e}, AdaRank's {len(c['ada'])} "
+          f"picks identical, nets " + ", ".join(
+              f"{k} {v:.2e}" for k, v in nets.items())
+          + f", Linear Regression's scores {lin:.2e}")
+
+
+# AdaRank -round 5, RankNet -epoch 1 and RankBoost -round 20 -tc 10 through
+# the CLI with -sparse on the wide file, in a process of its own: the wall,
+# the host peak RSS above the process (VmRSS sampled every millisecond), the
+# histogram launches, and the dataset type and route the fit was handed.
+# The same three flows first run on the file's first 2 queries under a
+# budget of 0 (the same COO route): the CUDA libraries load their kernels
+# into host memory at first use, and the RSS above that is the data's
+_WIDE_CODE = """
+import json, os, sys, threading, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from ranklib_tpu_torch import cli, evaluator
+from ranklib_tpu_torch.ops import histogram as H
+from ranklib_tpu_torch.ops.sparse_eval import wants_sparse_eval
+torch.zeros(1, device='cuda')
+def rss():
+    with open('/proc/self/status') as f:
+        return next(int(ln.split()[1]) * 1024 for ln in f
+                    if ln.startswith('VmRSS:'))
+seen = []
+orig = evaluator.train_ranker
+def recording(ranker_type, train, *a, **k):
+    seen.append([type(train).__name__, wants_sparse_eval(train)])
+    return orig(ranker_type, train, *a, **k)
+evaluator.train_ranker = recording
+os.environ['RANKLIB_TPU_DEVICE_DENSE_MB'] = '0'
+for ranker, flags in json.loads(sys.argv[3]):
+    assert cli.main(['-train', sys.argv[5], '-ranker', ranker, *flags,
+                     '-metric2t', 'NDCG@10', '-missingZero', '-sparse',
+                     '-silent']) == 0
+del os.environ['RANKLIB_TPU_DEVICE_DENSE_MB']
+seen.clear()
+start = rss()
+runs = []
+for ranker, flags in json.loads(sys.argv[3]):
+    model = os.path.join(sys.argv[4], 'wide' + ranker + '.txt')
+    before = rss()
+    peak = [before]
+    done = threading.Event()
+    def sample():
+        while not done.is_set():
+            peak[0] = max(peak[0], rss())
+            time.sleep(0.001)
+    sampler = threading.Thread(target=sample)
+    sampler.start()
+    H.histogram.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(['-train', sys.argv[2], '-ranker', ranker, *flags,
+                   '-metric2t', 'NDCG@10', '-missingZero', '-sparse',
+                   '-save', model])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    done.set()
+    sampler.join()
+    with open(model) as f:
+        head = f.readline().strip()
+    runs.append({'ranker': ranker, 'rc': rc, 's': wall, 'before': before,
+                 'peak': max(peak[0], rss()), 'start': start,
+                 'launches': H.histogram.launches, 'seen': seen[-1:],
+                 'head': head})
+print(json.dumps(runs))
+"""
+
+
+def write_wide(path) -> tuple:
+    """The reference's wide shape as a LETOR file: 200 queries of 40 docs,
+    10 distinct features of 50,000 a doc, N(0,1) values, labels 0-2
+    (seeded); returns (docs, features)."""
+    rng = np.random.default_rng(0)
+    with open(path, "w") as f:
+        for q in range(WIDE_QUERIES):
+            for i in range(WIDE_DOCS):
+                fids = np.sort(rng.choice(WIDE_FEATURES, WIDE_PRESENT,
+                                          replace=False))
+                fids[-1] = WIDE_FEATURES - 1 if q == i == 0 else fids[-1]
+                pairs = " ".join(f"{fid + 1}:{rng.normal():.4g}"
+                                 for fid in fids)
+                f.write(f"{int(rng.integers(0, 3))} qid:{q + 1} {pairs} "
+                        f"# w{q + 1}_{i}\n")
+    return WIDE_QUERIES * WIDE_DOCS, WIDE_FEATURES
+
+
+def wide_phase(dev, tmp, smi) -> dict:
+    """The reference's wide shape, whose dense [N, F] f32 (1.6 GB) is over
+    the device budget, so the default route is COO: AdaRank -round 5,
+    RankNet -epoch 1 and RankBoost -round 20 -tc 10 through the CLI with
+    -sparse in a process of its own (wall, host peak RSS above the
+    process, B1 launches: 20); then B1 held on RankBoost's [50,000,
+    8,000] int16 ids."""
+    from ranklib_tpu_torch.data.sparse import read_letor_sparse
+    from ranklib_tpu_torch.metrics.base import create_scorer
+    from ranklib_tpu_torch.models import rankboost as PRB
+
+    path = os.path.join(tmp, "wide.txt")
+    t0 = time.perf_counter()
+    N, F = write_wide(path)
+    warm = os.path.join(tmp, "wide_warm.txt")
+    with open(path) as f, open(warm, "w") as g:
+        g.writelines(ln for ln in f if ln.split()[1] in ("qid:1", "qid:2"))
+    dense_gb = N * F * 4 / 1e9
+    print(f"  wrote {WIDE_QUERIES} queries x {WIDE_DOCS} docs x {F} features"
+          f" ({WIDE_PRESENT} present a doc; {os.path.getsize(path) / 2**20:.1f}"
+          f" MiB; dense f32 {dense_gb:.2f} GB) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    root = os.path.dirname(os.path.abspath(__file__))
+    flows = [["3", ["-round", "5"]], ["1", ["-epoch", "1"]],
+             ["2", ["-round", "20", "-tc", str(RB_TC)]]]
+    proc = subprocess.run([sys.executable, "-c", _WIDE_CODE, root, path,
+                           json.dumps(flows), tmp, warm],
+                          capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0, f"the wide runs failed:\n"
+                                f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    runs = json.loads(proc.stdout.strip().splitlines()[-1])
+    check("not applicable" not in proc.stdout, "a wide run fell back")
+    heads = {"3": "## AdaRank", "1": "## RankNet", "2": "## RankBoost"}
+    for r in runs:
+        above = (r["peak"] - r["start"]) / 2**20
+        print(f"  -ranker {r['ranker']} -sparse: {r['s']:.2f} s wall, host "
+              f"peak RSS {r['peak'] / 2**20:.1f} MiB, {above:.1f} MiB above "
+              f"the process after the warm-up ({(r['peak'] - r['before']) / 2**20:.1f}"
+              f" MiB above it before this run); fit handed {r['seen']}; B1 "
+              f"launches {r['launches']}")
+        check(r["rc"] == 0 and r["head"] == heads[r["ranker"]],
+              f"-ranker {r['ranker']} on the wide file failed")
+        check(r["seen"] == [["CSRDataset", True]] or r["ranker"] == "2",
+              f"-ranker {r['ranker']}: the wide fit did not take the COO "
+              f"route")
+        check(r["peak"] - r["start"] < 0.5 * N * F * 4,
+              f"-ranker {r['ranker']}: host memory above half the dense "
+              f"[N, F] f32")
+    rb = [r for r in runs if r["ranker"] == "2"][0]
+    check(rb["launches"] == 20, "the wide RankBoost fit did not launch B1 "
+                                "20 times")
+    ds = read_letor_sparse(path, quiet=True)
+    step, state, data, _ = PRB.RankBoost(
+        n_rounds=20, n_threshold=RB_TC).prepare_fit(
+        ds, create_scorer("NDCG@10"), None, dev)
+    for t in range(3):
+        state = step(state, t, data)
+    pot = PRB.pair_potential(state.scores, data.tb, data.uniq, N)
+    b1 = b1_hold(data.binned_T, pot, RB_TC + 1, "the wide file's ids (round "
+                                                "4's pi)")
+    b1["launches"] = rb["launches"]
+    del data, state
+    torch.cuda.empty_cache()
+    print(f"  [{smi}]")
+    return {"runs": runs, "b1": b1,
+            "peak_above": max(r["peak"] - r["start"] for r in runs)}
 
 def bare_times(root: str) -> int:
     """``--bare-times ROOT``: the fused-lambda (B5) and binning (B8)
@@ -3695,6 +4291,28 @@ def main() -> int:
           f"{sp['ms_round_dense']:.3f}); launches on the -sparse paths "
           f"{sp['launches']}; phase 18 {time.perf_counter() - t18:.1f} s  "
           f"[{smi}]")
+
+    header(f"== phase 19: -sparse for the raw-value rankers at "
+           f"{SP_FEATURES} features (both routes) and at {WIDE_FEATURES}")
+    t19 = time.perf_counter()
+    raw = raw_default_route(dev, sp["paths"], smi)
+    print(f" the COO route ({BUDGET_ENV}=0)")
+    coo = raw_coo_route(dev, raw, smi)
+    print(f" card vs CPU ({RAW_CPU_QUERIES} queries)")
+    raw_card_vs_cpu(dev, raw)
+    raw_b1 = raw["b1"]
+    del raw
+    torch.cuda.empty_cache()
+    print(f" the reference's wide shape ({WIDE_FEATURES} features, "
+          f"{WIDE_QUERIES} x {WIDE_DOCS} docs)")
+    wide = wide_phase(dev, tmp, smi)
+    print(f"  CA sweep at {SP_FEATURES} features (-r 1 -i 10): dense "
+          f"{coo['ms_sweep']['dense']:.1f} ms, COO "
+          f"{coo['ms_sweep']['coo']:.1f} ms; wide runs' host peak "
+          f"{wide['peak_above'] / 2**20:.1f} MiB above the process; B1 "
+          f"launches on the -sparse RankBoost fits {raw_b1['launches']} + "
+          f"{wide['b1']['launches']}; phase 19 "
+          f"{time.perf_counter() - t19:.1f} s  [{smi}]")
     tmpdir.cleanup()
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -3720,7 +4338,8 @@ def main() -> int:
         dict(entry("histogram", "histogram.cu",
                    "ranklib_tpu/ops/histogram.py:185",
                    fit["launches"]["histogram"] + rb["launches"]
-                   + sp["launches"]["histogram"],
+                   + sp["launches"]["histogram"] + raw_b1["launches"]
+                   + wide["b1"]["launches"],
                    hists["root"][1], hists["root"][2], hists["root"][3],
                    hists["root_bound"], hists["root_library"]),
              paths={
@@ -3738,7 +4357,9 @@ def main() -> int:
                      "library_ms": rb["library_ms"]},
                  "sparse": {k: sp["hist"][k] for k in (
                      "launches", "shape", "max_abs_err", "ms", "plain_ms",
-                     "bound_ms", "library_ms")}}),
+                     "bound_ms", "library_ms")},
+                 "rankboost_sparse": raw_b1,
+                 "rankboost_sparse_wide": wide["b1"]}),
         entry("split_scan", "split_scan.cu",
               "ranklib_tpu/ops/split_scan.py:43",
               fit["launches"]["split_scan"] + sp["launches"]["split_scan"],

@@ -10,13 +10,11 @@ native C++ parser and binner in ``native/``) are carried as its own copies.
 
 Ported so far, on one device: all ten rankers — training (with ``-norm``,
 ``-qrel`` and ``-kcv``), saving, loading, ``-test``/``-rank`` and
-``-combine`` — on dense LETOR files; ``-sparse`` for the tree rankers
-(MART, LambdaMART, Random Forests) and their models; ``-ana`` and the
+``-combine`` — on dense LETOR files and with ``-sparse``; ``-ana`` and the
 ``features_tool``. Every Pallas kernel of the reference has a hand-written
 CUDA counterpart in ``csrc/`` (forest evaluation, histograms, the split
-scan, the fused lambdas, the compiler probes in ``tools.probes``).
-``-sparse`` for the raw-value rankers, ``-dp`` and the training extensions
-are later slices.
+scan, the fused lambdas, the compiler probes in ``tools.probes``). ``-dp``
+and the training extensions are later slices.
 """
 
 __version__ = "0.1.0"

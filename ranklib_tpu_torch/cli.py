@@ -32,13 +32,11 @@ RankBoost (``2``), AdaRank (``3``), Coordinate Ascent (``4``, the
 default), LambdaRank (``5``), LambdaMART (``6``), ListNet (``7``), Random
 Forests (``8``) and Linear Regression (``9``), with ``-norm
 sum|zscore|linear``, ``-qrel`` and, for training, ``-kcv`` on every flow.
-``-sparse`` serves the tree rankers (``-ranker 0|6|8``) and loaded tree
-models; ``-ana`` compares ``-idv`` files with the randomization test.
-Flows and flags not ported yet (``-sparse`` for the raw-value rankers 1,
-2, 3, 4, 5, 7 and 9 and their models; with ``-train`` also ``-resume``,
-``-ckpt``, ``-dp``, ``-eventlog`` and ``-profile``) exit with a clean
-error and rc 1 rather than being ignored. Hyperparameter flags of other
-rankers are accepted and unused, as in the reference.
+``-sparse`` serves every ranker and loaded model; ``-ana`` compares
+``-idv`` files with the randomization test. Training flags not ported
+yet (``-resume``, ``-ckpt``, ``-dp``, ``-eventlog`` and ``-profile``) exit
+with a clean error and rc 1 rather than being ignored. Hyperparameter
+flags of other rankers are accepted and unused, as in the reference.
 """
 
 from __future__ import annotations
@@ -189,15 +187,9 @@ def _has_flow(args) -> bool:
 
 
 def _unported(args) -> str | None:
-    """The first flow or flag the port does not serve yet (a loaded
-    model's -sparse is checked when the model is read)."""
+    """The first training flag the port does not serve yet."""
     if args.ana or args.combine:
         return None
-    from ranklib_tpu_torch.evaluator import _TREE_RANKERS
-
-    if args.train and args.sparse and args.ranker not in _TREE_RANKERS:
-        return (f"-sparse with -ranker {args.ranker} (the raw-value "
-                f"rankers' -sparse)")
     if args.train:
         for flag in ("resume", "ckpt", "dp", "eventlog", "profile"):
             if getattr(args, flag):
@@ -217,8 +209,7 @@ def main(argv=None) -> int:
             raise RankLibError(f"{flag} is not yet ported to "
                                f"ranklib_tpu_torch (ported: -train, -kcv, "
                                f"-load with -test or -rank, -norm, -qrel, "
-                               f"-ana, -combine, and -sparse for -ranker "
-                               f"0, 6 and 8)")
+                               f"-sparse, -ana and -combine)")
         if args.ana and (not args.all or not args.base):
             raise RankLibError("-ana requires -all <dir> and -base <file>")
         if args.combine and not args.ana:

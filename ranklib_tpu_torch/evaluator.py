@@ -4,12 +4,14 @@ load+test with per-query output (``-idv``) and load+rank (``-score``,
 ``-indri``); ``-qrel`` relabels every file a flow reads. The CLI (``cli``)
 parses RankLib's flags, picks the device and dispatches here.
 
-``-sparse`` serves the tree rankers (0, 6, 8) and loaded tree models. Their
-training files stream straight to the int16 bin matrix
-(``data.binned.read_letor_binned``); under ``-norm``, and for the
-``-tvs``/``-tts`` split grids and ``-kcv`` folds, they land in host CSR
-(``data.sparse``) and bin in bounded chunks (``binned_from_csr``). Load
-flows read CSR. A loader that does not apply logs ``[-sparse] … not
+``-sparse``: the tree rankers' (0, 6, 8) training files stream straight
+to the int16 bin matrix (``data.binned.read_letor_binned``); under
+``-norm``, and for the ``-tvs``/``-tts`` split grids and ``-kcv`` folds,
+they land in host CSR (``data.sparse``) and bin in bounded chunks
+(``binned_from_csr``). The raw-value rankers (1, 2, 3, 4, 5, 7, 9) train
+on the host CSR itself (``-norm`` applied lazily), from dense chunks or,
+above the device budget, through the COO layer (``ops.sparse_eval``).
+Load flows read CSR. A loader that does not apply logs ``[-sparse] … not
 applicable`` and the flow runs the dense pipeline, as the reference does.
 """
 
@@ -36,6 +38,7 @@ from ranklib_tpu_torch.utils.errors import RankLibError
 from ranklib_tpu_torch.utils.logging import log, result
 
 _TREE_RANKERS = (0, 6, 8)
+_RAW_VALUE_RANKERS = (1, 2, 3, 4, 5, 7, 9)
 
 
 def _prepare(path, feature_fids, missing_zero=False, must_have_rel=False,
@@ -124,6 +127,40 @@ def _sparse_tree(args) -> bool:
     (``binned_from_csr``) — grids and models bit-identical to the dense
     normalize-then-bin pipeline."""
     return bool(args.sparse and args.ranker in _TREE_RANKERS)
+
+
+def _try_csr(args) -> bool:
+    """-sparse for a raw-value ranker (ref: ``evaluator._try_csr``): the
+    file lands in host CSR (memory ~ stored values) and the fit takes it
+    in bounded dense chunks or, above the device budget, as COO; -norm
+    applies lazily at materialization; -qrel fetches the '#'
+    descriptions."""
+    return bool(args.sparse and args.ranker in _RAW_VALUE_RANKERS)
+
+
+def _csr_train(args, feature_fids, must_rel):
+    """The -sparse training file of a raw-value ranker as host CSR: read,
+    then -qrel, then -feature, then lazy -norm; or None when the CSR
+    loader does not apply (logged; the caller runs the dense pipeline).
+    Only the read is inside the fallback ``try``: a -qrel, -feature or
+    -norm problem is a real error."""
+    from ranklib_tpu_torch.data.sparse import normalize_csr, read_letor_sparse
+
+    try:
+        ds = read_letor_sparse(args.train, must_have_rel_doc=must_rel,
+                               missing_zero=args.missingZero,
+                               want_descs=bool(args.qrel))
+    except RankLibError as e:
+        log(f"[-sparse] CSR loader not applicable ({e}); "
+            f"using the dense pipeline")
+        return None
+    if args.qrel:
+        apply_qrel(ds, args.qrel)
+    if feature_fids is not None:
+        ds = ds.subset_features(feature_fids)
+    if args.norm:
+        ds = normalize_csr(ds, args.norm)
+    return ds
 
 
 def _read_csr_norm_binned(path, args, must_rel, feature_fids,
@@ -217,12 +254,15 @@ def evaluate_train(args, device: torch.device) -> Ranker:
     tvs_wanted = (not args.validate and not has_tts
                   and bool(args.tvs) and args.tvs > 0)
     train = held = split_test = validation = feature_mask = None
-    stream = _sparse_tree(args)
+    stream, csr = _sparse_tree(args), _try_csr(args)
     if stream:
         train, held, feature_mask = _sparse_train(
             args, feature_fids, must_rel, split=has_tts or tvs_wanted)
         stream = train is not None
-    if not stream:
+    elif csr:
+        train = _csr_train(args, feature_fids, must_rel)
+        csr = train is not None
+    if train is None:
         train = _prepare(args.train, feature_fids, args.missingZero,
                          must_rel, norm=args.norm, qrel=args.qrel)
     if has_tts:
@@ -239,7 +279,7 @@ def evaluate_train(args, device: torch.device) -> Ranker:
             if stream else
             _prepare(args.validate, feature_fids, args.missingZero,
                      must_rel, n_features=train.n_features, norm=args.norm,
-                     qrel=args.qrel))
+                     qrel=args.qrel, sparse=csr))
     elif tvs_wanted:
         if held is None:
             train, held = split_tvs(train, args.tvs)
@@ -262,7 +302,7 @@ def evaluate_train(args, device: torch.device) -> Ranker:
         else:
             test = _prepare(args.test, feature_fids, args.missingZero,
                             n_features=train.n_features, norm=args.norm,
-                            qrel=args.qrel)
+                            qrel=args.qrel, sparse=csr)
         m_test, per_q = score_dataset(test_scorer, test,
                                       ranker.eval_dataset(test, device),
                                       device)
@@ -309,8 +349,8 @@ def _bin_folds(folds, tc: int):
 def evaluate_kcv(args, device: torch.device) -> None:
     """Flow 3.2: -train file -kcv k [-kcvmd dir -kcvmn name]: train and
     score one ranker a fold, save each fold's model, print the summary
-    table. With -sparse, tree rankers' folds ride the host CSR, binned a
-    fold at a time."""
+    table. With -sparse the folds ride the host CSR (``subset_queries``);
+    a tree ranker's are binned a fold at a time."""
     feature_fids = read_feature_file(args.feature) if args.feature else None
     train_scorer = create_scorer(args.metric2t, gmax=args.gmax)
     test_scorer = (create_scorer(args.metric2T, gmax=args.gmax)
@@ -322,7 +362,7 @@ def evaluate_kcv(args, device: torch.device) -> None:
     if ds is None:
         ds = _prepare(args.train, feature_fids, args.missingZero,
                       train_scorer.needs_rel, norm=args.norm,
-                      qrel=args.qrel)
+                      qrel=args.qrel, sparse=_try_csr(args))
     folds = prepare_cv(ds, args.kcv, args.tvs if args.tvs else -1.0,
                        lazy=True)       # one fold's copies live at a time
     if fold_binning:
@@ -353,23 +393,10 @@ def evaluate_kcv(args, device: torch.device) -> None:
            f"{np.mean(scores_test):<16.4f}")
 
 
-def _load_model(args) -> Ranker:
-    """``-load``'s ranker; with -sparse only tree models are served (host
-    CSR scored in bounded dense chunks)."""
-    ranker = load_ranker_file(args.load)
-    if args.sparse and not hasattr(ranker, "ensemble") and not hasattr(
-            ranker, "ensembles"):
-        raise RankLibError(
-            f"-sparse with a loaded {ranker.NAME} model is not yet ported to "
-            f"ranklib_tpu_torch (the raw-value rankers' -sparse; -sparse "
-            f"serves MART, LambdaMART and Random Forests models)")
-    return ranker
-
-
 def evaluate_test_only(args, device: torch.device) -> None:
     """Flow 3.3: -load model -test file -metric2T metric [-idv file]."""
     scorer = create_scorer(args.metric2T or args.metric2t, gmax=args.gmax)
-    ranker = _load_model(args)
+    ranker = load_ranker_file(args.load)
     feature_fids = read_feature_file(args.feature) if args.feature else None
     test = _prepare(args.test, feature_fids, missing_zero=args.missingZero,
                     norm=args.norm, qrel=args.qrel, sparse=args.sparse)
@@ -382,7 +409,7 @@ def evaluate_test_only(args, device: torch.device) -> None:
 
 def evaluate_rank(args, device: torch.device) -> None:
     """Flow 3.3: -load model -rank file [-score out] [-indri out]."""
-    ranker = _load_model(args)
+    ranker = load_ranker_file(args.load)
     feature_fids = read_feature_file(args.feature) if args.feature else None
     data = _prepare(args.rank, feature_fids, missing_zero=args.missingZero,
                     norm=args.norm, qrel=args.qrel, sparse=args.sparse,

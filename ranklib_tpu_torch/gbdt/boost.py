@@ -154,11 +154,14 @@ def upload_bins(a: np.ndarray, device: torch.device) -> torch.Tensor:
 _PAIR_BUDGET = 1 << 24
 
 
-def _host_buckets(ds: Dataset, sentinel: int) -> list:
+def _host_buckets(ds: Dataset, sentinel: int,
+                  qidx_sentinel: int | None = None) -> list:
     """Padded (labels, mask, didx) numpy chunks per bucket of the dataset,
     split into row chunks so that no [Bc, D, D] pair temporary of the
     round exceeds the budget. ``didx``: each slot's flat doc index, pad
-    slots → ``sentinel``."""
+    slots → ``sentinel``. With ``qidx_sentinel`` a chunk also carries its
+    rows' query indices (pad rows → ``qidx_sentinel``), to scatter
+    per-query metrics of flat scores (AdaRank's COO route)."""
     _, qptr = flatten_meta(ds)
     out = []
     for b in bucketize(ds):
@@ -170,10 +173,14 @@ def _host_buckets(ds: Dataset, sentinel: int) -> list:
         for lo in range(0, b.B, rows):
             hi = min(lo + rows, b.B)
             pad = rows - (hi - lo)
-            out.append((np.pad(b.labels[lo:hi], ((0, pad), (0, 0))),
-                        np.pad(b.mask[lo:hi], ((0, pad), (0, 0))),
-                        np.pad(didx[lo:hi], ((0, pad), (0, 0)),
-                               constant_values=sentinel)))
+            chunk = (np.pad(b.labels[lo:hi], ((0, pad), (0, 0))),
+                     np.pad(b.mask[lo:hi], ((0, pad), (0, 0))),
+                     np.pad(didx[lo:hi], ((0, pad), (0, 0)),
+                            constant_values=sentinel))
+            if qidx_sentinel is not None:
+                chunk += (np.pad(b.qidx[lo:hi].astype(np.int64), (0, pad),
+                                 constant_values=qidx_sentinel),)
+            out.append(chunk)
     return out
 
 

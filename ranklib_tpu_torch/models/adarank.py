@@ -20,8 +20,12 @@ the identity). A round — the pick, α, the strong model's per-query
 metric, P, the guards and the stop rules as flags — runs on the device
 and reads nothing back; the console table reads a round's values when it
 prints them. Flags: ``-round`` 500, ``-tolerance``, ``-noeq``, ``-max``.
-Dense input on one device; ``-sparse`` and data parallelism are not
-ported yet.
+
+A ``-sparse`` CSR file above the device budget takes the COO route
+(``ops.sparse_eval``): S is built from the present (query, feature)
+pairs only, and the strong model scores through the COO layer. Below
+the budget its dense buckets come in bounded chunks. One device; data
+parallelism is not ported yet.
 """
 
 from __future__ import annotations
@@ -40,6 +44,10 @@ from ranklib_tpu_torch.models.base import (
 )
 from ranklib_tpu_torch.ops.batched_eval import (
     LinearMetricEvaluator, full_f32_products, linear_scores,
+)
+from ranklib_tpu_torch.ops.sparse_eval import (
+    adarank_weak_matrix, build_sparse_data, sparse_scores_flat,
+    wants_sparse_eval,
 )
 from ranklib_tpu_torch.utils.errors import RankLibError
 from ranklib_tpu_torch.utils.logging import is_silent, log
@@ -92,20 +100,32 @@ def device_buckets(ev: LinearMetricEvaluator, n_queries: int) -> list:
 
 
 def make_ada_step(scorer, *, no_eq: bool, max_sel: int, tolerance: float,
-                  n_queries: int, n_vqueries: int):
+                  n_queries: int, n_vqueries: int,
+                  sparse_docs: tuple | None = None):
     """The round: ``step(state, t, S, tb, vb) → state`` with ``S [Q, F]``
     and ``tb``/``vb`` :func:`device_buckets`, on one device, with no host
-    sync."""
+    sync. ``sparse_docs``: (train docs, validation docs) when ``tb``/``vb``
+    are ``(coo_chunks, (labels, mask, didx, qidx) buckets)`` of the COO
+    route."""
 
-    def perq_and_mean(wvec, buckets, nq):
+    def perq_and_mean(wvec, buckets, nq, n_docs):
         """Per-query metric [nq] of the linear model ``wvec`` and its
         mean."""
         perq = torch.zeros(nq + 1, dtype=torch.float32, device=wvec.device)
-        for feats, labels, mask, qidx in buckets:
-            sc = torch.matmul(feats, wvec)
-            perq[qidx] = scorer.score_from_scores(labels, sc, mask)
+        if sparse_docs is not None:
+            chunks, bks = buckets
+            flat = sparse_scores_flat(wvec[:, None], chunks, n_docs)[:, 0]
+            for labels, mask, didx, qidx in bks:
+                perq[qidx] = scorer.score_from_scores(labels, flat[didx],
+                                                      mask)
+        else:
+            for feats, labels, mask, qidx in buckets:
+                sc = torch.matmul(feats, wvec)
+                perq[qidx] = scorer.score_from_scores(labels, sc, mask)
         perq = perq[:-1]
         return perq, perq.sum() / nq
+
+    n_docs, n_vdocs = sparse_docs or (None, None)
 
     def step(state: AdaState, t: int, S, tb, vb) -> AdaState:
         F = state.w.shape[0]
@@ -119,7 +139,7 @@ def make_ada_step(scorer, *, no_eq: bool, max_sel: int, tolerance: float,
         degenerate = (num <= 0) | (den <= 0)
         alpha = 0.5 * torch.log(torch.where(degenerate, 1.0, num / den))
         w_new = state.w.index_add(0, fid.view(1), alpha.view(1))
-        perq, m_train = perq_and_mean(w_new, tb, n_queries)
+        perq, m_train = perq_and_mean(w_new, tb, n_queries, n_docs)
         backtrack = m_train < state.prev_train
         keep = state.active & ~degenerate & ~backtrack
         e = torch.exp(-perq)
@@ -134,7 +154,8 @@ def make_ada_step(scorer, *, no_eq: bool, max_sel: int, tolerance: float,
         state.active = keep & ~tol_stop
         state.prev_train = torch.where(keep, m_train, state.prev_train)
         if vb:
-            state.val_m[t] = perq_and_mean(state.w, vb, n_vqueries)[1]
+            state.val_m[t] = perq_and_mean(state.w, vb, n_vqueries,
+                                           n_vdocs)[1]
         state.hfid[t] = fid
         state.halpha[t] = alpha
         state.hact[t] = keep
@@ -164,19 +185,35 @@ class AdaRank(Ranker):
         vb)."""
         F = train.n_features
         Q = len(train.queries)
-        ev = LinearMetricEvaluator(train, scorer, device)
-        # S[q, f]: the metric of query q ranked by feature f alone
-        S = torch.from_numpy(ev.per_query_matrix(
-            np.eye(F, dtype=np.float32)).astype(np.float32)).to(device)
-        tb = device_buckets(ev, Q)
-        vb, n_vq = [], 1
-        if validation is not None:
-            n_vq = len(validation.queries)
-            vb = device_buckets(
-                LinearMetricEvaluator(validation, scorer, device), n_vq)
+        n_vq = len(validation.queries) if validation is not None else 1
+        sparse_docs = None
+        if wants_sparse_eval(train):
+            # S from the present (query, feature) pairs; the strong model
+            # scores through the COO layer
+            S = torch.from_numpy(adarank_weak_matrix(train, scorer,
+                                                     device)).to(device)
+            chunks, bks, n_docs = build_sparse_data(train, device,
+                                                    with_qidx=True)
+            tb, vb, n_vdocs = (chunks, bks), (), 1
+            if validation is not None:
+                vchunks, vbks, n_vdocs = build_sparse_data(
+                    validation, device, with_qidx=True)
+                vb = (vchunks, vbks)
+            sparse_docs = (n_docs, n_vdocs)
+        else:
+            ev = LinearMetricEvaluator(train, scorer, device)
+            # S[q, f]: the metric of query q ranked by feature f alone
+            S = torch.from_numpy(ev.per_query_matrix(
+                np.eye(F, dtype=np.float32)).astype(np.float32)).to(device)
+            tb = device_buckets(ev, Q)
+            vb = []
+            if validation is not None:
+                vb = device_buckets(
+                    LinearMetricEvaluator(validation, scorer, device), n_vq)
         step = make_ada_step(
             scorer, no_eq=bool(self.no_eq), max_sel=self.max_sel_count,
-            tolerance=self.tolerance, n_queries=Q, n_vqueries=n_vq)
+            tolerance=self.tolerance, n_queries=Q, n_vqueries=n_vq,
+            sparse_docs=sparse_docs)
         state = init_state(Q, F, round_capacity(self.n_rounds), device)
         return step, state, S, tb, vb
 

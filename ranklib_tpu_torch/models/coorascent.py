@@ -15,10 +15,15 @@ bucket chunk (``ops.batched_eval``). A sweep over all coordinates runs on
 the device with no host sync; the host reads once a sweep, the restarts'
 improved flags.
 
+A ``-sparse`` CSR file under the device budget is scored from its
+dense buckets, materialized in bounded chunks; above it
+(``ops.sparse_eval.wants_sparse_eval``) the candidates are scored by the
+COO layer (a gather of candidate rows by fid and a sum over each
+document's entries), with the same sweep around it.
+
 Flags and defaults: ``-r`` 5, ``-i`` 25 (ladder depth), ``-tolerance``
 0.001, ``-reg`` off, ``-randomSeed`` → ``seed`` (offsets the restarts'
-shuffles). Dense input on one device; ``-sparse`` and data parallelism
-are not ported yet.
+shuffles). One device; data parallelism is not ported yet.
 """
 
 from __future__ import annotations
@@ -36,6 +41,9 @@ from ranklib_tpu_torch.ops.batched_eval import (
     LinearMetricEvaluator, candidate_metrics, full_f32_products,
     linear_scores,
 )
+from ranklib_tpu_torch.ops.sparse_eval import (
+    build_sparse_data, sparse_mean_metric, wants_sparse_eval,
+)
 from ranklib_tpu_torch.utils.errors import RankLibError
 from ranklib_tpu_torch.utils.logging import log
 
@@ -50,18 +58,24 @@ def restart_orders(n_features: int, n_restart: int, seed: int) -> np.ndarray:
 
 def make_sweep(scorer, *, n_features: int, depth: int, reg: float | None,
                tolerance: float, n_queries: int, step_base: float,
-               step_scale: float):
+               step_scale: float, sparse_n: int | None = None):
     """One sweep over every coordinate: ``sweep(w, cur, order_T, buckets)
     → (w, cur, improved)`` with ``w [R, F]``, ``cur [R]``, ``order_T
     [F, R]`` int64 and ``buckets`` (feats, labels, mask) chunks, all on
     one device; nothing is read back. ``sweep.coordinate_step`` is one
-    coordinate's step."""
+    coordinate's step. ``sparse_n``: the document count when ``buckets``
+    is ``(coo_chunks, metric_buckets)`` of ``ops.sparse_eval``."""
     F = n_features
 
     def mean_metric(Wc, buckets):
         """Wc [R, C, F] → mean metric [R, C] over all queries (f32)."""
         R, C = Wc.shape[0], Wc.shape[1]
         Wf = Wc.reshape(R * C, F).T
+        if sparse_n is not None:
+            chunks, sbuckets = buckets
+            return sparse_mean_metric(scorer, Wf.contiguous(), chunks,
+                                      sbuckets, sparse_n,
+                                      n_queries).view(R, C)
         total = torch.zeros(R * C, dtype=torch.float32, device=Wc.device)
         for feats, labels, mask in buckets:
             total += candidate_metrics(scorer, feats, labels, mask,
@@ -129,17 +143,26 @@ class CoorAscent(Ranker):
         the restarts' state at the uniform start."""
         F = train.n_features
         R = self.n_restart
-        ev = LinearMetricEvaluator(train, scorer, device)
-        buckets = [(f, lab, m) for f, lab, m, _ in ev.buckets]
+        w0 = np.full((F, 1), 1.0 / F, np.float32)
+        sparse_n = None
+        if wants_sparse_eval(train):
+            chunks, sbuckets, sparse_n = build_sparse_data(train, device)
+            buckets = (chunks, sbuckets)
+            with full_f32_products():
+                cur0 = float(sparse_mean_metric(
+                    scorer, torch.from_numpy(w0).to(device), chunks,
+                    sbuckets, sparse_n, len(train.queries))[0])
+        else:
+            ev = LinearMetricEvaluator(train, scorer, device)
+            buckets = [(f, lab, m) for f, lab, m, _ in ev.buckets]
+            cur0 = float(ev.mean_metric(w0)[0])
         order_T = torch.from_numpy(restart_orders(F, R, self.seed)).to(device)
         sweep = make_sweep(
             scorer, n_features=F, depth=max(1, self.n_max_iteration),
             reg=self.reg, tolerance=self.tolerance,
             n_queries=len(train.queries), step_base=self.STEP_BASE,
-            step_scale=self.STEP_SCALE)
+            step_scale=self.STEP_SCALE, sparse_n=sparse_n)
         w = torch.full((R, F), 1.0 / F, dtype=torch.float32, device=device)
-        cur0 = float(ev.mean_metric(np.full((F, 1), 1.0 / F,
-                                            np.float32))[0])
         if self.reg is not None:
             cur0 -= self.reg * (1.0 / F)     # Σ(1/F)² over F coordinates
         cur = torch.full((R,), cur0, dtype=torch.float32, device=device)
@@ -174,8 +197,16 @@ class CoorAscent(Ranker):
         log(f"Finished successfully. {scorer.name} on training data: "
             f"{curs[best]:.4f}")
         if validation is not None:
-            vm = LinearMetricEvaluator(validation, scorer, device).mean_metric(
-                self.weights[:, None].astype(np.float32))[0]
+            wv = self.weights[:, None].astype(np.float32)
+            if wants_sparse_eval(validation):
+                vc, vbk, vn = build_sparse_data(validation, device)
+                with full_f32_products():
+                    vm = sparse_mean_metric(
+                        scorer, torch.from_numpy(wv).to(device), vc, vbk,
+                        vn, len(validation.queries))[0]
+            else:
+                vm = LinearMetricEvaluator(validation, scorer,
+                                           device).mean_metric(wv)[0]
             log(f"{scorer.name} on validation data: {float(vm):.4f}")
 
     def eval_dataset(self, ds: Dataset, device: torch.device):

@@ -3,9 +3,11 @@ learning/LinearRegRank.java).
 
 Pointwise least squares of labels on features with ridge ``-L2`` (default
 1e-10) on the diagonal. The normal equations XᵀX, Xᵀy accumulate in f64
-on the host, in chunks of the f64 cast, and the (F+1)² system is solved
-there, as the reference does: a device product in f32 (or TF32) skews
-the ill-conditioned ridge solve. Scoring runs on the device in f32.
+on the host, a block of rows at a time (a ``-sparse`` CSR file's
+materialized alone, so that it sums as its dense file does), and the
+(F+1)² system is solved there, as the reference does: a device product
+in f32 (or TF32) skews the ill-conditioned ridge solve. Scoring runs on
+the device in f32.
 Model line: ``0:<intercept> 1:<w1> ...``.
 """
 
@@ -14,13 +16,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ranklib_tpu_torch.data.dataset import Dataset, flatten
+from ranklib_tpu_torch.data.dataset import Dataset, flatten_meta
 from ranklib_tpu_torch.device import choose_device
 from ranklib_tpu_torch.metrics.base import score_dataset
 from ranklib_tpu_torch.models.base import (
     Ranker, model_header, parse_model_params, register_ranker,
 )
-from ranklib_tpu_torch.ops.batched_eval import linear_scores
+from ranklib_tpu_torch.ops.batched_eval import linear_scores, materializer
 from ranklib_tpu_torch.utils.errors import RankLibError
 from ranklib_tpu_torch.utils.logging import log
 
@@ -36,17 +38,22 @@ class LinearRegRank(Ranker):
 
     def fit(self, train: Dataset, scorer=None, validation=None,
             device: torch.device | None = None) -> None:
-        feats, labels, _ = flatten(train)
-        N, F = feats.shape
-        X = np.concatenate([np.ones((N, 1), np.float32), feats], axis=1)
+        F = train.n_features
         xtx = np.zeros((F + 1, F + 1), np.float64)
         xty = np.zeros((F + 1,), np.float64)
-        lab64 = labels.astype(np.float64)
+        # blocks of ≤ 2^22 f64 design values (32 MB), each materialized
+        # alone: a CSR file sums the dense file's blocks in its order
+        labels, _ = flatten_meta(train)
+        N = train.n_docs
+        materialize = materializer(train)
         rows = max(1, (1 << 22) // (F + 1))
         for lo in range(0, N, rows):
-            Xd = X[lo: lo + rows].astype(np.float64)
+            hi = min(lo + rows, N)
+            Xd = np.empty((hi - lo, F + 1), np.float64)
+            Xd[:, 0] = 1.0
+            Xd[:, 1:] = materialize(lo, hi)
             xtx += Xd.T @ Xd
-            xty += Xd.T @ lab64[lo: lo + rows]
+            xty += Xd.T @ labels[lo:hi].astype(np.float64)
         xtx[np.diag_indices_from(xtx)] += self.lam
         try:
             self.weights = np.linalg.solve(xtx, xty)

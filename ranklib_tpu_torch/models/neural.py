@@ -22,11 +22,21 @@ Products run in full f32. An epoch ends with the mis-ordered pair count
 snapshot (strict >, from −inf), all on the device: the host reads back
 only on the epochs the console prints.
 
+A ``-sparse`` CSR file under the device budget trains from its dense
+buckets, materialized in bounded chunks (the same steps as the dense
+file's). Above it (``ops.sparse_eval.wants_sparse_eval``) the first
+layer is sparse: a query's step gathers ``W1`` rows by fid and sums each
+document's run of entries (``x @ W1`` without ``[n, F]``), and its
+gradient is ``vals · δh`` summed per fid, in fid order, into the rows it
+touches (dW1), and ``Σ δh`` (db1); both sums are ordered, so two fits on
+the card are bit-identical. The epoch's pair count and validation score
+every document through the COO layer.
+
 Initial weights are U(−0.05, 0.05) from a ``torch.Generator`` seeded with
 ``-randomSeed`` on the CPU, so the card and the CPU start alike; the
 reference draws from ``jax.random``, so the same seed gives other initial
-weights in the two packages (tests inject the reference's draws). Dense
-input on one device; ``-sparse`` and ``-dp`` are not ported yet.
+weights in the two packages (tests inject the reference's draws). One
+device; ``-dp`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -36,14 +46,19 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ranklib_tpu_torch.data.dataset import Dataset, iter_buckets
+from ranklib_tpu_torch.data.dataset import Dataset, iter_buckets, query_feats
 from ranklib_tpu_torch.device import choose_device
 from ranklib_tpu_torch.metrics.base import MetricScorer
 from ranklib_tpu_torch.models.base import (
     Ranker, model_header, parse_model_params, register_ranker,
 )
-from ranklib_tpu_torch.ops.batched_eval import full_f32_products
+from ranklib_tpu_torch.ops.batched_eval import (
+    device_class_buckets, full_f32_products,
+)
 from ranklib_tpu_torch.ops.sorting import rank_perm
+from ranklib_tpu_torch.ops.sparse_eval import (
+    build_sparse_data, sparse_scores_flat, wants_sparse_eval,
+)
 from ranklib_tpu_torch.utils.errors import RankLibError
 from ranklib_tpu_torch.utils.logging import is_silent, log
 
@@ -80,23 +95,74 @@ def _dloss_ds(loss: str, s, labels, aux, scorer: MetricScorer):
     return G.sum(0) - G.sum(1)
 
 
+@dataclass
+class SparseRows:
+    """One query's documents as COO, for the sparse first layer: its
+    entries in document order (``fids``, ``vals``, ``docpos``) with each
+    document's run length (``doc_len``), and the same entries in fid order
+    (``by_fid``) as runs of the distinct fids ``ufid`` (``fid_len``)."""
+
+    fids: torch.Tensor           # [E] int64
+    vals: torch.Tensor           # [E] f32
+    docpos: torch.Tensor         # [E] int64
+    doc_len: torch.Tensor        # [n] int64
+    by_fid: torch.Tensor         # [E] int64, a stable argsort of fids
+    ufid: torch.Tensor           # [U] int64
+    fid_len: torch.Tensor        # [U] int64
+
+
+def sparse_rows(X: np.ndarray, device) -> SparseRows:
+    """:class:`SparseRows` of a query's materialized ``[n, F]`` block."""
+    r, f = np.nonzero(X)
+    by_fid = np.argsort(f, kind="stable")
+    ufid, fid_len = np.unique(f, return_counts=True)
+    arrs = (f, X[r, f].astype(np.float32), r,
+            np.bincount(r, minlength=X.shape[0]), by_fid, ufid, fid_len)
+    return SparseRows(*(torch.from_numpy(np.ascontiguousarray(
+        a if a.dtype == np.float32 else a.astype(np.int64))).to(device)
+        for a in arrs))
+
+
+def _first_layer(W, b, x) -> torch.Tensor:
+    """σ(x @ W + b) of a dense ``[n, F]`` block or :class:`SparseRows`."""
+    if isinstance(x, SparseRows):
+        pre = torch.segment_reduce(W.index_select(0, x.fids)
+                                   * x.vals[:, None], "sum",
+                                   lengths=x.doc_len, axis=0, unsafe=True)
+        return torch.sigmoid(pre + b)
+    return torch.sigmoid(torch.addmm(b, x, W))
+
+
 def query_step(params, row, loss: str, scorer: MetricScorer,
                lr: float) -> None:
     """One SGD step on one query, in place on ``params`` ([W, b] lists):
-    ``row`` = (x [n, F], labels [n], aux) of its real documents."""
+    ``row`` = (x [n, F] or :class:`SparseRows`, labels [n], aux) of its
+    real documents."""
     x, labels, aux = row
-    hs = [x]
-    for W, b in params:
+    hs = [x, _first_layer(*params[0], x)]
+    for W, b in params[1:]:
         hs.append(torch.sigmoid(torch.addmm(b, hs[-1], W)))
     g = _dloss_ds(loss, hs[-1][:, 0], labels, aux, scorer)
     delta = g[:, None] * hs[-1] * (1.0 - hs[-1])
     grads = [None] * (2 * len(params))
     for li in range(len(params) - 1, -1, -1):
-        grads[2 * li] = hs[li].T @ delta
+        if li or not isinstance(x, SparseRows):
+            grads[2 * li] = hs[li].T @ delta
         grads[2 * li + 1] = delta.sum(0)
         if li:
             delta = (delta @ params[li][0].T) * hs[li] * (1.0 - hs[li])
-    torch._foreach_add_([t for p in params for t in p], grads, alpha=-lr)
+    if grads[0] is None:
+        # dW1 = Σ vals·δh[docpos] into rows fids, each fid's run in order
+        part = (x.vals[:, None] * delta.index_select(0, x.docpos)
+                ).index_select(0, x.by_fid)
+        dW1 = torch.segment_reduce(part, "sum", lengths=x.fid_len, axis=0,
+                                   unsafe=True)
+        params[0][0].index_add_(0, x.ufid, dW1, alpha=-lr)
+        torch._foreach_add_([t for p in params for t in p][1:], grads[1:],
+                            alpha=-lr)
+    else:
+        torch._foreach_add_([t for p in params for t in p], grads,
+                            alpha=-lr)
 
 
 @dataclass
@@ -110,44 +176,88 @@ class NNState:
     mis: torch.Tensor            # [n_epoch] mis-ordered pairs (console)
 
 
+class ScoredBuckets:
+    """A dataset's documents for the epoch's pair count and validation:
+    ``scores(params)`` yields (scores [B, D], labels, mask) a bucket: of
+    ``feats_buckets``, padded (feats, labels, mask) blocks, or of ``coo``
+    = (chunks, metric buckets, N) of ``ops.sparse_eval.build_sparse_data``
+    through the COO layer."""
+
+    def __init__(self, feats_buckets=None, coo=None):
+        self.dense = feats_buckets
+        self.coo = coo
+
+    def scores(self, params):
+        if self.coo is None:
+            for feats, labels, mask in self.dense:
+                yield _forward(params, feats), labels, mask
+            return
+        chunks, buckets, N = self.coo
+        W1, b1 = params[0]
+        h = torch.sigmoid(sparse_scores_flat(W1, chunks, N) + b1)
+        for W, b in params[1:]:
+            h = torch.sigmoid(torch.addmm(b, h, W))
+        flat = h[:, 0]
+        for labels, mask, didx in buckets:
+            yield flat[didx], labels, mask
+
+
 @dataclass
 class TrainData:
     """``rows``: one (x, labels, aux) per query with documents, in visit
-    order; ``buckets``: the padded (feats, labels, mask) blocks."""
+    order; ``buckets``: its :class:`ScoredBuckets`."""
 
     rows: list
-    buckets: list
+    buckets: ScoredBuckets
 
 
-def _upload(ds: Dataset, device) -> list:
-    """(feats [B, D, F], labels [B, D], mask [B, D], bucket) per bucket."""
-    out = []
-    for b in iter_buckets(ds, with_feats=True):
-        out.append((torch.from_numpy(b.feats).to(device),
-                    torch.from_numpy(b.labels).to(device),
-                    torch.from_numpy(b.mask).to(device), b))
-    return out
+def _aux(loss: str, labels, mask, r: int, n: int, n_docs):
+    """What a query's loss needs besides its scores: ListNet's target
+    softmax(labels) (over the padded row, as the dense bucket takes it);
+    LambdaRank's all-real mask row and doc count."""
+    if loss == "listnet":
+        return torch.softmax(torch.where(mask[r:r + 1], labels[r:r + 1],
+                                         -1e30), dim=1)[0, :n]
+    if loss == "lambdarank":
+        return mask[r:r + 1, :n], n_docs[r:r + 1]
+    return None
 
 
 def train_rows(ds: Dataset, loss: str, device) -> TrainData:
     """Upload the training buckets and cut one row a query: views of its
-    real documents, plus what its loss needs besides (ListNet's target
-    distribution; LambdaRank's all-real mask row and doc count)."""
+    real documents, plus what its loss needs besides (:func:`_aux`)."""
     rows, buckets = [], []
-    for feats, labels, mask, b in _upload(ds, device):
+    for feats, labels, mask, qidx in device_class_buckets(ds, device):
         buckets.append((feats, labels, mask))
         n_docs = mask.sum(dim=1, dtype=torch.int32)
-        if loss == "listnet":
-            target = torch.softmax(torch.where(mask, labels, -1e30), dim=1)
-        for r, qi in enumerate(b.qidx):
+        for r, qi in enumerate(qidx):
             n = ds.queries[qi].n
             if n == 0:                   # no real document: no step
                 continue
-            aux = (target[r, :n] if loss == "listnet" else
-                   (mask[r:r + 1, :n], n_docs[r:r + 1])
-                   if loss == "lambdarank" else None)
-            rows.append((feats[r, :n], labels[r, :n], aux))
-    return TrainData(rows, buckets)
+            rows.append((feats[r, :n], labels[r, :n],
+                         _aux(loss, labels, mask, r, n, n_docs)))
+    return TrainData(rows, ScoredBuckets(buckets))
+
+
+def sparse_train_rows(ds: Dataset, loss: str, device) -> TrainData:
+    """:func:`train_rows` for the sparse first layer (ref:
+    ``_sparse_query_buckets``): the same queries in the same order, each
+    row's x a :class:`SparseRows` of its materialized block, so lazy
+    ``-norm``, width clipping and a line's last duplicate fid are the
+    dense pipeline's; the documents scored through the COO layer."""
+    rows = []
+    for b in iter_buckets(ds):
+        labels = torch.from_numpy(b.labels).to(device)
+        mask = torch.from_numpy(b.mask).to(device)
+        n_docs = mask.sum(dim=1, dtype=torch.int32)
+        for r, qi in enumerate(b.qidx):
+            n = ds.queries[qi].n
+            if n == 0:
+                continue
+            rows.append((sparse_rows(query_feats(ds, qi), device),
+                         labels[r, :n],
+                         _aux(loss, labels, mask, r, n, n_docs)))
+    return TrainData(rows, ScoredBuckets(coo=build_sparse_data(ds, device)))
 
 
 def make_epoch_step(loss: str, scorer: MetricScorer, lr: float,
@@ -163,8 +273,7 @@ def make_epoch_step(loss: str, scorer: MetricScorer, lr: float,
             if track_mis:
                 tot = torch.zeros((), dtype=torch.int64,
                                   device=state.mis.device)
-                for feats, labels, mask in data.buckets:
-                    s = _forward(params, feats)
+                for s, labels, mask in data.buckets.scores(params):
                     hi = torch.where(mask, labels, -torch.inf)
                     lo = torch.where(mask, labels, torch.inf)
                     bad = ((hi[:, :, None] > lo[:, None, :])
@@ -174,9 +283,9 @@ def make_epoch_step(loss: str, scorer: MetricScorer, lr: float,
             if vb:
                 tot = torch.zeros((), dtype=torch.float32,
                                   device=state.val_m.device)
-                for feats, labels, mask in vb:
-                    tot = tot + scorer.score_from_scores(
-                        labels, _forward(params, feats), mask).sum()
+                for s, labels, mask in vb.scores(params):
+                    tot = tot + scorer.score_from_scores(labels, s,
+                                                         mask).sum()
                 val = tot / n_val_q
                 state.val_m[t] = val
                 better = val > state.best_val
@@ -221,9 +330,16 @@ class RankNet(Ranker):
                             self._layer_sizes(F))
         params = [[torch.as_tensor(np.array(a, np.float32)).to(device)
                    for a in p] for p in init]
-        data = train_rows(train, self.LOSS, device)
-        vb = ([t[:3] for t in _upload(validation, device)]
-              if validation is not None else [])
+        vb = None
+        if wants_sparse_eval(train):
+            data = sparse_train_rows(train, self.LOSS, device)
+            if validation is not None:
+                vb = ScoredBuckets(coo=build_sparse_data(validation, device))
+        else:
+            data = train_rows(train, self.LOSS, device)
+            if validation is not None:
+                vb = ScoredBuckets([t[:3] for t in device_class_buckets(
+                    validation, device)])
         n_val_q = len(validation.queries) if validation is not None else 1
         step = make_epoch_step(self.LOSS, scorer, float(self.learning_rate),
                                n_val_q, track_mis=not is_silent())

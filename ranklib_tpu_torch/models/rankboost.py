@@ -21,8 +21,12 @@ reversed cumulative sum and the pick a first argmax.
 
 A round runs on the device and reads nothing back; the weak rankers are
 read once after the fit. The console table reads a round's metrics when
-it prints them. Flags: ``-round`` 300, ``-tc`` 10. Dense input on one
-device; ``-sparse`` and data parallelism are not ported yet.
+it prints them. Flags: ``-round`` 300, ``-tc`` 10.
+
+A ``-sparse`` CSR file bins in bounded row chunks (:func:`bin_csr_chunks`)
+straight into the device's ``[F, N]`` ids, the same ids as the dense
+file's, so the fit is the same. One device; data parallelism is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from ranklib_tpu_torch.metrics.base import MetricScorer
 from ranklib_tpu_torch.models.base import (
     Ranker, model_header, parse_model_params, register_ranker,
 )
-from ranklib_tpu_torch.ops.batched_eval import full_f32_products
+from ranklib_tpu_torch.ops.batched_eval import blockwise_scores
 from ranklib_tpu_torch.ops.histogram import histogram
 from ranklib_tpu_torch.utils.errors import RankLibError
 from ranklib_tpu_torch.utils.logging import is_silent, log
@@ -59,10 +63,48 @@ def threshold_grid(feats: np.ndarray, T: int) -> np.ndarray:
     """``[F, T]`` f32: T evenly spaced thresholds strictly inside each
     feature's [min, max] (a constant feature's all equal, never a useful
     split)."""
-    lo = feats.min(axis=0)
-    hi = feats.max(axis=0)
+    return _grid(feats.min(axis=0), feats.max(axis=0), T)
+
+
+def _grid(lo: np.ndarray, hi: np.ndarray, T: int) -> np.ndarray:
     return lo[:, None] + (hi - lo)[:, None] * (
         np.arange(1, T + 1, dtype=np.float32)[None, :] / (T + 1))
+
+
+def bin_csr_chunks(ds, T: int, device: torch.device,
+                   grid: np.ndarray | None = None):
+    """(grid, ``[F, N]`` bins on ``device``) of a CSR dataset, in row chunks
+    of ``RANKLIB_TPU_SPARSE_CHUNK_MB`` (ref: ``RankBoost._bin_csr_chunks``).
+    Two passes: min/max over the materialized rows, implicit zeros
+    included, so the grid is the dense pipeline's bit for bit; then each
+    chunk's bins go up into their columns. ``grid``: bin on a given grid
+    (validation on the training grid). The host holds one chunk: in the
+    binning pass its f32 rows, their int32 and int16 bins and the
+    transposed copy (12 B a value), so ``[N, F]`` never lands on the
+    host."""
+    from ranklib_tpu_torch.data.sparse import _chunk_bytes
+
+    N, F = ds.n_docs, ds.n_features
+    rows = max(1, _chunk_bytes() // (max(1, F) * 4))
+    if grid is None:
+        lo = np.full(F, np.inf, np.float32)
+        hi = np.full(F, -np.inf, np.float32)
+        for s in range(0, N, rows):
+            X = ds.materialize_rows(s, min(s + rows, N))
+            np.minimum(lo, X.min(axis=0), out=lo)
+            np.maximum(hi, X.max(axis=0), out=hi)
+        grid = _grid(lo, hi, T)
+    bdt = bin_dtype(T)
+    binned_T = torch.empty((F, N), dtype=(
+        torch.int16 if bdt == np.int16 else torch.int32), device=device)
+    rows = max(1, rows // 3)
+    for s in range(0, N, rows):
+        e = min(s + rows, N)
+        b = bin_features(ds.materialize_rows(s, e), grid).astype(bdt)
+        binned_T[:, s:e] = torch.from_numpy(np.ascontiguousarray(b.T)).to(
+            device)
+        del b
+    return grid, binned_T
 
 
 @dataclass
@@ -199,10 +241,20 @@ class RankBoost(Ranker):
         """Bin, upload and build the round: (step, state, data, grid);
         ``step(state, t, data)`` runs round t."""
         T = int(self.n_threshold)
-        feats, _, _ = flatten(train)
-        N, F = feats.shape
-        grid = threshold_grid(feats, T)
-        binned = bin_features(feats, grid)
+        N, F = train.n_docs, train.n_features
+        bdt = bin_dtype(T)
+
+        def upload_T(b):
+            return torch.from_numpy(np.ascontiguousarray(
+                b.T.astype(bdt, copy=False))).to(device)
+
+        if hasattr(train, "materialize_rows"):
+            grid, binned_T = bin_csr_chunks(train, T, device)
+        else:
+            feats = flatten(train)[0]
+            grid = threshold_grid(feats, T)
+            binned_T = upload_T(bin_features(feats, grid))
+            del feats
         # the initial D, uniform over correctly ordered pairs, is H = 0;
         # the pairs are counted only to refuse data that has none
         uniq = np.unique(np.concatenate(
@@ -214,21 +266,17 @@ class RankBoost(Ranker):
             n_pairs += int((cnt * (np.cumsum(cnt) - cnt)).sum())
         if n_pairs == 0:
             raise RankLibError("RankBoost: no correctly-ordered pairs in data")
-        bdt = bin_dtype(T)
-
-        def upload_T(b):
-            return torch.from_numpy(np.ascontiguousarray(
-                b.T.astype(bdt, copy=False))).to(device)
-
         Nv, vb = 0, []
         vq_T = torch.zeros((F, 0), dtype=torch.int32, device=device)
         if validation is not None:
-            vbinned = bin_features(flatten(validation)[0], grid)
-            Nv = vbinned.shape[0]
-            vq_T = upload_T(vbinned)
+            Nv = validation.n_docs
+            if hasattr(validation, "materialize_rows"):
+                vq_T = bin_csr_chunks(validation, T, device, grid)[1]
+            else:
+                vq_T = upload_T(bin_features(flatten(validation)[0], grid))
             vb = _upload(_host_buckets(validation, Nv), device)
         data = RBData(
-            binned_T=upload_T(binned),
+            binned_T=binned_T,
             ones=torch.ones(N, dtype=torch.bool, device=device),
             tb=_upload(_host_buckets(train, N), device),
             uniq=torch.from_numpy(uniq).to(device), vq_T=vq_T, vb=vb)
@@ -298,14 +346,10 @@ class RankBoost(Ranker):
         inrange = np.array([w[0] <= F for w in self.weaks], np.float32)
         thetas = np.array([w[1] for w in self.weaks], np.float32)
         alphas = np.array([w[2] for w in self.weaks], np.float32) * inrange
-        feats, _, qptr = flatten(ds)
-        X = torch.from_numpy(feats).to(device)
-        q = (X[:, torch.from_numpy(fids).to(device)]
-             > torch.from_numpy(thetas).to(device)).to(torch.float32)
-        with full_f32_products():
-            flat = torch.matmul(q, torch.from_numpy(alphas).to(device))
-        flat = flat.cpu().numpy()
-        return [flat[qptr[i]: qptr[i + 1]] for i in range(len(ds.queries))]
+        fids, thetas, alphas = (torch.from_numpy(a).to(device)
+                                for a in (fids, thetas, alphas))
+        return blockwise_scores(ds, lambda X: torch.matmul(
+            (X[:, fids] > thetas).to(torch.float32), alphas), device)
 
     def model_str(self) -> str:
         head = model_header(self.NAME, {

@@ -10,9 +10,9 @@ linear and boosting rankers — Coordinate Ascent with no ``-ranker``,
 RankBoost, AdaRank, Linear Regression — under ``-norm`` prints the
 reference's metric lines, and each saved model scores alike in the other
 package. A subprocess pins that the port serves, trains (every ported
-ranker, also with ``-qrel`` and ``-kcv``), trains and serves tree models
-with ``-sparse``, runs ``-ana`` and combines with JAX unimportable and never
-loads the reference.
+ranker, also with ``-qrel`` and ``-kcv``), trains and serves every
+ranker's models with ``-sparse``, runs ``-ana`` and combines with JAX
+unimportable and never loads the reference.
 """
 
 import os
@@ -124,28 +124,52 @@ def test_feature_subset_matches_reference(files):
 
 @pytest.mark.parametrize("extra", [
     ["-train", "x.txt", "-resume", "m.txt"],
-    ["-train", "x.txt", "-kcv", "3", "-sparse"],
-    ["-train", "x.txt", "-ranker", "1", "-sparse"],
-    ["-train", "x.txt", "-ranker", "2", "-qrel", "q.txt", "-sparse"],
-    ["-train", "x.txt", "-ranker", "9", "-norm", "zscore", "-sparse"],
+    ["-train", "train.txt", "-kcv", "3", "-r", "1", "-i", "4", "-sparse"],
+    ["-train", "train.txt", "-ranker", "1", "-epoch", "5", "-sparse"],
+    ["-train", "train.txt", "-ranker", "2", "-round", "20", "-qrel",
+     "q.txt", "-sparse"],
+    ["-train", "train.txt", "-ranker", "9", "-norm", "zscore", "-sparse"],
     ["-ana"], ["-combine", "d"],
 ], ids=["train", "kcv", "sparse", "qrel", "norm", "ana", "combine"])
-def test_unported_flows_exit_cleanly(files, extra, capsys):
+def test_unported_flows_exit_cleanly(files, extra, capsys, monkeypatch):
     """-train itself is ported; the training flags that are not (here
-    -resume) still exit cleanly. -sparse is ported for the tree rankers
-    only: with a raw-value ranker (here the default Coordinate Ascent,
-    RankNet, RankBoost and Linear Regression) it is refused, with -kcv,
-    -qrel and -norm too. -ana and -combine are ported, and without -all
-    -base or -o exit with the reference's errors."""
-    _, model, test = files
+    -resume) still exit cleanly. -sparse is ported for every ranker: with
+    a raw-value ranker (here the default Coordinate Ascent under -kcv,
+    RankNet, RankBoost with -qrel and Linear Regression with -norm) the
+    same command line runs in both CLIs and prints the same result lines
+    (RankNet from the reference's initial draws). -ana and -combine are
+    ported, and without -all -base or -o exit with the reference's
+    errors."""
+    d, model, test = files
+    if "-sparse" in extra:
+        import jax
+
+        from ranklib_tpu.models import neural as RN
+        from ranklib_tpu_torch.models import neural as PN
+
+        monkeypatch.setattr(PN, "_init_params", lambda gen, sizes: [
+            (np.asarray(W), np.asarray(b)) for W, b in RN._init_params(
+                jax.random.PRNGKey(gen.initial_seed()), sizes)])
+        qrel = d / "q.txt"
+        with open(d / "train.txt") as f, open(qrel, "w") as g:
+            for i, line in enumerate(f):
+                qid, doc = line.split()[1][4:], line.split("#")[1].strip()
+                g.write(f"{qid} 0 {doc} {(i * 7) % 3}\n")
+        argv = ["-load", model, "-test", test, "-metric2t", "NDCG@10",
+                *[str(d / a) if a.endswith(".txt") else a for a in extra]]
+        lines = {}
+        for name, main in (("ref", ref_main), ("port", port_main)):
+            assert main(argv) == 0
+            lines[name] = [ln for ln in capsys.readouterr().out.splitlines()
+                           if (" on " in ln and "data:" in ln)
+                           or ln.startswith(("Fold ", "Avg.", "Relevance"))]
+        assert lines["port"] == lines["ref"]
+        assert len(lines["port"]) >= (5 if "-kcv" in extra else 1)
+        return
     rc = port_main(["-load", model, "-test", test, *extra])
     assert rc == 1
     flag = [a for a in extra if a.startswith("-")][-1]
-    ranker = extra[extra.index("-ranker") + 1] if "-ranker" in extra else "4"
-    want = {"-sparse": f"Error: -sparse with -ranker {ranker} (the "
-                       f"raw-value rankers' -sparse) is not yet ported to "
-                       f"ranklib_tpu_torch",
-            "-ana": "Error: -ana requires -all <dir> and -base <file>",
+    want = {"-ana": "Error: -ana requires -all <dir> and -base <file>",
             "-combine": "Error: -combine requires -o <output model file>",
             }.get(flag, f"Error: {flag} is not yet ported to "
                         f"ranklib_tpu_torch")
@@ -287,9 +311,14 @@ def test_port_runs_without_jax_or_the_reference(files):
         "        assert rc == 0, rc\n"
         f"    rc = main(['-load', m, '-rank', {test!r}, '-sparse'])\n"
         "    assert rc == 0, rc\n"
-        f"rc = main(['-train', {str(d / 'train.txt')!r}, '-ranker', '4', "
-        f"'-sparse'])\n"
-        "assert rc == 1, rc\n"
+        "for r in ('4', '2', '3', '9', '1', '5', '7'):\n"
+        f"    m = os.path.join({str(d)!r}, 'nojax_sparse' + r + '.txt')\n"
+        f"    rc = main(['-train', {str(d / 'train.txt')!r}, '-ranker', r, "
+        f"'-r', '1', '-i', '3', '-round', '3', '-epoch', '1', '-sparse', "
+        f"'-save', m])\n"
+        "    assert rc == 0, rc\n"
+        f"    rc = main(['-load', m, '-test', {test!r}, '-sparse'])\n"
+        "    assert rc == 0, rc\n"
         f"os.makedirs({str(d / 'nojax_idv')!r}, exist_ok=True)\n"
         "for m in ('nojax_model.txt', 'nojax_4.txt', 'nojax_9.txt'):\n"
         f"    rc = main(['-load', os.path.join({str(d)!r}, m), '-test', "

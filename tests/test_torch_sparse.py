@@ -457,11 +457,18 @@ def test_sparse_load_test_and_rank_match_reference(files, tmp_path,
 
 def test_sparse_load_of_a_raw_value_model_is_refused(files, tmp_path,
                                                      capsys):
+    """Once the port refused -sparse with a loaded raw-value model; it
+    now serves it (the raw-value rankers' -sparse): the same line as the
+    dense load and the reference's -sparse load."""
     model = str(tmp_path / "lin.txt")
     assert port_main(["-train", files["train"], "-ranker", "9",
                       "-missingZero", "-silent", "-save", model]) == 0
     capsys.readouterr()
-    assert port_main(["-load", model, "-test", files["test"],
-                      "-missingZero", "-sparse"]) == 1
-    assert ("-sparse with a loaded Linear Regression model is not yet "
-            "ported" in capsys.readouterr().out)
+    lines = []
+    for main, extra in ((port_main, ["-sparse"]), (port_main, []),
+                        (ref_main, ["-sparse"])):
+        assert main(["-load", model, "-test", files["test"],
+                     "-missingZero", *extra]) == 0
+        lines.append([ln for ln in capsys.readouterr().out.splitlines()
+                      if " on test data" in ln])
+    assert lines[0] == lines[1] == lines[2] and len(lines[0]) == 1
