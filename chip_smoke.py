@@ -4,9 +4,10 @@ the linear and boosting rankers (Coordinate Ascent, the CLI's default;
 RankBoost; AdaRank; Linear Regression), the neural rankers (RankNet,
 LambdaRank, ListNet), ``-kcv`` and ``-qrel``, ``-sparse`` for every
 ranker (the raw-value rankers on both routes, the COO layer included)
-and ``-ana``, and the opt-in routes and tools that hold the last
-kernels: fused lambdas, split bin-space serving, the predicate epilogue
-and the compiler probes.
+and ``-ana``, the training extensions (``-ckpt``, ``-eventlog``,
+``-profile``, ``-resume``, ``-dp``) and the library API, and the opt-in
+routes and tools that hold the last kernels: fused lambdas, split
+bin-space serving, the predicate epilogue and the compiler probes.
 
 Run from the repository root with no arguments::
 
@@ -193,13 +194,41 @@ Phases, none of whose failures is caught:
     a document; COO by default): AdaRank -round 5, RankNet -epoch 1 and
     RankBoost -round 20 -tc 10 through the CLI in a process of its own
     (wall, host peak RSS above the process after a warm-up on 2 queries,
-    B1 launches), and B1 held on RankBoost's [50,000, 8,000] ids.
+    B1 launches), and B1 held on RankBoost's [50,000, 8,000] ids;
+20. the extensions on phase 5's training set (written as LETOR text),
+    each part with the launch counters at 0: ``-train -ranker 6 -tree 20
+    -ckpt 10 -eventlog -profile -save`` through the CLI (B1 and B2 20 x 9
+    launches; the checkpoint equal to the saved model; 20 ``"round"``
+    records equal to the printed table; B1's and B2's kernels in the
+    ``torch.profiler`` trace); ``-resume`` of a 10-tree checkpoint to 20
+    trees (the warm-start line, the prior trees verbatim, B1 10 x 9, every
+    B4 launch bit-equal to the plain version on its own ids, the metric
+    within 0.05 of the straight fit's); ``-dp 2`` as two gloo ranks on
+    the card (a ``parallel.dist.Mesh`` of two ranks on one device; every
+    rank's model equal, each rank's B1 and B2 20 x 9, none in the parent;
+    inside each rank the first tree's 9 B1 launches held against the
+    plain version on the rank's own shard, counts exact and sums within
+    HIST_TOL, and the two roots counting every training document once;
+    B1 alone on rank 0's shard, rebuilt in the parent: exact against the
+    plain version, timed beside it, ``index_add_`` and its bound;
+    the first tree equal to the single-device fit's; ms a round, from
+    the event logs, beside the single-device fit's; the metric within
+    0.03); the
+    CLI's ``-dp 2`` (on one card the single-device fit: the same model
+    bytes; over NCCL when there are more cards); Random Forests ``-bag 4
+    -dp 2`` under gloo (every rank's bags equal, B1 4 x 99 a rank, the
+    first 9 held in each rank as above, no B7; within 0.03 of the
+    single-device forest); ``api.train`` and ``api.evaluate`` (the CLI's
+    model bytes and metric line, every B4 launch bit-equal to the plain
+    version).
 
 Every kernel's line in the JSON record carries its launches on its paths
 (the histogram's: LambdaMART's fit, RankBoost's, phase 18's ``-sparse``
 fit and phase 19's two ``-sparse`` RankBoost fits, each also under
 ``paths`` with its shape and times;
-B2's, B4's and B7's also phase 18's ``-sparse`` runs), its error against
+B2's, B4's and B7's also phase 18's ``-sparse`` runs; B1's, B2's and B4's
+also phase 20's, B1's and B2's ``-dp`` ranks also under ``paths``, with
+ms a round beside the single-device fit's), its error against
 the plain
 version, its time and the plain version's, its bound (bytes over 3.35
 TB/s or operations over the published peak, whichever is larger, from
@@ -1006,7 +1035,8 @@ def training_phase(dev) -> dict:
           "two fits of the same data gave different models")
     print("  a second fit A gave the same model text (deterministic)")
 
-    step, state, data, _ = fit_a.prepare_fit(train, scorer, None, dev)
+    step, state, data, _ = LambdaMART(**hp).prepare_fit(train, scorer, None,
+                                                      dev)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -3359,11 +3389,13 @@ def sparse_phase(dev, tmp, smi) -> dict:
 
 
 def write_letor(path, X, labels, qptr):
+    # one %-format a document (the same text as a format a value)
+    fmt = " ".join(f"{j + 1}:%.6g" for j in range(X.shape[1]))
+    rows = X.tolist()
     with open(path, "w") as f:
         for q in range(len(qptr) - 1):
             for i in range(qptr[q], qptr[q + 1]):
-                feats = " ".join(f"{j + 1}:{v:.6g}" for j, v in enumerate(X[i]))
-                f.write(f"{int(labels[i])} qid:{q + 1} {feats} "
+                f.write(f"{int(labels[i])} qid:{q + 1} {fmt % tuple(rows[i])} "
                         f"# doc{q + 1}_{i - qptr[q]}\n")
 
 
@@ -3940,6 +3972,412 @@ def wide_phase(dev, tmp, smi) -> dict:
     return {"runs": runs, "b1": b1,
             "peak_above": max(r["peak"] - r["start"] for r in runs)}
 
+# phase 20: the extensions at the training width — a 20-tree LambdaMART
+# (-ckpt 10; a 10-tree checkpoint resumed to 20), -dp 2 as two gloo ranks
+# on the one card, a 4-bag Random Forest under -dp 2
+EXT_TREES, EXT_CKPT, EXT_BAGS = 20, 10, 4
+
+
+def round_ms(path: str) -> float:
+    """Median ms between consecutive ``"round"`` records of an event log
+    (a fit's own clock: rank 0's under ``-dp``)."""
+    t = [json.loads(ln)["t"] for ln in open(path)
+         if json.loads(ln)["event"] == "round"]
+    return float(np.median(np.diff(t))) * 1e3
+
+
+def trace_kernels(prof: str) -> set:
+    """Names of the CUDA kernels in the torch.profiler traces of ``prof``."""
+    import glob
+
+    names = set()
+    for path in glob.glob(os.path.join(prof, "*.pt.trace.json")):
+        with open(path) as f:
+            names |= {e.get("name", "") for e in json.load(f)["traceEvents"]
+                      if e.get("cat") == "kernel"}
+    return names
+
+
+def counts():
+    from ranklib_tpu_torch.models.gbdt import launch_counts
+
+    return launch_counts()
+
+
+def zero_counts():
+    from ranklib_tpu_torch.ops import forest_eval as fe
+    from ranklib_tpu_torch.ops import histogram as H
+    from ranklib_tpu_torch.ops import lambda_kernel as LK
+    from ranklib_tpu_torch.ops import split_scan as SS
+
+    H.histogram.launches = SS.best_splits.launches = 0
+    LK.lambda_round.launches = fe.forest_eval_frombins.launches = 0
+    H.histogram_multi.launches = 0
+
+
+def _held_rank(fn, n_hold, out_dir, rank, device, group, *args):
+    """A ``-dp`` rank's ``fn`` with its first ``n_hold`` histogram launches
+    (the first tree's root and right children) held against the plain
+    version on the very card tensors the rank gave them — counts exact,
+    sums within HIST_TOL — and the rank's root document count kept; the
+    findings go to ``out_dir/rank<r>.json`` for the parent to check, and
+    ``fn``'s result is returned untouched. The held plain launches count
+    nowhere."""
+    from ranklib_tpu_torch.gbdt import grow
+    from ranklib_tpu_torch.ops import histogram as H
+
+    orig, held = grow.histogram, []
+
+    def hist(binsT, grad, w, B):
+        got = orig(binsT, grad, w, B)
+        if len(held) < n_hold:
+            want = H.histogram_plain(binsT, grad, w, B)
+            held.append({
+                "shape": [*binsT.shape, B], "dtype": str(binsT.dtype),
+                "device": str(got.device),
+                "counts_equal": bool(torch.equal(got[..., 1], want[..., 1])),
+                "sums_close": bool(torch.allclose(got[..., 0], want[..., 0],
+                                                  **HIST_TOL)),
+                "max_abs_err": float((got - want).abs().max()),
+                "docs": float(got[0, :, 1].sum())})
+        return got
+
+    grow.histogram = hist
+    try:
+        out = fn(rank, device, group, *args)
+    finally:
+        grow.histogram = orig
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(held, f)
+    return out
+
+
+@contextlib.contextmanager
+def held_ranks(n_ranks: int, n_hold: int, tmp: str, calls: list):
+    """Inside the block every ``-dp`` run's ranks go through
+    :func:`_held_rank`; at its end each rank's findings are appended to
+    ``calls`` (a list of held launches a rank) and checked: ``n_hold``
+    launches a rank, each on the card, counts exact and sums within
+    HIST_TOL of the plain version. The rank function must pickle by
+    name, so it is taken from this script imported as a module."""
+    import functools
+    import importlib
+
+    from ranklib_tpu_torch.parallel import dist
+
+    me = importlib.import_module("chip_smoke")
+    out_dir = tempfile.mkdtemp(dir=tmp)
+    orig = dist.run
+
+    def run(mesh, fn, *args, **kw):
+        return orig(mesh, functools.partial(me._held_rank, fn, n_hold,
+                                            out_dir), *args, **kw)
+
+    dist.run = run
+    try:
+        yield
+    finally:
+        dist.run = orig
+    for r in range(n_ranks):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            calls.append(json.load(f))
+        check(len(calls[r]) == n_hold,
+              f"rank {r} held {len(calls[r])} histogram launches, not "
+              f"{n_hold}")
+        check(all(c["device"].startswith("cuda") for c in calls[r]),
+              f"rank {r}'s histograms were not on the card")
+        check(all(c["counts_equal"] and c["sums_close"] for c in calls[r]),
+              f"rank {r}'s histogram differs from the plain version on its "
+              f"own shard: {calls[r]}")
+
+
+def metric_line(out: str, what: str = "training") -> str:
+    lines = [ln for ln in out.splitlines() if f" on {what} data: " in ln]
+    check(len(lines) == 1, f"no '{what} data' line:\n{out[-2000:]}")
+    return lines[0]
+
+
+def extensions_phase(dev, fit, tmp, smi) -> dict:
+    """Phase 20 on phase 5's training set, through the CLI, the fits' own
+    ``mesh`` argument and the library API (each part with the launch
+    counters at 0): -ckpt, -eventlog and -profile; -resume; -dp 2 as two
+    gloo ranks on the card; the CLI's -dp 2 (one card: the single-device
+    fit); Random Forests under -dp 2; api.train and api.evaluate."""
+    from ranklib_tpu_torch import api, cli
+    from ranklib_tpu_torch.gbdt import ensemble as ens_mod
+    from ranklib_tpu_torch.metrics.base import create_scorer, score_dataset
+    from ranklib_tpu_torch.models import gbdt as G
+    from ranklib_tpu_torch.models.gbdt import LambdaMART
+    from ranklib_tpu_torch.models.rf import RFRanker
+    from ranklib_tpu_torch.ops import histogram as H
+    from ranklib_tpu_torch.parallel import dist
+    from ranklib_tpu_torch.utils.logging import set_event_log
+
+    t0 = time.perf_counter()
+    train_path = os.path.join(tmp, "p20_train.txt")
+    write_dataset(train_path, fit["train"])
+    print(f"  wrote the training set as LETOR text in "
+          f"{time.perf_counter() - t0:.1f} s")
+    base = ["-train", train_path, "-ranker", "6", "-metric2t", "NDCG@10",
+            "-leaf", str(N_LEAVES)]
+    want = EXT_TREES * (N_LEAVES - 1)
+    out = {}
+
+    # -ckpt, -eventlog, -profile
+    m, ev, prof = (os.path.join(tmp, f"p20_{x}") for x in ("m.txt", "ev",
+                                                           "prof"))
+    zero_counts()
+    rc, text = quiet(cli.main, [*base, "-tree", str(EXT_TREES), "-ckpt",
+                                str(EXT_CKPT), "-save", m, "-eventlog", ev,
+                                "-profile", prof])
+    torch.cuda.synchronize()
+    c = counts()
+    check(rc == 0, f"-ckpt -eventlog -profile failed:\n{text[-2000:]}")
+    print(f"  -tree {EXT_TREES} -ckpt {EXT_CKPT} -eventlog -profile: "
+          f"{metric_line(text)}; launches {c}")
+    check(c["histogram"] == want and c["split_scan"] == want,
+          f"B1/B2 launches are not {EXT_TREES} x {N_LEAVES - 1}")
+    check(c["lambda_pairs"] == 0, "the default route launched B5")
+    check(open(m + ".ckpt").read() == open(m).read(),
+          "the last checkpoint is not the saved model")
+    recs = [json.loads(ln) for ln in open(ev)]
+    table = [ln.split("|")[1].strip() for ln in text.splitlines()
+             if ln[:1].isdigit() and "|" in ln]
+    check(len(recs) == EXT_TREES
+          and [r["round"] for r in recs] == list(range(1, EXT_TREES + 1))
+          and [f"{r['train_metric']:.4f}" for r in recs] == table,
+          "the event log's rounds are not the printed table")
+    kern = trace_kernels(prof)
+    hist_k = sorted(k for k in kern if "columns_kernel" in k)
+    scan_k = sorted(k for k in kern if "split_scan_kernel" in k)
+    print(f"  {len(recs)} round records equal to the table; the trace holds "
+          f"{len(kern)} kernel names, B1's {hist_k[:1]}, B2's {scan_k[:1]}")
+    check(hist_k and scan_k, "the trace lacks B1's or B2's kernel")
+    out["ckpt"] = c
+
+    # -resume of a 10-tree checkpoint up to 20 trees
+    m10 = os.path.join(tmp, "p20_m10.txt")
+    rc, _ = quiet(cli.main, [*base, "-tree", str(EXT_CKPT), "-ckpt",
+                             str(EXT_CKPT), "-save", m10])
+    check(rc == 0 and open(m10 + ".ckpt").read() == open(m10).read(),
+          "the 10-tree checkpoint run failed")
+    mres = os.path.join(tmp, "p20_resumed.txt")
+    zero_counts()
+    fb_calls = []
+    with kept_calls(ens_mod, "forest_eval_frombins", fb_calls):
+        rc, text_r = quiet(cli.main, [*base, "-tree", str(EXT_TREES),
+                                      "-resume", m10 + ".ckpt", "-save",
+                                      mres])
+    torch.cuda.synchronize()
+    c = counts()
+    check(rc == 0, f"-resume failed:\n{text_r[-2000:]}")
+    warm = [ln for ln in text_r.splitlines() if ln.startswith("Warm start")]
+    prior = open(m10).read().split("</tree>")[:EXT_CKPT]
+    kept = open(mres).read().split("</tree>")[:EXT_CKPT]
+    strip = lambda trees: [t[t.find("<tree"):] for t in trees]
+    m_straight = float(metric_line(text).split()[-1])
+    m_resumed = float(metric_line(text_r).split()[-1])
+    print(f"  -resume: {warm}; launches {c}; prior trees kept verbatim: "
+          f"{strip(kept) == strip(prior)}; NDCG@10 {m_resumed:.4f} vs "
+          f"straight {m_straight:.4f}")
+    check(warm == [f"Warm start from {EXT_CKPT} trees "
+                   f"({EXT_TREES - EXT_CKPT} rounds to go)"],
+          "no warm-start line")
+    check(strip(kept) == strip(prior), "the prior trees were not kept")
+    check(c["histogram"] == (EXT_TREES - EXT_CKPT) * (N_LEAVES - 1),
+          "B1 launches of the resumed fit are not 10 x 9")
+    check(c["forest_eval_frombins"] > 0, "the warm start did not launch B4")
+    check(len(fb_calls) == c["forest_eval_frombins"],
+          "a B4 launch of the resumed fit was not kept")
+    hold_frombins(fb_calls, "the -resume warm start")
+    print(f"  the resumed fit's {len(fb_calls)} B4 launches (ids "
+          f"{[list(a[0].shape) for a, _, _ in fb_calls]}, trees "
+          f"{[int(a[1].split_roots.numel()) for a, _, _ in fb_calls]}) "
+          f"bit-equal to the plain version")
+    del fb_calls
+    check(abs(m_resumed - m_straight) <= 0.05,
+          "the resumed fit is more than 0.05 off the straight fit")
+    out["resume"] = c
+
+    # -dp 2: two gloo ranks on the one card, beside the single-device fit
+    scorer = create_scorer("NDCG@10")
+    hp = dict(n_trees=EXT_TREES, n_leaves=N_LEAVES, early_stop=0)
+    single, ev_1 = LambdaMART(**hp), os.path.join(tmp, "p20_ev1")
+    set_event_log(ev_1)
+    quiet(single.fit, fit["train"], scorer, device=dev)
+    set_event_log(None)
+    mesh = dist.Mesh((dev, dev), "gloo")
+    seen = []
+    check_models = G.check_same_models
+
+    def keep(ensembles):
+        seen.append(len({e.to_text() for e in ensembles}))
+        check_models(ensembles)
+
+    G.check_same_models = keep
+    meshed, ev_2 = LambdaMART(**hp), os.path.join(tmp, "p20_ev2")
+    zero_counts()
+    set_event_log(ev_2)
+    held = []
+    try:
+        with held_ranks(mesh.size, N_LEAVES - 1, tmp, held):
+            t1 = time.perf_counter()
+            _, text_d = quiet(meshed.fit, fit["train"], scorer, device=dev,
+                              mesh=mesh)
+            wall_dp = time.perf_counter() - t1
+    finally:
+        set_event_log(None)
+        G.check_same_models = check_models
+    ranks = meshed.rank_launches
+    parent = counts()
+    n_docs = sum(q.n for q in fit["train"].queries)
+    root_docs = [calls[0]["docs"] for calls in held]
+    b1_err = max(c["max_abs_err"] for calls in held for c in calls)
+    print(f"  -dp 2: each rank's first {N_LEAVES - 1} B1 launches (the first "
+          f"tree) held against the plain version on its own shard "
+          f"{held[0][0]['shape']} {held[0][0]['dtype']}: counts exact, sums "
+          f"max_abs_err {b1_err:.3e} (HIST_TOL); the ranks' roots count "
+          f"{root_docs} of the {n_docs} training documents")
+    check(sum(root_docs) == n_docs,
+          "the ranks' root histograms do not count every training document "
+          "once")
+    # B1 timed alone at a rank's shape: rank 0's shard of the same bins,
+    # built here (in the fit the two ranks share the card)
+    from ranklib_tpu_torch.gbdt.boost_dist import build_sharded_data
+    from ranklib_tpu_torch.gbdt.binning import bin_features
+
+    feats, _, _, thr, binned, _, _ = G.flatten_binned(fit["train"], 256)
+    if binned is None:
+        binned = bin_features(feats, thr)
+    shard, _, _ = build_sharded_data(fit["train"], binned, mesh.size, 0,
+                                     dev)
+    print(f"  B1 alone on rank 0's shard {list(shard.binned_T.shape)} "
+          f"{shard.binned_T.dtype}:")
+    b1_shard, _ = hist_point(shard.binned_T, shard.doc_mask, 256)
+    print(f"    {b1_shard['ms']:.4f} ms vs plain {b1_shard['plain_ms']:.4f}, "
+          f"index_add_ {b1_shard['library_ms']:.4f}, bound "
+          f"{b1_shard['bound_ms']:.4f} ({b1_shard['bound_by']})  [{smi}]")
+    del feats, binned, shard
+    m_single, _ = score_dataset(scorer, fit["train"], single.eval_dataset(
+        fit["train"], dev), dev)
+    m_dp, _ = score_dataset(scorer, fit["train"], meshed.eval_dataset(
+        fit["train"], dev), dev)
+    t_s, t_d = single.ensemble.trees[0], meshed.ensemble.trees[0]
+    first_same = all(np.array_equal(getattr(t_s, f), getattr(t_d, f))
+                     for f in ("feature", "threshold", "left", "right"))
+    ms_1, ms_2 = round_ms(ev_1), round_ms(ev_2)
+    print(f"  -dp 2 (gloo, 2 ranks on {torch.cuda.get_device_name(0)}): "
+          f"fit wall {wall_dp:.1f} s with rank start-up; rank launches "
+          f"{ranks}; the parent's B1 {parent['histogram']}; ranks' models "
+          f"equal: {seen == [1]}")
+    print(f"    first tree: single-device features "
+          f"{t_s.feature[~t_s.is_leaf].tolist()}, -dp "
+          f"{t_d.feature[~t_d.is_leaf].tolist()}; the same structure and "
+          f"thresholds: {first_same}")
+    print(f"    ms a round (event log, median): single device {ms_1:.3f}, "
+          f"-dp 2 {ms_2:.3f}; train NDCG@10 {m_single:.6f} vs {m_dp:.6f}  "
+          f"[{smi}]")
+    check(seen == [1], "the ranks' models differ")
+    check(first_same, "the -dp fit's first tree is not the single-device "
+                      "fit's")
+    check(all(r["histogram"] == want and r["split_scan"] == want
+              for r in ranks), "a rank's B1/B2 launches are not 20 x 9")
+    check(parent["histogram"] == 0, "the parent grew trees under -dp")
+    check(abs(m_single - m_dp) <= 0.03,
+          "the -dp fit is more than 0.03 off the single-device fit")
+    from ranklib_tpu_torch.gbdt.boost_dist import _shard_queries
+
+    n0 = sum(fit["train"].queries[qi].n
+             for qi in _shard_queries(fit["train"], 2)[0])
+    out["dp"] = {"ranks": ranks, "ms_round": ms_2, "ms_round_single": ms_1,
+                 "first_tree_same": first_same, "wall_s": wall_dp,
+                 "b1_max_abs_err": b1_err, "b1_shard": b1_shard,
+                 "shape": [N_FEATURES, G._pad_doc_count(n0), 256]}
+
+    # the CLI's -dp 2 on this machine
+    mdp = os.path.join(tmp, "p20_dp.txt")
+    rc, text_c = quiet(cli.main, [*base, "-tree", str(EXT_TREES), "-dp",
+                                  "2", "-save", mdp])
+    check(rc == 0, f"-dp 2 failed:\n{text_c[-2000:]}")
+    if torch.cuda.device_count() == 1:
+        check(open(mdp).read() == open(m).read(),
+              "-dp 2 on one card did not save the -dp 0 model")
+        print("  CLI -dp 2 on one card: the single-device fit, the same "
+              "model bytes as -dp 0")
+    else:
+        check("[data-parallel over" in text_c, "-dp 2 did not run NCCL")
+        check(abs(float(metric_line(text_c).split()[-1]) - m_straight)
+              <= 0.03, "the NCCL -dp fit is more than 0.03 off")
+        print(f"  CLI -dp 2 over NCCL: {metric_line(text_c)}")
+
+    # Random Forests under -dp 2 (gloo on the card)
+    rf = RFRanker(n_bags=EXT_BAGS)
+    zero_counts()
+    G.check_same_models = keep
+    import ranklib_tpu_torch.models.rf as RFM
+    RFM.check_same_models = keep
+    seen.clear()
+    rf_held = []
+    try:
+        with held_ranks(mesh.size, N_LEAVES - 1, tmp, rf_held):
+            t1 = time.perf_counter()
+            quiet(rf.fit, fit["train"], scorer, device=dev, mesh=mesh)
+            wall_rf = time.perf_counter() - t1
+    finally:
+        G.check_same_models = RFM.check_same_models = check_models
+    rf_ranks = rf.rank_launches
+    rf_parent = (counts()["histogram"], H.histogram_multi.launches)
+    rf1 = RFRanker(n_bags=EXT_BAGS)
+    silently(rf1.fit, fit["train"], scorer, device=dev)
+    m_rf = score_dataset(scorer, fit["train"], rf.eval_dataset(
+        fit["train"], dev), dev)[0]
+    m_rf1 = score_dataset(scorer, fit["train"], rf1.eval_dataset(
+        fit["train"], dev), dev)[0]
+    print(f"  RF -bag {EXT_BAGS} -dp 2 (gloo): {wall_rf:.1f} s; rank "
+          f"launches {rf_ranks}; bags equal on both ranks: "
+          f"{seen == [1] * EXT_BAGS}; NDCG@10 {m_rf:.4f} vs single-device "
+          f"{m_rf1:.4f}")
+    check(seen == [1] * EXT_BAGS, "the ranks' bags differ")
+    print(f"    each rank's first {N_LEAVES - 1} B1 launches (the first bag) "
+          f"held against the plain version: counts exact, sums max_abs_err "
+          f"{max(c['max_abs_err'] for calls in rf_held for c in calls):.3e}")
+    check(all(r["histogram"] == EXT_BAGS * 99 for r in rf_ranks),
+          "a rank's B1 launches are not 4 bags x 99")
+    check(rf_parent == (0, 0), "the parent grew trees under -dp")
+    check(all(r.get("histogram_multi", 0) == 0 for r in rf_ranks),
+          "the -dp forest launched B7")
+    check(abs(m_rf - m_rf1) <= 0.03, "the -dp forest is 0.03 off")
+    out["rf"] = rf_ranks
+
+    # the library API: the CLI's data, model and metric
+    zero_counts()
+    ds = api.read(train_path)
+    fb_calls = []
+    with kept_calls(ens_mod, "forest_eval_frombins", fb_calls):
+        model = api.train(ds, ranker=6, metric="NDCG@10", n_trees=EXT_TREES,
+                          n_leaves=N_LEAVES, device=dev)
+        m_api = api.evaluate(model, ds, metric="NDCG@10", device=dev)
+    c = counts()
+    check(len(fb_calls) == c["forest_eval_frombins"],
+          "a B4 launch of the API was not kept")
+    hold_frombins(fb_calls, "api.train/api.evaluate")
+    del fb_calls
+    print(f"  api.train/api.evaluate: NDCG@10 {m_api:.4f}; launches {c} "
+          f"(B4's bit-equal to the plain version)")
+    check(metric_line(text).endswith(f"{m_api:.4f}"),
+          "the API's metric is not the CLI's")
+    check(model.model_str() == open(m).read(),
+          "the API's model is not the CLI's")
+    check(c["histogram"] == want and c["forest_eval_frombins"] > 0,
+          "the API did not run B1 and B4")
+    out["api"] = c
+    out["launches"] = {
+        k: sum(part[k] for part in (out["ckpt"], out["resume"], out["api"]))
+        + sum(r[k] for r in ranks + rf_ranks)
+        for k in ("histogram", "split_scan", "forest_eval_frombins")}
+    return out
+
+
 def bare_times(root: str) -> int:
     """``--bare-times ROOT``: the fused-lambda (B5) and binning (B8)
     kernels of the ``ranklib_tpu_torch`` found under ROOT, each timed by
@@ -4313,6 +4751,13 @@ def main() -> int:
           f"launches on the -sparse RankBoost fits {raw_b1['launches']} + "
           f"{wide['b1']['launches']}; phase 19 "
           f"{time.perf_counter() - t19:.1f} s  [{smi}]")
+
+    header(f"== phase 20: -ckpt, -eventlog, -profile, -resume, -dp and the "
+           f"library API at the training width ({FIT_QUERIES} queries x "
+           f"{N_FEATURES} features)")
+    t20 = time.perf_counter()
+    ext = extensions_phase(dev, fit, tmp, smi)
+    print(f"  phase 20 {time.perf_counter() - t20:.1f} s  [{smi}]")
     tmpdir.cleanup()
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -4325,11 +4770,26 @@ def main() -> int:
                 "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": library_ms}
 
+    def dp_path(name):
+        """A kernel's launches on phase 20's -dp fits (each rank's), with
+        the round's ms beside the single-device fit's (B1's: also the
+        largest error of its launches held inside the ranks)."""
+        held = ({"held_max_abs_err": ext["dp"]["b1_max_abs_err"],
+                 "shard": ext["dp"]["b1_shard"]}
+                if name == "histogram" else {})
+        return {**held, "launches": sum(r[name] for r in ext["dp"]["ranks"]),
+                "rank_launches": [r[name] for r in ext["dp"]["ranks"]],
+                "rf_rank_launches": [r[name] for r in ext["rf"]],
+                "shape": ext["dp"]["shape"],
+                "ms_round": ext["dp"]["ms_round"],
+                "ms_round_single": ext["dp"]["ms_round_single"]}
+
     kernels = [
         entry("forest_eval_frombins", "forest_eval.cu",
               "ranklib_tpu/ops/forest_eval.py:524",
               launches["forest_eval_frombins"]
-              + sp["launches"]["forest_eval_frombins"], err_fb, ms_fb,
+              + sp["launches"]["forest_eval_frombins"]
+              + ext["launches"]["forest_eval_frombins"], err_fb, ms_fb,
               plain_ms_fb, bound_fb, None),
         entry("forest_eval_bins", "forest_eval.cu",
               "ranklib_tpu/ops/forest_eval.py:269",
@@ -4339,7 +4799,7 @@ def main() -> int:
                    "ranklib_tpu/ops/histogram.py:185",
                    fit["launches"]["histogram"] + rb["launches"]
                    + sp["launches"]["histogram"] + raw_b1["launches"]
-                   + wide["b1"]["launches"],
+                   + wide["b1"]["launches"] + ext["launches"]["histogram"],
                    hists["root"][1], hists["root"][2], hists["root"][3],
                    hists["root_bound"], hists["root_library"]),
              paths={
@@ -4359,12 +4819,15 @@ def main() -> int:
                      "launches", "shape", "max_abs_err", "ms", "plain_ms",
                      "bound_ms", "library_ms")},
                  "rankboost_sparse": raw_b1,
-                 "rankboost_sparse_wide": wide["b1"]}),
-        entry("split_scan", "split_scan.cu",
-              "ranklib_tpu/ops/split_scan.py:43",
-              fit["launches"]["split_scan"] + sp["launches"]["split_scan"],
-              scans[2][0], scans[2][1],
-              scans[2][2], scans["bound"], None),
+                 "rankboost_sparse_wide": wide["b1"],
+                 "dp": dp_path("histogram")}),
+        dict(entry("split_scan", "split_scan.cu",
+                   "ranklib_tpu/ops/split_scan.py:43",
+                   fit["launches"]["split_scan"] + sp["launches"]["split_scan"]
+                   + ext["launches"]["split_scan"], scans[2][0], scans[2][1],
+                   scans[2][2], scans["bound"], None),
+             paths={"lambdamart": {"launches": fit["launches"]["split_scan"]},
+                    "dp": dp_path("split_scan")}),
         entry("histogram_multi", "histogram_multi.cu",
               "ranklib_tpu/ops/histogram.py:51",
               rf["launches"]["histogram_multi"]

@@ -8,13 +8,15 @@ This package imports ``torch`` and never ``jax`` or ``ranklib_tpu``; the
 host-side modules it needs (LETOR parsing, datasets, errors, logging, the
 native C++ parser and binner in ``native/``) are carried as its own copies.
 
-Ported so far, on one device: all ten rankers — training (with ``-norm``,
-``-qrel`` and ``-kcv``), saving, loading, ``-test``/``-rank`` and
-``-combine`` — on dense LETOR files and with ``-sparse``; ``-ana`` and the
-``features_tool``. Every Pallas kernel of the reference has a hand-written
-CUDA counterpart in ``csrc/`` (forest evaluation, histograms, the split
-scan, the fused lambdas, the compiler probes in ``tools.probes``). ``-dp``
-and the training extensions are later slices.
+Ported so far: all ten rankers — training (with ``-norm``, ``-qrel``,
+``-kcv`` and the extensions ``-resume``, ``-ckpt``, ``-eventlog``,
+``-profile``), saving, loading, ``-test``/``-rank`` and ``-combine`` — on
+dense LETOR files and with ``-sparse``; ``-dp`` for the tree rankers
+(``parallel.dist``); ``-ana``, the ``features_tool`` and the library API
+(``api``). Every Pallas kernel of the reference has a hand-written CUDA
+counterpart in ``csrc/`` (forest evaluation, histograms, the split scan,
+the fused lambdas, the compiler probes in ``tools.probes``). ``-dp`` for
+the other rankers is a later slice.
 """
 
 __version__ = "0.1.0"

@@ -26,6 +26,9 @@ The argument parser is the reference's, flag for flag. The ported flows::
     python -m ranklib_tpu_torch -load model.txt -rank wide.txt -sparse \
         -score s.txt
     python -m ranklib_tpu_torch -ana -all idv_dir -base base.idv -np 10000
+    python -m ranklib_tpu_torch -train train.txt -ranker 6 -tree 200 \
+        -dp 2 -ckpt 50 -resume m.ckpt -eventlog ev.jsonl -profile trace \
+        -save m
 
 Training takes all ten rankers: MART (``-ranker 0``), RankNet (``1``),
 RankBoost (``2``), AdaRank (``3``), Coordinate Ascent (``4``, the
@@ -33,10 +36,13 @@ default), LambdaRank (``5``), LambdaMART (``6``), ListNet (``7``), Random
 Forests (``8``) and Linear Regression (``9``), with ``-norm
 sum|zscore|linear``, ``-qrel`` and, for training, ``-kcv`` on every flow.
 ``-sparse`` serves every ranker and loaded model; ``-ana`` compares
-``-idv`` files with the randomization test. Training flags not ported
-yet (``-resume``, ``-ckpt``, ``-dp``, ``-eventlog`` and ``-profile``) exit
-with a clean error and rc 1 rather than being ignored. Hyperparameter
-flags of other rankers are accepted and unused, as in the reference.
+``-idv`` files with the randomization test. The reference's extensions:
+``-eventlog`` and ``-profile`` for every ranker, ``-resume`` and ``-ckpt``
+for MART and LambdaMART (dropped silently for the other rankers, as the
+reference drops them), ``-dp`` for the tree rankers (0, 6, 8); ``-dp``
+with another ranker exits with a clean error and rc 1 rather than being
+ignored. Hyperparameter flags of other rankers are accepted and unused,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ import argparse
 import sys
 
 from ranklib_tpu_torch.utils.errors import RankLibError
-from ranklib_tpu_torch.utils.logging import log, set_silent
+from ranklib_tpu_torch.utils.logging import log, set_event_log, set_silent
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -140,8 +146,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 # (cli flag, ranker ids, attribute) — per-ranker hyperparameter routing,
-# the reference's rows less its extensions (-ckpt). As there, -mls
-# reaches Random Forests, which has no such hyperparameter and says so.
+# the reference's rows. As there, -mls reaches Random Forests, which has
+# no such hyperparameter and says so.
 _HPARAM_ROUTES = [
     ("epoch", {1, 5, 7}, "n_epoch"),
     ("layer", {1, 5}, "n_layers"),
@@ -151,6 +157,7 @@ _HPARAM_ROUTES = [
     ("leaf", {0, 6, 8}, "n_leaves"),
     ("shrinkage", {0, 6, 8}, "learning_rate"),
     ("tc", {0, 2, 6, 8}, "n_threshold"),
+    ("ckpt", {0, 6}, "ckpt_every"),
     ("mls", {0, 6, 8}, "min_leaf_support"),
     ("estop", {0, 6}, "early_stop"),
     ("round", {2, 3}, "n_rounds"),
@@ -171,6 +178,12 @@ _HPARAM_ROUTES = [
 def collect_hparams(args) -> dict:
     hp = {attr: getattr(args, flag) for flag, rankers, attr in _HPARAM_ROUTES
           if getattr(args, flag) is not None and args.ranker in rankers}
+    if hp.get("ckpt_every"):
+        hp["ckpt_path"] = (args.save + ".ckpt") if args.save else "model.ckpt"
+    # -resume, like -ckpt, reaches MART and LambdaMART only; the reference
+    # drops both silently for the other rankers
+    if args.resume and args.ranker in (0, 6):
+        hp["_resume_from"] = args.resume
     if args.randomSeed and args.ranker in (1, 4, 5, 7, 8):
         hp.setdefault("seed", args.randomSeed)
     return hp
@@ -187,13 +200,15 @@ def _has_flow(args) -> bool:
 
 
 def _unported(args) -> str | None:
-    """The first training flag the port does not serve yet."""
-    if args.ana or args.combine:
+    """The error of a training flag the port does not serve yet: ``-dp``
+    with a ranker that has no mesh path."""
+    if args.ana or args.combine or not args.train:
         return None
-    if args.train:
-        for flag in ("resume", "ckpt", "dp", "eventlog", "profile"):
-            if getattr(args, flag):
-                return f"-{flag}"
+    if args.dp > 1:
+        from ranklib_tpu_torch.models.base import get_ranker_class
+        from ranklib_tpu_torch.models.trainer import dp_refusal
+
+        return dp_refusal(get_ranker_class(args.ranker))
     return None
 
 
@@ -204,12 +219,9 @@ def main(argv=None) -> int:
         log(f"Error: {_NOTHING_TO_DO}")
         return 1
     try:
-        flag = _unported(args)
-        if flag:
-            raise RankLibError(f"{flag} is not yet ported to "
-                               f"ranklib_tpu_torch (ported: -train, -kcv, "
-                               f"-load with -test or -rank, -norm, -qrel, "
-                               f"-sparse, -ana and -combine)")
+        refusal = _unported(args)
+        if refusal:
+            raise RankLibError(refusal)
         if args.ana and (not args.all or not args.base):
             raise RankLibError("-ana requires -all <dir> and -base <file>")
         if args.combine and not args.ana:
@@ -225,6 +237,8 @@ def main(argv=None) -> int:
         )
 
         device = choose_device()
+        if args.eventlog:
+            set_event_log(args.eventlog)
         args.hparams = collect_hparams(args)
         if args.ana:
             from ranklib_tpu_torch.analyzer import analyze
@@ -241,6 +255,8 @@ def main(argv=None) -> int:
     except (RankLibError, OSError) as e:
         log(f"Error: {e}")
         return 1
+    finally:
+        set_event_log(None)
     return 0
 
 

@@ -285,7 +285,8 @@ def evaluate_train(args, device: torch.device) -> Ranker:
             train, held = split_tvs(train, args.tvs)
         validation = held
     ranker = train_ranker(args.ranker, train, train_scorer, validation,
-                          args.hparams, device, feature_mask=feature_mask)
+                          args.hparams, device, feature_mask=feature_mask,
+                          n_dp=args.dp, profile_dir=args.profile)
     m_train, _ = score_dataset(train_scorer, train,
                                ranker.eval_dataset(train, device), device)
     result(f"{train_scorer.name} on training data: {m_train:.4f}")
@@ -371,8 +372,12 @@ def evaluate_kcv(args, device: torch.device) -> None:
     for fold, (tr, va, te) in enumerate(folds):
         log("")
         log(f"Fold {fold + 1} / {args.kcv}...")
-        ranker = train_ranker(args.ranker, tr, train_scorer, va,
-                              args.hparams, device)
+        # -profile: one trace directory a fold (ref :465-473)
+        ranker = train_ranker(
+            args.ranker, tr, train_scorer, va, args.hparams, device,
+            n_dp=args.dp, profile_dir=(
+                os.path.join(args.profile, f"fold{fold + 1}")
+                if args.profile else None))
         m_tr, _ = score_dataset(train_scorer, tr,
                                 ranker.eval_dataset(tr, device), device)
         m_te, _ = score_dataset(test_scorer, te,

@@ -7,7 +7,10 @@ device and reads nothing back: metric histories and tree records
 accumulate in :class:`BoostState` tensors, and only the caller's round
 loop (``models.gbdt``) reads them, at its per-round table or early-stop
 check. The state updates in place (the reference's is a donated JAX
-carry).
+carry). Under ``-dp`` (``gbdt.boost_dist``) each rank runs the same round
+on its own shard with ``group``: histograms, node sums, leaf sums and
+metric sums are summed across the ranks, so the records and metric
+histories are the same on every rank.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import numpy as np
 import torch
 
 from ranklib_tpu_torch.data.dataset import Dataset, bucketize, flatten_meta
-from ranklib_tpu_torch.gbdt.grow import grow_tree, leaf_outputs
+from ranklib_tpu_torch.gbdt.grow import grow_tree, leaf_outputs, sum_across
 from ranklib_tpu_torch.gbdt.lambdas import (
     SEPARABLE_METRICS, chunk_scale, lambda_fn,
 )
@@ -188,24 +191,27 @@ def _upload(chunks, device) -> list:
     return [tuple(torch.from_numpy(a).to(device) for a in c) for c in chunks]
 
 
-def _bucket_metric_sum(scorer, buckets, scores_flat):
+def _bucket_metric_sum(scorer, buckets, scores_flat, group=None):
     total = torch.zeros((), dtype=torch.float32, device=scores_flat.device)
     for lab, msk, didx in buckets:
         sc = scores_flat[didx]
         total = total + scorer.score_from_scores(lab, sc, msk).sum()
-    return total
+    return sum_across(total, group)
 
 
 def make_round_step(scorer, *, n_bins: int, n_leaves: int,
                     min_leaf_support: int, learning_rate: float,
                     pointwise: bool, newton: bool, n_queries: int,
-                    n_vqueries: int, train_metric: bool = True):
+                    n_vqueries: int, train_metric: bool = True,
+                    group=None):
     """The round: ``step(state, t, data) → state``. ``train_metric=False``
     skips the per-round train metric, which only feeds the console
-    table. Lambda routing as the reference's (boost.py:223-235): the fused
-    kernel under ``RANKLIB_TPU_FUSED_LAMBDA=1`` for NDCG/DCG/P, one launch
-    a round over every query (:func:`lambda_round`, on the ``data.fused``
-    that ``make_boost_data`` builds then), else, one bucket chunk at a
+    table. ``group``: the ``-dp`` process group (``n_queries`` and
+    ``n_vqueries`` then count every rank's queries). Lambda routing as the
+    reference's (boost.py:223-235): the fused kernel under
+    ``RANKLIB_TPU_FUSED_LAMBDA=1`` for NDCG/DCG/P, one launch a round over
+    every query (:func:`lambda_round`, on the ``data.fused`` that
+    ``make_boost_data`` builds then), else, one bucket chunk at a
     time, :func:`lambda_fn`'s: sort-free for NDCG/DCG/P, ERR and MAP,
     sorted for RR and BEST."""
     M = 2 * n_leaves - 1
@@ -230,16 +236,19 @@ def make_round_step(scorer, *, n_bins: int, n_leaves: int,
         # ---- tree -------------------------------------------------------
         arr = grow_tree(data.binned_T, lam, n_bins=n_bins, n_leaves=n_leaves,
                         min_leaf_support=min_leaf_support,
-                        doc_mask=data.doc_mask, feature_mask=data.feat_mask)
+                        doc_mask=data.doc_mask, feature_mask=data.feat_mask,
+                        group=group)
         out = leaf_outputs(arr.node_of_doc, lam, w, M, newton,
-                           doc_mask=data.doc_mask)
+                           doc_mask=data.doc_mask, group=group)
         scores[:-1] += lr * out.index_select(0, arr.node_of_doc)
 
         # ---- metrics ----------------------------------------------------
         if train_metric:
-            state.train_m[t] = (_bucket_metric_sum(scorer, data.tb, scores)
-                                / n_queries)
-        if data.vb:
+            state.train_m[t] = (_bucket_metric_sum(scorer, data.tb, scores,
+                                                   group) / n_queries)
+        # with validation: a -dp rank whose shard drew no validation query
+        # still takes part in the sum
+        if data.vbinned is not None:
             Nv = data.vbinned.shape[0]
             node = torch.zeros(Nv, dtype=torch.int64, device=scores.device)
             for _ in range(n_leaves):        # max depth of a leaf-wise tree
@@ -252,7 +261,8 @@ def make_round_step(scorer, *, n_bins: int, n_leaves: int,
                 node = torch.where(arr.is_leaf[node], node, nxt)
             state.vscores[:-1] += lr * out[node]
             state.val_m[t] = (_bucket_metric_sum(scorer, data.vb,
-                                                 state.vscores) / n_vqueries)
+                                                 state.vscores, group)
+                              / n_vqueries)
 
         # ---- record the tree --------------------------------------------
         state.tfeat[t] = arr.feature

@@ -107,6 +107,15 @@ class TreeEnsemble:
         self._gridnp = None
         self._dev_packs = {}
 
+    def __getstate__(self):
+        """Trees and weights only: the packs (device tensors among them)
+        are rebuilt on use, so an ensemble pickles to a ``-dp`` rank."""
+        return {"trees": self.trees, "weights": self.weights}
+
+    def __setstate__(self, state):
+        self.trees, self.weights = state["trees"], state["weights"]
+        self._invalidate()
+
     def add(self, tree: Tree, weight: float):
         self.trees.append(tree)
         self.weights.append(float(weight))

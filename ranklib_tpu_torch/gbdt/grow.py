@@ -20,6 +20,13 @@ so a round on the card never waits for the host. Arrays update in place
 (the reference's are immutable), which keeps one copy of the node
 histograms.
 
+Under ``-dp`` each rank grows the tree on its own shard of the documents
+with ``group`` (a ``torch.distributed`` process group, the reference's
+``axis_name``): the root and right-child histograms and the SQ sums are
+summed across the ranks, so every rank takes the same split decisions;
+S and C come from the summed histograms, and the left child by
+subtraction from the summed parent. Without a group nothing is summed.
+
 :func:`grow_forest` grows the trees of a group of Random-Forests bags in
 lockstep (the same rules per bag, a leading [Cb] axis everywhere): one
 :func:`histogram_multi` launch per split serves every bag.
@@ -33,6 +40,14 @@ import torch
 
 from ranklib_tpu_torch.ops.histogram import histogram, histogram_multi
 from ranklib_tpu_torch.ops.split_scan import best_splits
+
+
+def sum_across(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``'s ranks (the reference's ``psum``), or
+    ``x`` itself without a group."""
+    if group is not None:
+        torch.distributed.all_reduce(x, group=group)
+    return x
 
 
 class TreeArrays(NamedTuple):
@@ -63,14 +78,15 @@ def _deviance(SQ, S, C):
 
 def grow_tree(binned_T: torch.Tensor, grad: torch.Tensor, n_bins: int,
               n_leaves: int, min_leaf_support: int = 1, doc_mask=None,
-              feature_mask=None) -> TreeArrays:
+              feature_mask=None, group=None) -> TreeArrays:
     """Grow one regression tree on pseudo-responses ``grad [N]`` f32 over
     feature-major bins ``binned_T [F, N]`` (uint8/int16/int32).
 
     ``doc_mask``: optional [N] bool mask or f32 doc weights; weight 0
     excludes a doc from every histogram and count, integer weights act as
     multiplicities. ``feature_mask``: optional [F] bool; features outside
-    it are never split on."""
+    it are never split on. ``group``: the ``-dp`` process group whose
+    ranks hold the other documents (``node_of_doc`` covers this rank's)."""
     F, N = binned_T.shape
     M = 2 * n_leaves - 1
     B = int(n_bins)
@@ -81,9 +97,9 @@ def grow_tree(binned_T: torch.Tensor, grad: torch.Tensor, n_bins: int,
 
     dw = (torch.ones(N, **f32) if doc_mask is None
           else doc_mask.to(torch.float32))
-    root_hist = histogram(binned_T, grad, dw, B)
+    root_hist = sum_across(histogram(binned_T, grad, dw, B), group)
     S0 = root_hist[0, :, 0].sum()          # feature 0 bins every doc once
-    SQ0 = (dw * grad * grad).sum()
+    SQ0 = sum_across((dw * grad * grad).sum(), group)
     C0 = root_hist[0, :, 1].sum()
     g0, f0, b0, ok0 = best_splits(
         root_hist[None], mls,
@@ -144,14 +160,14 @@ def grow_tree(binned_T: torch.Tensor, grad: torch.Tensor, n_bins: int,
 
         if build_children:
             w_r = dw * (in_node & ~go_left & valid)
-            hist_r = histogram(binned_T, grad, w_r, B)
+            hist_r = sum_across(histogram(binned_T, grad, w_r, B), group)
             hist_l = hist.index_select(0, leaf)[0] - hist_r
             # S_r and C_r from the child histogram itself (feature 0 bins
             # every doc exactly once), so the scan's sums and these share
             # their provenance; only SQ needs a pass over the docs
             S_r = hist_r[0, :, 0].sum()
             C_r = hist_r[0, :, 1].sum()
-            SQ_r = (w_r * grad * grad).sum()
+            SQ_r = sum_across((w_r * grad * grad).sum(), group)
             S_l, SQ_l, C_l = st[0] - S_r, st[1] - SQ_r, st[2] - C_r
             g2, f2, b2, ok2 = best_splits((hist_l[None], hist_r[None]), mls,
                                           fm2)
@@ -181,13 +197,14 @@ def grow_tree(binned_T: torch.Tensor, grad: torch.Tensor, n_bins: int,
 
 def leaf_outputs(node_of_doc: torch.Tensor, lam: torch.Tensor,
                  w: torch.Tensor, n_slots: int, newton: bool,
-                 doc_mask=None) -> torch.Tensor:
+                 doc_mask=None, group=None) -> torch.Tensor:
     """Per-slot outputs [n_slots] f32: the Newton step Σλ/Σw (LambdaMART,
     ref: LambdaMART.updateTreeOutput:~400) or the mean response Σλ/count
     (MART, ref: learning/tree/MART.java:~15). ``doc_mask``: bool mask or
     f32 weights, as in :func:`grow_tree`. A masked [M, N] sum per channel,
     as the reference does it: deterministic on the card, where an
-    index_add over ~19 segments would sum in atomic order."""
+    index_add over ~19 segments would sum in atomic order. ``group``: the
+    two sums are summed across its ranks (one collective)."""
     dw = None if doc_mask is None else doc_mask.to(lam.dtype)
     if dw is not None:
         lam = lam * dw
@@ -199,6 +216,8 @@ def leaf_outputs(node_of_doc: torch.Tensor, lam: torch.Tensor,
         n_slots, dtype=node_of_doc.dtype, device=lam.device)[:, None])
     s1 = torch.where(onehot, lam[None, :], 0.0).sum(dim=1)
     s2 = torch.where(onehot, s2_src[None, :], 0.0).sum(dim=1)
+    if group is not None:
+        s1, s2 = sum_across(torch.stack([s1, s2]), group)
     return torch.where(s2 > 0, s1 / torch.where(s2 > 0, s2, 1.0), 0.0)
 
 

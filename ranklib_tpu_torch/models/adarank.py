@@ -50,7 +50,7 @@ from ranklib_tpu_torch.ops.sparse_eval import (
     wants_sparse_eval,
 )
 from ranklib_tpu_torch.utils.errors import RankLibError
-from ranklib_tpu_torch.utils.logging import is_silent, log
+from ranklib_tpu_torch.utils.logging import event, is_silent, log
 
 
 @dataclass
@@ -239,11 +239,16 @@ class AdaRank(Ranker):
                 if not bool(state.hact[t]):
                     log(f"Stop at round {t + 1} (degenerate or rolled back)")
                     break
+                tm = float(state.train_m[t])
                 line = (f"{t + 1:<8}| {int(state.hfid[t]) + 1:<8}| "
-                        f"{float(state.train_m[t]):<11.4f}")
+                        f"{tm:<11.4f}")
+                vm = None
                 if validation is not None:
-                    line += f"| {float(state.val_m[t]):<11.4f}"
+                    vm = float(state.val_m[t])
+                    line += f"| {vm:<11.4f}"
                 log(line)
+                event("round", ranker=self.NAME, round=t + 1,
+                      train_metric=tm, val_metric=vm)
                 if not bool(state.active):
                     break
         self.fit_state = state

@@ -45,7 +45,7 @@ from ranklib_tpu_torch.ops.sparse_eval import (
     build_sparse_data, sparse_mean_metric, wants_sparse_eval,
 )
 from ranklib_tpu_torch.utils.errors import RankLibError
-from ranklib_tpu_torch.utils.logging import log
+from ranklib_tpu_torch.utils.logging import event, log
 
 
 def restart_orders(n_features: int, n_restart: int, seed: int) -> np.ndarray:
@@ -184,6 +184,9 @@ class CoorAscent(Ranker):
             log(f"  pass {sweep_i + 1}: {scorer.name} = "
                 f"{float(curs.max()):.4f} "
                 f"({int(imp.sum())}/{R} restarts improving)")
+            event("sweep", ranker=self.NAME, sweep=sweep_i + 1,
+                  best_metric=float(curs.max()),
+                  improving=int(imp.sum()))
             if not imp.any():
                 break
         curs = cur.cpu().numpy().astype(np.float64)

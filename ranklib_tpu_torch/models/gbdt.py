@@ -13,18 +13,32 @@ learning/tree/MART.java).
   best validation round.
 
 Flags and defaults: ``-tree`` 1000, ``-leaf`` 10, ``-shrinkage`` 0.1,
-``-tc`` 256, ``-mls`` 1, ``-estop`` 100. One device, on dense input or on
-the streamed bin matrix of ``-sparse`` (``data.binned.BinnedDataset``,
-trained bit-identically to the dense path and scored in bin space); warm
-starts, checkpoints and data parallelism are not ported yet.
+``-tc`` 256, ``-mls`` 1, ``-estop`` 100. Dense input, or the streamed bin
+matrix of ``-sparse`` (``data.binned.BinnedDataset``, trained
+bit-identically to the dense path and scored in bin space).
+
+The reference's extensions:
+
+* warm start (``-resume``): a fit of a ranker that already holds trees
+  (loaded, or a partial fit) seeds the scores with them and trains the
+  ``n_trees − len(prior)`` rounds left; the model keeps the prior trees;
+* ``-ckpt N`` (``ckpt_every``): every N rounds the model so far, prior
+  trees included, is saved to ``ckpt_path``;
+* a ``"round"`` event a round (``-eventlog``), unless silent;
+* ``-dp n`` (``mesh``, ``parallel.dist``): one process a shard of the
+  queries, the sums taken across the ranks (``gbdt.boost_dist``).
 """
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
-from ranklib_tpu_torch.data.dataset import Dataset, flatten, flatten_meta
+from ranklib_tpu_torch.data.dataset import (
+    Dataset, Query, flatten, flatten_meta,
+)
 from ranklib_tpu_torch.device import choose_device
 from ranklib_tpu_torch.gbdt.binning import bin_features, compute_thresholds
 from ranklib_tpu_torch.gbdt.boost import (
@@ -35,12 +49,13 @@ from ranklib_tpu_torch.models.base import (
     Ranker, model_header, parse_model_params, register_ranker,
 )
 from ranklib_tpu_torch.utils.errors import RankLibError
-from ranklib_tpu_torch.utils.logging import is_silent, log
+from ranklib_tpu_torch.utils.logging import event, is_silent, log
 
 
 @register_ranker
 class LambdaMART(Ranker):
     NAME = "LambdaMART"
+    DATA_PARALLEL = True
 
     _NEWTON = True          # leaf output Σλ/Σw (MART: mean residual)
     _POINTWISE = False      # lambda gradients (MART: plain residuals)
@@ -52,9 +67,12 @@ class LambdaMART(Ranker):
         self.n_threshold = 256
         self.min_leaf_support = 1
         self.early_stop = 100
+        self.ckpt_every = 0          # save a checkpoint every N rounds
+        self.ckpt_path = "model.ckpt"
         self.ensemble = TreeEnsemble()
         self.feature_impacts = None  # [F] deviance reduction, set by fit()
         self.fit_state = None        # the last fit's BoostState
+        self.rank_launches = None    # the last -dp fit's, a dict a rank
         super().__init__(**hp)
         if self.n_leaves < 2:
             # a 1-leaf tree is a constant; growth assumes one split
@@ -62,32 +80,42 @@ class LambdaMART(Ranker):
 
     def fit(self, train: Dataset, scorer, validation: Dataset | None = None,
             device: torch.device | None = None,
-            feature_mask: np.ndarray | None = None) -> None:
+            feature_mask: np.ndarray | None = None, mesh=None,
+            profile_dir: str | None = None) -> None:
         """Train on ``device`` (default: :func:`choose_device`'s, as the
         CLI picks it). ``feature_mask``: optional [F] bool, features
         outside it are never split on (``-feature`` on the streamed
-        ``-sparse`` path)."""
+        ``-sparse`` path). ``mesh``: a ``parallel.dist.Mesh``; of more
+        than one rank, the data-parallel fit (ref ``fit``, :82), whose
+        ranks write their profiler traces into ``profile_dir``."""
         device = choose_device(quiet=True) if device is None else device
+        if mesh is not None and mesh.size > 1:
+            return self._fit_distributed(train, scorer, validation, device,
+                                         mesh, feature_mask, profile_dir)
+        prior, rounds = self._prior()
         step, state, data, thresholds = self.prepare_fit(
             train, scorer, validation, device, feature_mask)
         log("Training starts...")
         self._boost_loop(step, state, data, scorer, validation is not None,
-                         thresholds)
+                         thresholds, prior, rounds)
+
+    def _prior(self):
+        """(the trees a fit continues, the rounds left): the ranker's own
+        trees when it holds any (a loaded model, ``-resume``; ref ``fit``,
+        :134-160), and the rounds up to ``n_trees``."""
+        prior = self.ensemble if len(self.ensemble) else TreeEnsemble()
+        return prior, max(0, self.n_trees - len(prior))
 
     def prepare_fit(self, train: Dataset, scorer, validation, device,
                     feature_mask=None):
-        """Bin (or take the streamed bins), upload and build the round:
-        (step, state, data, thresholds); ``step(state, t, data)`` runs
-        round t."""
+        """Bin (or take the streamed bins), upload, build the round and
+        seed a warm start's scores: (step, state, data, thresholds);
+        ``step(state, t, data)`` runs round t."""
         feats, labels, _, thresholds, binned_real, N, F = flatten_binned(
             train, self.n_threshold)
         binned, labels_pad, Npad = pad_binned(feats, binned_real, thresholds,
                                               labels, N)
-        vbinned = None
-        if validation is not None:
-            vbinned = (validation.binned
-                       if getattr(validation, "binned", None) is not None
-                       else bin_features(flatten(validation)[0], thresholds))
+        vfeats, vbinned = _validation_bins(validation, thresholds)
         data, Npad, Nvpad = make_boost_data(
             train, binned, labels_pad, N, validation, vbinned, device,
             feature_mask, scorer=None if self._POINTWISE else scorer)
@@ -100,15 +128,26 @@ class LambdaMART(Ranker):
                         else 1),
             # the per-round train metric only feeds the console table
             train_metric=not is_silent())
-        state = init_state(self.n_trees, self.n_leaves, Npad, Nvpad, F,
-                           device)
+        prior, rounds = self._prior()
+        state = init_state(rounds, self.n_leaves, Npad, Nvpad, F, device)
+        if len(prior):
+            sc, vsc = _prior_scores(prior, feats, binned_real, thresholds,
+                                    vfeats, vbinned, device)
+            state.scores[:N] = torch.from_numpy(sc.astype(np.float32)).to(
+                device)
+            if vsc is not None:
+                state.vscores[:len(vsc)] = torch.from_numpy(
+                    vsc.astype(np.float32)).to(device)
+            log(f"Warm start from {len(prior)} trees ({rounds} rounds to "
+                f"go)")
         return step, state, data, thresholds
 
     def _boost_loop(self, step, state, data, scorer, has_val: bool,
-                    thresholds) -> None:
-        """Round loop: console table, early stop, best-round rollback,
-        ensemble export. The host reads the device only for a table line
-        (not silent) or an early-stop check."""
+                    thresholds, prior: TreeEnsemble, rounds: int) -> None:
+        """Round loop: console table and ``"round"`` events, checkpoints,
+        early stop, best-round rollback, ensemble export (``prior``'s trees
+        first). The host reads the device only for a table line (not
+        silent), a checkpoint or an early-stop check."""
         head = f"{'#iter':<8}| {scorer.name + '-T':<11}"
         if has_val:
             head += f"| {scorer.name + '-V':<11}"
@@ -117,16 +156,25 @@ class LambdaMART(Ranker):
         # silent mode reads the validation history only every `check`
         # rounds; the replayed stop rule gives the same round either way
         check = 1 if not silent else max(1, min(self.early_stop or 50, 50))
+        lr = self.learning_rate
         built = 0
         stopped = False
-        for t in range(self.n_trees):
+        for t in range(rounds):
             state = step(state, t, data)
             built = t + 1
             if not silent:
-                line = f"{built:<8}| {float(state.train_m[t]):<11.4f}"
+                tm = float(state.train_m[t])
+                line = f"{built:<8}| {tm:<11.4f}"
+                vm = None
                 if has_val:
-                    line += f"| {float(state.val_m[t]):<11.4f}"
+                    vm = float(state.val_m[t])
+                    line += f"| {vm:<11.4f}"
                 log(line)
+                event("round", ranker=self.NAME, round=built,
+                      train_metric=tm, val_metric=vm)
+            if self.ckpt_every and built % self.ckpt_every == 0:
+                self.ensemble = _export(state, built, thresholds, lr, prior)
+                self.save(self.ckpt_path)
             if has_val and self.early_stop > 0 and built % check == 0:
                 sr = _stop_round(state.val_m[:built].cpu().numpy(),
                                  self.early_stop)
@@ -148,7 +196,7 @@ class LambdaMART(Ranker):
             # roll back to the best validation round (ref: LambdaMART
             # learn() post-loop ensemble truncation)
             keep = int(np.nanargmax(state.val_m[:built].cpu().numpy())) + 1
-        self.ensemble = _export(state, keep, thresholds, self.learning_rate)
+        self.ensemble = _export(state, keep, thresholds, lr, prior)
         self.fit_state = state
         # per-feature deviance reduction over all splits (ref: LambdaMART
         # impacts[], printed after training)
@@ -160,6 +208,80 @@ class LambdaMART(Ranker):
                 if self.feature_impacts[f] <= 0:
                     break
                 log(f"  Feature {f + 1} : {self.feature_impacts[f]:.6g}")
+
+    def _fit_distributed(self, train: Dataset, scorer, validation, device,
+                         mesh, feature_mask=None, profile_dir=None) -> None:
+        """``-dp`` (ref ``_fit_distributed``, :307-386): the grid and the
+        bins come from the whole training set, here; the ranks
+        (:func:`_fit_rank`) map the bin matrices from shared memory,
+        take their shards and run the round loop; rank 0 prints, writes
+        the checkpoints and the events. Every rank must end with the same
+        model; ``rank_launches`` keeps each rank's kernel launches."""
+        from ranklib_tpu_torch.parallel.dist import check_shardable, run
+
+        check_shardable(len(train.queries), mesh)
+        feats, _, _, thresholds, binned, _, _ = flatten_binned(
+            train, self.n_threshold)
+        if binned is None:
+            binned = bin_features(feats, thresholds)
+        vfeats, vbinned = _validation_bins(validation, thresholds)
+        prior, rounds = self._prior()
+        init = vinit = None
+        if len(prior):
+            init, vinit = _prior_scores(prior, feats, binned, thresholds,
+                                        vfeats, vbinned, device)
+            log(f"Warm start from {len(prior)} trees ({rounds} rounds to "
+                f"go)")
+        log(f"Training starts... [data-parallel over {mesh.size} devices]")
+        worker = copy.copy(self)
+        worker.fit_state = worker.feature_impacts = None
+        out = run(mesh, _fit_rank, worker, labels_only(train),
+                  shared(binned), thresholds, labels_only(validation),
+                  shared(vbinned), feature_mask, scorer, init, vinit,
+                  profile_dir=profile_dir)
+        check_same_models([ens for ens, _, _ in out])
+        self.ensemble, self.feature_impacts, _ = out[0]
+        self.rank_launches = [c for _, _, c in out]
+        self.fit_state = None
+
+    def fit_shard(self, rank: int, device, group, train: Dataset, binned,
+                  thresholds, scorer, validation=None, vbinned=None,
+                  feature_mask=None, init=None, vinit=None, qstart=None):
+        """One rank's part of a data-parallel fit: its shard of ``train``
+        (whose docs' bins are ``binned``, at ``qstart`` rows) and of
+        ``validation``, the round loop with ``group``. ``init`` /
+        ``vinit``: the warm start's scores of every doc (flatten order).
+        Only rank 0 writes checkpoints."""
+        from ranklib_tpu_torch.gbdt.boost_dist import (
+            build_sharded_data, scatter_doc_values,
+        )
+
+        n = torch.distributed.get_world_size(group)
+        data, Npad, Nvpad = build_sharded_data(
+            train, binned, n, rank, device, validation, vbinned,
+            feature_mask, scorer=None if self._POINTWISE else scorer,
+            qstart=qstart)
+        prior, rounds = self._prior()
+        step = make_round_step(
+            scorer, n_bins=thresholds.shape[1],
+            n_leaves=self.n_leaves, min_leaf_support=self.min_leaf_support,
+            learning_rate=self.learning_rate, pointwise=self._POINTWISE,
+            newton=self._NEWTON, n_queries=len(train.queries),
+            n_vqueries=(len(validation.queries) if validation is not None
+                        else 1),
+            train_metric=not is_silent(), group=group)
+        state = init_state(rounds, self.n_leaves, Npad, Nvpad,
+                           binned.shape[1], device)
+        if init is not None:
+            state.scores.copy_(torch.from_numpy(
+                scatter_doc_values(train, init, n, rank, Npad)))
+        if vinit is not None:
+            state.vscores.copy_(torch.from_numpy(
+                scatter_doc_values(validation, vinit, n, rank, Nvpad)))
+        if rank != 0:
+            self.ckpt_every = 0
+        self._boost_loop(step, state, data, scorer, validation is not None,
+                         thresholds, prior, rounds)
 
     def eval_dataset(self, ds: Dataset, device: torch.device):
         if not len(self.ensemble):
@@ -198,6 +320,87 @@ class MART(LambdaMART):
     NAME = "MART"
     _NEWTON = False
     _POINTWISE = True
+
+
+def _fit_rank(rank, device, group, ranker, train, binned, thresholds,
+              validation, vbinned, feature_mask, scorer, init, vinit):
+    """A ``-dp`` rank of :meth:`LambdaMART._fit_distributed`: (its model,
+    its feature impacts, its :func:`launch_counts`)."""
+    ranker.fit_shard(rank, device, group, train, binned.numpy(), thresholds,
+                     scorer, validation,
+                     None if vbinned is None else vbinned.numpy(),
+                     feature_mask, init, vinit)
+    return ranker.ensemble, ranker.feature_impacts, launch_counts()
+
+
+def launch_counts() -> dict:
+    """This process's launch counts of the kernels a tree fit runs (a
+    ``-dp`` rank returns them with its model)."""
+    from ranklib_tpu_torch.ops.forest_eval import forest_eval_frombins
+    from ranklib_tpu_torch.ops.histogram import histogram, histogram_multi
+    from ranklib_tpu_torch.ops.lambda_kernel import lambda_round
+    from ranklib_tpu_torch.ops.split_scan import best_splits
+
+    return {"histogram": histogram.launches,
+            "histogram_multi": histogram_multi.launches,
+            "split_scan": best_splits.launches,
+            "lambda_pairs": lambda_round.launches,
+            "forest_eval_frombins": forest_eval_frombins.launches}
+
+
+def labels_only(ds: Dataset | None) -> Dataset | None:
+    """``ds`` without its feature values (what a ``-dp`` rank is sent:
+    its bins travel in shared memory)."""
+    if ds is None:
+        return None
+    return Dataset([Query(q.qid, q.labels, None) for q in ds.queries],
+                   ds.n_features)
+
+
+def shared(a: np.ndarray | None) -> torch.Tensor | None:
+    """A host array as a tensor in shared memory: the ``-dp`` ranks map
+    it, none copies it."""
+    if a is None:
+        return None
+    return torch.from_numpy(np.ascontiguousarray(a)).share_memory_()
+
+
+def check_same_models(ensembles) -> None:
+    """Every ``-dp`` rank must end with the same trees: they took the same
+    decisions on the same summed statistics."""
+    if len({e.to_text() for e in ensembles}) != 1:
+        raise RankLibError("the -dp ranks ended with different models")
+
+
+def _validation_bins(validation: Dataset | None, thresholds):
+    """(raw values or None, bins on the training grid) of a validation
+    set; a streamed one brings its bins and no raw values."""
+    if validation is None:
+        return None, None
+    if getattr(validation, "binned", None) is not None:
+        return None, validation.binned
+    vfeats = flatten(validation)[0]
+    return vfeats, bin_features(vfeats, thresholds)
+
+
+def _prior_scores(prior: TreeEnsemble, feats, binned, thresholds, vfeats,
+                  vbinned, device):
+    """The warm start's scores of the training docs and of the validation
+    docs (None without validation; ref ``fit``, :145-160): from the raw
+    values where there are any, else in bin space (exact on this grid)."""
+    ens_bin = None
+    if feats is not None:
+        sc = prior.eval_matrix(feats, device)
+    else:
+        ens_bin = prior.to_bin_space(thresholds)
+        sc = _eval_binned(ens_bin, binned, device)
+    if vbinned is None:
+        return sc, None
+    if vfeats is not None:
+        return sc, prior.eval_matrix(vfeats, device)
+    if ens_bin is None:
+        ens_bin = prior.to_bin_space(thresholds)
+    return sc, _eval_binned(ens_bin, vbinned, device)
 
 
 def eval_ensemble_dataset(ensemble: TreeEnsemble, ds: Dataset,
@@ -321,13 +524,17 @@ def _export_tree(feature, sbin, left, right, is_leaf, out, n_nodes,
                 output=out[:n])
 
 
-def _export(state, keep: int, thresholds, weight: float) -> TreeEnsemble:
-    """The first ``keep`` recorded trees as a TreeEnsemble (one read of
-    the records)."""
+def _export(state, keep: int, thresholds, weight: float,
+            prior: TreeEnsemble | None = None) -> TreeEnsemble:
+    """``prior``'s trees, then the first ``keep`` recorded trees, as a
+    TreeEnsemble (one read of the records)."""
     arrs = [a[:keep].cpu().numpy() for a in (
         state.tfeat, state.tbin, state.tleft, state.tright, state.tleaf,
         state.tout, state.tnodes)]
     ens = TreeEnsemble()
+    if prior is not None:
+        for tree, w in zip(prior.trees, prior.weights):
+            ens.add(tree, w)
     for i in range(keep):
         ens.add(_export_tree(*(a[i] for a in arrs[:6]), int(arrs[6][i]),
                              thresholds), weight)

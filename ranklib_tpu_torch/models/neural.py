@@ -60,7 +60,7 @@ from ranklib_tpu_torch.ops.sparse_eval import (
     build_sparse_data, sparse_scores_flat, wants_sparse_eval,
 )
 from ranklib_tpu_torch.utils.errors import RankLibError
-from ranklib_tpu_torch.utils.logging import is_silent, log
+from ranklib_tpu_torch.utils.logging import event, is_silent, log
 
 
 def _init_params(generator: torch.Generator, layer_sizes) -> list:
@@ -373,9 +373,12 @@ class RankNet(Ranker):
                                or epoch == 1):
                 mis = float(state.mis[epoch - 1])
                 # the epoch's validation value, not the running best
-                vtxt = (f"{float(state.val_m[epoch - 1]):.4f}"
-                        if validation is not None else "-")
+                vm = (float(state.val_m[epoch - 1])
+                      if validation is not None else None)
+                vtxt = f"{vm:.4f}" if vm is not None else "-"
                 log(f"{epoch:<8}| {mis:<20.0f}| {vtxt:<10}")
+                event("epoch", ranker=self.NAME, epoch=epoch,
+                      misordered_pairs=mis, best_val=vm)
         final = state.best_params if validation is not None else state.params
         self.params = [(W.cpu().numpy(), b.cpu().numpy()) for W, b in final]
 

@@ -50,7 +50,7 @@ from ranklib_tpu_torch.models.base import (
 from ranklib_tpu_torch.ops.batched_eval import blockwise_scores
 from ranklib_tpu_torch.ops.histogram import histogram
 from ranklib_tpu_torch.utils.errors import RankLibError
-from ranklib_tpu_torch.utils.logging import is_silent, log
+from ranklib_tpu_torch.utils.logging import event, is_silent, log
 
 
 def bin_dtype(T: int):
@@ -318,10 +318,15 @@ class RankBoost(Ranker):
             if not bool(state.wact[t]):
                 log(f"Stop at round {t + 1}: no useful weak ranker")
                 break
-            line = f"{t + 1:<8}| {float(state.train_m[t]):<11.4f}"
+            tm = float(state.train_m[t])
+            line = f"{t + 1:<8}| {tm:<11.4f}"
+            vm = None
             if validation is not None:
-                line += f"| {float(state.val_m[t]):<11.4f}"
+                vm = float(state.val_m[t])
+                line += f"| {vm:<11.4f}"
             log(line)
+            event("round", ranker=self.NAME, round=t + 1,
+                  train_metric=tm, val_metric=vm)
         self.fit_state = state
         # one read of the whole record
         wf, wt, walpha, wact, val_m = (a.cpu().numpy() for a in (

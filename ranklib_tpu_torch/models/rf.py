@@ -23,7 +23,15 @@ the bags' ``<ensemble>`` blocks under one ``## Random Forests`` header.
 
 On a streamed ``-sparse`` dataset (``data.binned.BinnedDataset``) the bags
 weigh rows of its bin matrix the same way, and a bag's console train
-metric scores its rows in bin space. Not ported: the mesh path (``-dp``).
+metric scores its rows in bin space.
+
+* ``-dp`` (a ``parallel.dist.Mesh`` of more than one rank): as the
+  reference's ``_fit_bags_rebuild``, each bag is a data-parallel MART
+  (``-rtype 0``) or LambdaMART (``-rtype 6``) fit on its sampled queries
+  (a query drawn k times is k queries), the whole forest in one process
+  group: every rank draws the same bags from the same generator and takes
+  its share of each bag's queries from the full bin matrix, which it maps
+  from shared memory.
 """
 
 from __future__ import annotations
@@ -33,12 +41,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from ranklib_tpu_torch.data.dataset import Dataset, flatten
+from ranklib_tpu_torch.data.dataset import Dataset, flatten, flatten_meta
 from ranklib_tpu_torch.data.sampling import sample_features, sample_queries
 from ranklib_tpu_torch.device import choose_device
 from ranklib_tpu_torch.gbdt.boost import (
     init_state, make_boost_data, make_round_step, upload_bins,
 )
+from ranklib_tpu_torch.gbdt.binning import bin_features
 from ranklib_tpu_torch.gbdt.ensemble import TreeEnsemble
 from ranklib_tpu_torch.gbdt.grow import grow_forest, leaf_outputs_forest
 from ranklib_tpu_torch.metrics.base import score_dataset
@@ -46,11 +55,12 @@ from ranklib_tpu_torch.models.base import (
     Ranker, model_header, parse_model_params, register_ranker,
 )
 from ranklib_tpu_torch.models.gbdt import (
-    _eval_binned, _export, _export_tree, eval_ensemble_dataset,
-    flatten_binned, pad_binned,
+    MART, LambdaMART, _eval_binned, _export, _export_tree,
+    check_same_models, eval_ensemble_dataset, flatten_binned, labels_only,
+    launch_counts, pad_binned, shared,
 )
 from ranklib_tpu_torch.utils.errors import RankLibError
-from ranklib_tpu_torch.utils.logging import is_silent, log
+from ranklib_tpu_torch.utils.logging import is_silent, log, set_silent
 
 # device memory a group of bags may take: a quarter of the card's, or this
 # much on the CPU
@@ -114,6 +124,7 @@ def bag_group_size(M: int, F: int, B: int, N: int, n_bags: int,
 @register_ranker
 class RFRanker(Ranker):
     NAME = "Random Forests"
+    DATA_PARALLEL = True
 
     def __init__(self, **hp):
         self.n_bags = 300
@@ -127,6 +138,7 @@ class RFRanker(Ranker):
         self.seed = 0
         self.ensembles: list[TreeEnsemble] = []
         self._merged = None
+        self.rank_launches = None       # the last -dp fit's, a dict a rank
         super().__init__(**hp)
         if self.ranker_type not in (0, 6):
             raise RankLibError(
@@ -147,12 +159,18 @@ class RFRanker(Ranker):
 
     def fit(self, train: Dataset, scorer, validation: Dataset | None = None,
             device: torch.device | None = None,
-            feature_mask: np.ndarray | None = None) -> None:
+            feature_mask: np.ndarray | None = None, mesh=None,
+            profile_dir: str | None = None) -> None:
         """Train on ``device`` (default: :func:`choose_device`'s, as the
         CLI picks it). ``validation`` is ignored, as in the reference.
         ``feature_mask``: optional [F] bool (``-feature`` on the streamed
-        ``-sparse`` path), intersected with every bag's feature sample."""
+        ``-sparse`` path), intersected with every bag's feature sample.
+        ``mesh``: of more than one rank, :meth:`_fit_bags_rebuild`, whose
+        ranks write their profiler traces into ``profile_dir``."""
         device = choose_device(quiet=True) if device is None else device
+        if mesh is not None and mesh.size > 1:
+            return self._fit_bags_rebuild(train, scorer, mesh, feature_mask,
+                                          profile_dir)
         if self.ranker_type == 0:
             return self._fit_bags_batched(train, scorer, device,
                                           feature_mask)
@@ -248,6 +266,29 @@ class RFRanker(Ranker):
                     log(f"bag {lo + c + 1:<5}| {scorer.name}-bag: {m:.4f}")
         self._merged = None
 
+    def _fit_bags_rebuild(self, train: Dataset, scorer, mesh,
+                          feature_mask=None, profile_dir=None) -> None:
+        """``-dp`` (ref ``_fit_bags_rebuild``, rf.py:310-355): one grid and
+        bin matrix for every bag, here, in shared memory; the ranks
+        (:func:`_bags_rank`) fit the bags one after another.
+        ``rank_launches`` keeps each rank's kernel launches."""
+        from ranklib_tpu_torch.parallel.dist import check_shardable, run
+
+        check_shardable(int(self.sub_sampling_rate * len(train.queries)),
+                        mesh)
+        log("Training starts...")
+        feats, _, _, thresholds, binned, _, _ = flatten_binned(
+            train, self.n_threshold)
+        if binned is None:
+            binned = bin_features(feats, thresholds)
+        out = run(mesh, _bags_rank, self, labels_only(train), shared(binned),
+                  thresholds, feature_mask, scorer, profile_dir=profile_dir)
+        for bag in range(self.n_bags):
+            check_same_models([ens[bag] for ens, _ in out])
+        self.ensembles = out[0][0]
+        self.rank_launches = [c for _, c in out]
+        self._merged = None
+
     # ---- scoring ---------------------------------------------------------
     def _merged_ensemble(self) -> TreeEnsemble:
         """All bags in one ensemble, tree weights scaled by 1/nBags (score
@@ -286,6 +327,40 @@ class RFRanker(Ranker):
         if not self.ensembles:
             raise RankLibError("No <ensemble> blocks in Random Forests model")
         self._merged = None
+
+
+def _bags_rank(rank, device, group, rf: RFRanker, train: Dataset, binned,
+               thresholds, feature_mask, scorer) -> list:
+    """A ``-dp`` rank of :meth:`RFRanker._fit_bags_rebuild`: every bag's
+    draws, in the reference's order, then the bag's data-parallel fit on
+    this rank's share of its queries (their rows of the full ``binned``);
+    rank 0 logs each bag's train metric. Returns (the bags' ensembles,
+    the rank's :func:`launch_counts`)."""
+    binned = binned.numpy()
+    F = binned.shape[1]
+    qptr = flatten_meta(train)[1]
+    rng = np.random.default_rng(rf.seed)
+    cls = MART if rf.ranker_type == 0 else LambdaMART
+    silent = is_silent()
+    ensembles = []
+    for bag in range(rf.n_bags):
+        sampled, qidx, _, fmask = rf._draw_bag(train, F, rng, feature_mask)
+        ranker = cls(n_trees=rf.n_trees, n_leaves=rf.n_leaves,
+                     learning_rate=rf.learning_rate, early_stop=0,
+                     n_threshold=rf.n_threshold)
+        set_silent(True)              # per-bag round tables are noise
+        try:
+            ranker.fit_shard(rank, device, group, sampled, binned,
+                             thresholds, scorer, feature_mask=fmask,
+                             qstart=qptr[qidx])
+        finally:
+            set_silent(silent)
+        ensembles.append(ranker.ensemble)
+        if rank == 0 and not silent:
+            m = _bag_train_metric(ranker.ensemble, sampled, qidx, qptr,
+                                  binned, thresholds, scorer, device)
+            log(f"bag {bag + 1:<5}| {scorer.name}-bag: {m:.4f}")
+    return ensembles, launch_counts()
 
 
 def parse_ensembles(text: str) -> list[TreeEnsemble]:

@@ -123,7 +123,7 @@ def test_feature_subset_matches_reference(files):
 
 
 @pytest.mark.parametrize("extra", [
-    ["-train", "x.txt", "-resume", "m.txt"],
+    ["-train", "x.txt", "-resume", "m.txt", "-dp", "2"],
     ["-train", "train.txt", "-kcv", "3", "-r", "1", "-i", "4", "-sparse"],
     ["-train", "train.txt", "-ranker", "1", "-epoch", "5", "-sparse"],
     ["-train", "train.txt", "-ranker", "2", "-round", "20", "-qrel",
@@ -132,8 +132,9 @@ def test_feature_subset_matches_reference(files):
     ["-ana"], ["-combine", "d"],
 ], ids=["train", "kcv", "sparse", "qrel", "norm", "ana", "combine"])
 def test_unported_flows_exit_cleanly(files, extra, capsys, monkeypatch):
-    """-train itself is ported; the training flags that are not (here
-    -resume) still exit cleanly. -sparse is ported for every ranker: with
+    """-train itself is ported; the one training flag that is not for
+    every ranker (-dp, here with the default Coordinate Ascent, and with
+    -resume, which that ranker drops) still exits cleanly. -sparse is ported for every ranker: with
     a raw-value ranker (here the default Coordinate Ascent under -kcv,
     RankNet, RankBoost with -qrel and Linear Regression with -norm) the
     same command line runs in both CLIs and prints the same result lines
@@ -327,6 +328,17 @@ def test_port_runs_without_jax_or_the_reference(files):
         f"rc = main(['-ana', '-all', {str(d / 'nojax_idv')!r}, '-base', "
         f"os.path.join({str(d / 'nojax_idv')!r}, 'nojax_model.txt'), "
         f"'-np', '500'])\n"
+        "assert rc == 0, rc\n"
+        "import ranklib_tpu_torch.api as rl\n"
+        "import ranklib_tpu_torch.parallel.dist as dist\n"
+        "import ranklib_tpu_torch.gbdt.boost_dist\n"
+        f"m = rl.train({str(d / 'train.txt')!r}, ranker=6, n_trees=2, "
+        "n_leaves=3, device='cpu')\n"
+        f"assert rl.evaluate(m, {test!r}, device='cpu') > 0\n"
+        f"rc = main(['-train', {str(d / 'train.txt')!r}, '-ranker', '6', "
+        f"'-tree', '2', '-leaf', '3', '-dp', '2', '-ckpt', '1', "
+        f"'-eventlog', {str(d / 'nojax_ev.jsonl')!r}, '-save', "
+        f"{str(d / 'nojax_dp.txt')!r}])\n"
         "assert rc == 0, rc\n"
         "assert sys.modules['jax'] is None\n"
         "bad = [m for m in sys.modules if m == 'ranklib_tpu' or "

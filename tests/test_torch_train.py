@@ -13,6 +13,8 @@
   packages in both directions.
 """
 
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -283,26 +285,33 @@ def test_trained_models_load_across_packages(files, capsys):
     assert lines["port"] == lines["ref"]
 
 
-# -kcv, -qrel, -norm and, for the tree rankers, -sparse are ported; the
-# extensions are refused with them too (-sparse -dp among them): the first
-# four cases keep their ids
+# Every extension is ported for the tree rankers (tests/test_torch_dp.py,
+# tests/test_torch_extensions.py); the one flag still refused is -dp with a
+# ranker that has no mesh path: with RankBoost, -dp is refused in every
+# combination with the other flows and extensions (the cases keep their
+# ids), before any file is read
 @pytest.mark.parametrize("extra,flag", [
     (["-kcv", "3", "-sparse", "-dp", "2"], "-dp"),
     (["-sparse", "-dp", "2"], "-dp"),
-    (["-qrel", "q.txt", "-sparse", "-resume", "m.txt"], "-resume"),
-    (["-norm", "zscore", "-sparse", "-ckpt", "5"], "-ckpt"),
-    (["-resume", "m.txt"], "-resume"), (["-ckpt", "5"], "-ckpt"),
-    (["-dp", "2"], "-dp"), (["-eventlog", "e.jsonl"], "-eventlog"),
-    (["-profile", "trace"], "-profile"),
+    (["-qrel", "q.txt", "-sparse", "-resume", "m.txt", "-dp", "2"], "-dp"),
+    (["-norm", "zscore", "-sparse", "-ckpt", "5", "-dp", "3"], "-dp"),
+    (["-resume", "m.txt", "-dp", "2"], "-dp"),
+    (["-ckpt", "5", "-dp", "2"], "-dp"),
+    (["-dp", "2"], "-dp"), (["-eventlog", "e.jsonl", "-dp", "2"], "-dp"),
+    (["-profile", "trace", "-dp", "4"], "-dp"),
 ], ids=["extra0--kcv", "extra1--sparse", "extra2--qrel", "extra3--norm",
         "extra4--resume", "extra5--ckpt", "extra6--dp", "extra7--eventlog",
         "extra8--profile"])
-def test_unported_training_flags_exit_1(files, capsys, extra, flag):
+def test_unported_training_flags_exit_1(files, capsys, extra, flag,
+                                        tmp_path, monkeypatch):
     _, paths = files
-    assert port_main(["-train", paths["train"], "-ranker", "6",
+    monkeypatch.chdir(tmp_path)
+    assert port_main(["-train", paths["train"], "-ranker", "2",
                       *extra]) == 1
-    assert (f"Error: {flag} is not yet ported"
-            in capsys.readouterr().out)
+    assert capsys.readouterr().out.strip() == (
+        f"Error: {flag} is not yet ported to ranklib_tpu_torch for "
+        f"RankBoost (ported: -dp with -ranker 0, 6 and 8)")
+    assert os.listdir(tmp_path) == []          # no log, trace or model
 
 
 def test_other_rankers_are_not_ported(files, capsys):
