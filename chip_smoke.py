@@ -220,7 +220,29 @@ Phases, none of whose failures is caught:
     first 9 held in each rank as above, no B7; within 0.03 of the
     single-device forest); ``api.train`` and ``api.evaluate`` (the CLI's
     model bytes and metric line, every B4 launch bit-equal to the plain
-    version).
+    version);
+21. ``-dp`` for the other rankers on phase 5's training set, as two gloo
+    ranks on the card, with the launch counters at 0, every fit in ONE
+    spawned mesh (``parallel.dp.fit_many``): Coordinate Ascent ``-r 2 -i
+    10``, 1 sweep; RankBoost and AdaRank ``-round 50``; RankNet,
+    LambdaRank and ListNet 1, 1 and 2 epochs with the 300 validation
+    queries; the nets on 64 queries (1 epoch at 10x the rates); and
+    ``-sparse -dp`` on phase 19's 700-wide file under
+    ``RANKLIB_TPU_DEVICE_DENSE_MB=0`` (CA and AdaRank on the COO route,
+    RankBoost on its CSR bins, at phase 19's cut). Every rank's model
+    equal; CA within 1e-6 (COO: 2e-4) and RankBoost's and AdaRank's weak
+    sequences (α within 1e-5) of the single-device fits on the card
+    (phase 19's for ``-sparse``); B1 one launch a round on each rank and
+    none in the parent, each RankBoost fit's first launch held inside
+    each rank against the plain version on the rank's own ids (counts
+    exact, sums within HIST_TOL; the ranks' documents and π masses adding
+    up to the single-device fit's); B1 alone on rank 0's shard beside the
+    plain version, ``index_add_`` and its bound; ms a sweep, round or
+    epoch on rank 0 beside the single-device fit's; the 64-query nets
+    again on two CPU ranks (within 1e-5); RankNet ``-sparse`` on the COO
+    route prints the reference's ``-dp ignored`` line; the CLI's ``-ranker
+    4 -dp 2`` (one card: the ``-dp 0`` bytes) and ``-ranker 9 -dp 2`` (the
+    reference's line, the same bytes).
 
 Every kernel's line in the JSON record carries its launches on its paths
 (the histogram's: LambdaMART's fit, RankBoost's, phase 18's ``-sparse``
@@ -228,7 +250,10 @@ fit and phase 19's two ``-sparse`` RankBoost fits, each also under
 ``paths`` with its shape and times;
 B2's, B4's and B7's also phase 18's ``-sparse`` runs; B1's, B2's and B4's
 also phase 20's, B1's and B2's ``-dp`` ranks also under ``paths``, with
-ms a round beside the single-device fit's), its error against
+ms a round beside the single-device fit's; B1's RankBoost ``-dp`` ranks
+of phase 21 under ``rankboost_dp``, with the shard's shape and times and
+each phase-21 ranker's ms a step beside the single-device one), its
+error against
 the plain
 version, its time and the plain version's, its bound (bytes over 3.35
 TB/s or operations over the published peak, whichever is larger, from
@@ -3732,6 +3757,7 @@ def raw_coo_route(dev, raw, smi) -> dict:
                     check(err <= 1e-6, f"{name} on the COO route: parameters "
                                        f"off the dense fit's by {err:.2e}")
                 out["walls"][name] = (wa, wb)
+                out.setdefault("models", {})[name] = a
                 print(f"  {name} COO: {wa:.2f} s and {wb:.2f} s, "
                       f"bit-identical; off the dense fit by {err:.2e}")
             # the layer alone: CA's candidate count at RankLib's -r 5 -i 25
@@ -4378,6 +4404,402 @@ def extensions_phase(dev, fit, tmp, smi) -> dict:
     return out
 
 
+# phase 21: -dp for the other rankers at the training width, as two gloo
+# ranks on the one card: Coordinate Ascent -r 2 -i 10, 1 sweep (RankLib's
+# -r 5 -i 25 and 25 sweeps cut for the time limit); RankBoost and AdaRank
+# -round 50 (of 300 and 500); RankNet, LambdaRank and ListNet 1, 1 and 2
+# epochs (of 100, 100 and 1,500), with phase 5's 300 validation queries;
+# the nets again on 64 queries (1 epoch at 10x the rates) on the card and
+# on two CPU ranks. -sparse -dp on phase 19's 700-wide file at its cut
+# (CA -r 1 -i 10, RankBoost 100 and AdaRank 500 rounds).
+DP_CA = dict(n_restart=2, n_max_iteration=10, max_passes=1)
+DP_ROUNDS, DP_EPOCHS, DP_CPU_QUERIES = 50, (1, 1, 2), 64
+
+
+def _dp_rank(out_dir, fn, rank, device, group, jobs):
+    """A phase-21 rank: ``fn`` (``parallel.dp.run_jobs``) over ``jobs``,
+    job by job, with every step (a sweep, a round, an epoch) timed
+    (synchronised wall ms) and the first histogram launch on each new id
+    matrix (each RankBoost fit's first round) held against the plain
+    version on the rank's own card tensors, with the rank's document count
+    and π mass Σ|π|; the findings go to ``out_dir/rank<r>.json``."""
+    from ranklib_tpu_torch.models import adarank, coorascent, neural
+    from ranklib_tpu_torch.models import rankboost as PRB
+    from ranklib_tpu_torch.ops import histogram as H
+
+    times, held, seen = [], [], set()
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    origs = [(coorascent.CoorAscent, "prepare_fit"),
+             (PRB.RankBoost, "_build"), (adarank.AdaRank, "prepare_shard"),
+             (neural.RankNet, "prepare_fit")]
+
+    def timing(orig):
+        def prepare(self, *a, **k):
+            step, *rest = orig(self, *a, **k)
+
+            def timed(*sa, **sk):
+                sync()
+                t0 = time.perf_counter()
+                out = step(*sa, **sk)
+                sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return (timed, *rest)
+        return prepare
+
+    hist = PRB.histogram
+
+    def holding(binsT, grad, w, B):
+        got = hist(binsT, grad, w, B)
+        key = (binsT.data_ptr(), tuple(binsT.shape))
+        if key not in seen:
+            seen.add(key)
+            want = H.histogram_plain(binsT, grad, w, B)
+            held.append({
+                "shape": [*binsT.shape, B], "dtype": str(binsT.dtype),
+                "device": str(got.device),
+                "counts_equal": bool(torch.equal(got[..., 1], want[..., 1])),
+                "sums_close": bool(torch.allclose(got[..., 0], want[..., 0],
+                                                  **HIST_TOL)),
+                "max_abs_err": float((got - want).abs().max()),
+                "docs": float(got[0, :, 1].sum()),
+                "mass": float(grad.abs().sum())})
+        return got
+
+    saved = [(cls, name, getattr(cls, name)) for cls, name in origs]
+    for cls, name, orig in saved:
+        setattr(cls, name, timing(orig))
+    PRB.histogram = holding
+    steps, out = [], []
+    try:
+        for job in jobs:
+            times.clear()
+            out += fn(rank, device, group, [job])
+            steps.append({"name": job.ranker.NAME, "ms": list(times)})
+    finally:
+        for cls, name, orig in saved:
+            setattr(cls, name, orig)
+        PRB.histogram = hist
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"steps": steps, "held": held}, f)
+    return out
+
+
+@contextlib.contextmanager
+def dp_ranks(n_ranks: int, tmp: str, found: list):
+    """Inside the block every ``-dp`` run's ranks go through
+    :func:`_dp_rank`; at its end each rank's findings are appended to
+    ``found`` and its held launches checked: on the card, counts exact,
+    sums within HIST_TOL of the plain version. The rank function must
+    pickle by name, so it is taken from this script imported as a
+    module."""
+    import functools
+    import importlib
+
+    from ranklib_tpu_torch.parallel import dist
+
+    me = importlib.import_module("chip_smoke")
+    out_dir = tempfile.mkdtemp(dir=tmp)
+    orig = dist.run
+
+    def run(mesh, fn, *args, **kw):
+        return orig(mesh, functools.partial(me._dp_rank, out_dir, fn),
+                    *args, **kw)
+
+    dist.run = run
+    try:
+        yield
+    finally:
+        dist.run = orig
+    for r in range(n_ranks):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            found.append(json.load(f))
+        held = found[r]["held"]
+        check(held and all(c["device"].startswith("cuda") for c in held),
+              f"rank {r}'s RankBoost histograms were not held on the card")
+        check(all(c["counts_equal"] and c["sums_close"] for c in held),
+              f"rank {r}'s histogram differs from the plain version on its "
+              f"own ids: {held}")
+
+
+def _params_err(a, b) -> float:
+    return max(float(np.abs(np.asarray(x) - np.asarray(y)).max())
+               for pa, pb in zip(a.params, b.params) for x, y in zip(pa, pb))
+
+
+def _weaks_check(got, want, what: str, tol: float = 1e-5) -> float:
+    """The reference's bound for a boosting ranker's record (RankBoost's
+    (fid, θ, α), AdaRank's (fid, α)): all but α equal, α within ``tol``;
+    returns the largest α gap."""
+    check(len(got) == len(want) > 0
+          and [w[:-1] for w in got] == [w[:-1] for w in want],
+          f"{what}: the -dp weak sequence is not the single-device one")
+    err = max(abs(a[-1] - b[-1]) for a, b in zip(got, want))
+    check(err <= tol, f"{what}: alphas off by {err:.2e}")
+    return err
+
+
+def dp_rankers_phase(dev, fit, sparse, tmp, smi) -> dict:
+    """Phase 21: ``-dp`` for Coordinate Ascent, RankBoost, AdaRank and the
+    three nets on phase 5's training set, as two gloo ranks on the one
+    card (a hand-built ``parallel.dist.Mesh``), with the launch counters
+    at 0: every dense fit, the nets again on 64 queries, and the COO-route
+    fits of phase 19's 700-wide file in ONE spawned mesh
+    (``parallel.dp.fit_many``); the 64-query nets once more on two CPU
+    ranks; the single-device fits beside them; the CLI's -ranker 4 and
+    -ranker 9 with -dp 2. Checks: every rank's model equal (the fit's
+    check, seen here); CA's weights within 1e-6 and the boosting rankers'
+    weak sequences (α within 1e-5) of the single-device fits; B1 one
+    launch a round on each rank and none in the parent, each RankBoost
+    fit's first launch held in each rank against the plain version on its
+    own ids, the two ranks' documents and π masses adding up to the
+    single-device fit's; the nets' card and CPU ranks within 1e-5."""
+    from ranklib_tpu_torch import cli
+    from ranklib_tpu_torch.metrics.base import create_scorer
+    from ranklib_tpu_torch.models import neural as PN
+    from ranklib_tpu_torch.models import rankboost as PRB
+    from ranklib_tpu_torch.models.adarank import AdaRank
+    from ranklib_tpu_torch.models.coorascent import CoorAscent
+    from ranklib_tpu_torch.ops.sparse_eval import wants_sparse_eval
+    from ranklib_tpu_torch.parallel import dist
+    from ranklib_tpu_torch.parallel import dp as PDP
+    from ranklib_tpu_torch.parallel.dist import Mesh
+
+    scorer = create_scorer("NDCG@10")
+    train, vali = fit["train"], fit["vali"]
+    nets = [(PN.RankNet, DP_EPOCHS[0]), (PN.LambdaRank, DP_EPOCHS[1]),
+            (PN.ListNet, DP_EPOCHS[2])]
+
+    def dense_fits():
+        return ([("CoorAscent", CoorAscent(**DP_CA), train, None),
+                 ("RankBoost", PRB.RankBoost(n_rounds=DP_ROUNDS,
+                                             n_threshold=RB_TC), train,
+                  None),
+                 ("AdaRank", AdaRank(n_rounds=DP_ROUNDS), train, None)]
+                + [(cls.NAME, cls(n_epoch=e), train, vali)
+                   for cls, e in nets])
+
+    small = first_queries(train, DP_CPU_QUERIES)
+
+    def small_fits():
+        out = []
+        for cls, _ in nets:
+            r = cls(n_epoch=1)
+            r.learning_rate *= 10
+            out.append((cls.NAME + "-64", r, small, None))
+        return out
+
+    csr, vcsr = sparse["csr"], sparse["vcsr"]
+    sparse_fits = [
+        ("CoorAscent-coo", CoorAscent(**RAW_CA), csr, vcsr),
+        ("RankBoost-sparse", PRB.RankBoost(n_rounds=RAW_RB_ROUNDS,
+                                           n_threshold=RB_TC), csr, vcsr),
+        ("AdaRank-coo", AdaRank(n_rounds=ADA_ROUNDS), csr, vcsr)]
+
+    # the single-device fits on the card, their steps timed
+    single, single_ms = {}, {}
+    t0 = time.perf_counter()
+    for name, r, tr, va in dense_fits():
+        times = []
+        with timed_steps(type(r), times):
+            quiet(r.fit, tr, scorer, va, device=dev)
+        single[name], single_ms[name] = r, float(np.median(times))
+    print(f"  single-device fits on the card in "
+          f"{time.perf_counter() - t0:.1f} s: ms a step " + ", ".join(
+              f"{k} {v:.1f}" for k, v in single_ms.items()))
+
+    # one spawned mesh: two gloo ranks on the one card
+    mesh = Mesh((dev, dev), "gloo")
+    seen = []
+    check_rankers = PDP.check_same_rankers
+
+    def keep(rankers):
+        seen.append(len({r.model_str() for r in rankers}))
+        check_rankers(rankers)
+
+    fits = dense_fits() + small_fits() + sparse_fits
+    zero_counts()
+    found = []
+    PDP.check_same_rankers = keep
+    try:
+        with budget(0), dp_ranks(mesh.size, tmp, found):
+            check(wants_sparse_eval(csr), "a budget of 0 should route the "
+                                          "CSR to the COO layer")
+            t1 = time.perf_counter()
+            _, text = quiet(PDP.fit_many, mesh, [
+                (r, tr, scorer, va) for _, r, tr, va in fits])
+            wall = time.perf_counter() - t1
+    finally:
+        PDP.check_same_rankers = check_rankers
+    parent = counts()
+    names = [name for name, *_ in fits]
+    dp = {name: r for name, r, *_ in fits}
+    print(f"  -dp 2 (gloo, 2 ranks on {torch.cuda.get_device_name(0)}): "
+          f"{len(fits)} fits in one spawned mesh, {wall:.1f} s with rank "
+          f"start-up; every rank's model equal: {seen == [1] * len(fits)}; "
+          f"the parent's B1 {parent['histogram']}")
+    check(seen == [1] * len(fits), "the ranks' models differ")
+    check(parent["histogram"] == 0, "the parent launched B1 under -dp")
+    rb_launches = {name: [c["histogram"] for c in dp[name].rank_launches]
+                   for name in ("RankBoost", "RankBoost-sparse")}
+    check(rb_launches["RankBoost"] == [DP_ROUNDS] * 2
+          and rb_launches["RankBoost-sparse"] == [RAW_RB_ROUNDS] * 2,
+          f"a rank's B1 launches are not one a round: {rb_launches}")
+    check(all(sum(c.values()) == 0 for name, r in dp.items()
+              if not name.startswith("RankBoost") for c in r.rank_launches),
+          "a ranker without a kernel launched one")
+
+    # against the single-device fits
+    ca_err = float(np.abs(dp["CoorAscent"].weights
+                          - single["CoorAscent"].weights).max())
+    check(ca_err <= 1e-6, f"CA -dp weights off the single-device fit by "
+                          f"{ca_err:.2e}")
+    rb_err = _weaks_check(dp["RankBoost"].weaks, single["RankBoost"].weaks,
+                          "RankBoost")
+    ada_err = _weaks_check(dp["AdaRank"].history, single["AdaRank"].history,
+                           "AdaRank")
+    coo_ca = float(np.abs(dp["CoorAscent-coo"].weights
+                          - sparse["CoorAscent"].weights).max())
+    check(coo_ca <= 2e-4, f"CA -sparse -dp off the COO fit by {coo_ca:.2e}")
+    coo_rb = _weaks_check(dp["RankBoost-sparse"].weaks, sparse["RankBoost"]
+                          .weaks, "RankBoost -sparse")
+    coo_ada = _weaks_check(dp["AdaRank-coo"].history,
+                           sparse["AdaRank"].history, "AdaRank COO")
+    net_gap = {cls.NAME: _params_err(dp[cls.NAME], single[cls.NAME])
+               for cls, _ in nets}
+    check(all(np.isfinite(W).all() for cls, _ in nets
+              for W, _ in dp[cls.NAME].params), "a -dp net is not finite")
+    print(f"  CA weights off the single-device fit by {ca_err:.2e} (1e-6); "
+          f"RankBoost {len(dp['RankBoost'].weaks)} and AdaRank "
+          f"{len(dp['AdaRank'].history)} weak rankers, the single-device "
+          f"sequences, alphas within {rb_err:.2e} and {ada_err:.2e}; the "
+          f"nets (a minibatch of 2 queries a step) off the sequential fits "
+          f"by " + ", ".join(f"{k} {v:.2e}" for k, v in net_gap.items()))
+    print(f"  -sparse -dp ({BUDGET_ENV}=0): CA off phase 19's COO fit by "
+          f"{coo_ca:.2e} (2e-4); RankBoost and AdaRank the COO fits' "
+          f"sequences, alphas within {coo_rb:.2e} and {coo_ada:.2e}")
+
+    # B1 inside the ranks, and alone on rank 0's shard
+    held = [f["held"] for f in found]
+    check(all(len(h) == 2 for h in held), "a rank did not hold each "
+                                          "RankBoost fit's first B1 launch")
+    step, state, data, _ = single["RankBoost"].prepare_fit(train, scorer,
+                                                          None, dev)
+    N = data.binned_T.shape[1]
+    pot = PRB.pair_potential(state.scores, data.tb, data.uniq, N)
+    mass, docs = float(pot.abs().sum()), sum(h[0]["docs"] for h in held)
+    ranks_mass = sum(h[0]["mass"] for h in held)
+    b1_err = max(c["max_abs_err"] for h in held for c in h)
+    print(f"  each rank's first RankBoost B1 launch held against the plain "
+          f"version on its own ids {held[0][0]['shape']} "
+          f"{held[0][0]['dtype']} (and the -sparse fit's "
+          f"{held[0][1]['shape']}): counts exact, max_abs_err {b1_err:.3e} "
+          f"(HIST_TOL); documents {[h[0]['docs'] for h in held]} of {N}; "
+          f"pi mass {[round(h[0]['mass'], 6) for h in held]}, together "
+          f"{ranks_mass:.6f} vs single device {mass:.6f}")
+    check(docs == N, "the ranks' histograms do not count every document "
+                     "once")
+    check(abs(ranks_mass - mass) <= 1e-5 * mass, "the ranks' pi masses do "
+                                                 "not add up")
+    from ranklib_tpu_torch.gbdt.boost_dist import _shard_arrays
+
+    grid, binned = PRB.host_bins(train, RB_TC)
+    _, rows = _shard_arrays(train, binned, 2, 0)
+    binsT = torch.from_numpy(np.ascontiguousarray(rows.T)).to(dev)
+    del binned, rows, step, state, data, pot
+    ones = torch.ones(binsT.shape[1], dtype=torch.bool, device=dev)
+    b1_shard, got = hist_point(binsT, ones, RB_TC + 1)
+    # the kernel alone, as phase 16 times RankBoost's launch
+    grad = torch.from_numpy(np.random.default_rng(9).integers(
+        -8, 9, size=binsT.shape[1]).astype(np.float32)).to(dev)
+    fn, args, keep = hist_bare(binsT, grad, ones.to(torch.float32),
+                               RB_TC + 1)
+    b1_shard["bare_ms"] = bare_ms(fn, args)
+    check(torch.equal(keep[0], got), "the bare histogram launches wrote "
+                                     "another histogram")
+    print(f"  B1 alone on rank 0's shard {list(binsT.shape)} {binsT.dtype}, "
+          f"B = {RB_TC + 1}: {b1_shard['ms']:.4f} ms through its wrapper "
+          f"({b1_shard['bare_ms']:.4f} bare launches) vs plain "
+          f"{b1_shard['plain_ms']:.4f}, index_add_ "
+          f"{b1_shard['library_ms']:.4f}, bound {b1_shard['bound_ms']:.4f} "
+          f"({b1_shard['bound_by']})  [{smi}]")
+    del grad, keep, got, ones
+    shard_shape = [*binsT.shape, RB_TC + 1]
+    del binsT
+
+    # ms a step on rank 0 beside the single-device fits'
+    rank_ms = {}
+    for name in names:
+        ms = found[0]["steps"][names.index(name)]["ms"]
+        rank_ms[name] = float(np.median(ms)) if ms else float("nan")
+    ms_step = {name: [rank_ms[name], single_ms[name]] for name in single_ms}
+    print("  ms a sweep, round or epoch (rank 0, median) vs single device: "
+          + "; ".join(f"{k} {a:.1f} vs {b:.1f}" for k, (a, b)
+                      in ms_step.items()) + f"  [{smi}]")
+
+    # the 64-query nets on two CPU ranks
+    cpu_fits = small_fits()
+    t1 = time.perf_counter()
+    quiet(PDP.fit_many, dist.make_mesh(2, torch.device("cpu")),
+          [(r, tr, scorer, va) for _, r, tr, va in cpu_fits])
+    gaps = {name: _params_err(dp[name], r) for name, r, *_ in cpu_fits}
+    print(f"  the 64-query nets' 2-rank fits, card vs two CPU ranks "
+          f"({time.perf_counter() - t1:.1f} s): parameters differ by "
+          + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items()) + " (1e-5)")
+    check(all(v <= 1e-5 for v in gaps.values()),
+          "the nets' -dp fits differ card vs CPU")
+
+    # RankNet on the COO route: the reference's line, one device
+    sub = csr.subset_queries(range(min(RAW_CPU_QUERIES, len(csr.queries))))
+    with budget(0):
+        _, text = quiet(PN.RankNet(n_epoch=1).fit, sub, scorer, device=dev,
+                        mesh=mesh)
+    check("(sparse first layer is single-device; -dp ignored)"
+          in text.splitlines(), "RankNet -sparse -dp did not print the "
+                                "reference's line")
+    print("  RankNet on the COO route under -dp: '(sparse first layer is "
+          "single-device; -dp ignored)', one device")
+
+    # the CLI: -dp 2 on one card is the single-device fit
+    path = os.path.join(tmp, "p21_train.txt")
+    write_dataset(path, first_queries(train, 300))
+    models = {}
+    for ranker, extra in (("4", ["-r", "2", "-i", "10"]), ("9", [])):
+        for n in ("0", "2"):
+            m = os.path.join(tmp, f"p21_{ranker}_{n}.txt")
+            rc, out = quiet(cli.main, ["-train", path, "-ranker", ranker,
+                                       *extra, "-dp", n, "-save", m])
+            check(rc == 0, f"-ranker {ranker} -dp {n} failed:\n{out[-2000:]}")
+            models[ranker, n] = open(m).read()
+            if ranker == "9" and n == "2":
+                check("(Linear Regression has no data-parallel path; -dp "
+                      "ignored)" in out.splitlines(),
+                      "-ranker 9 -dp 2 did not print the reference's line")
+    if torch.cuda.device_count() == 1:
+        check(models["4", "2"] == models["4", "0"],
+              "-ranker 4 -dp 2 on one card is not the -dp 0 model")
+    check(models["9", "2"] == models["9", "0"],
+          "-ranker 9 -dp 2 is not the -dp 0 model")
+    print("  CLI: -ranker 4 -dp 2 on one card saves the -dp 0 model bytes; "
+          "-ranker 9 -dp 2 prints the reference's line and saves the same "
+          "bytes")
+    return {"rb_launches": rb_launches, "wall": wall, "ms_step": ms_step,
+            "b1_max_abs_err": b1_err, "b1_shard": b1_shard,
+            "shard": shard_shape, "ca_err": ca_err, "rb_err": rb_err,
+            "ada_err": ada_err, "coo": [coo_ca, coo_rb, coo_ada],
+            "net_cpu_gap": gaps}
+
+
+def first_queries(ds, n: int):
+    """The first ``n`` queries of a dense dataset."""
+    from ranklib_tpu_torch.data.dataset import Dataset
+
+    return Dataset(ds.queries[:n], ds.n_features)
+
+
 def bare_times(root: str) -> int:
     """``--bare-times ROOT``: the fused-lambda (B5) and binning (B8)
     kernels of the ``ranklib_tpu_torch`` found under ROOT, each timed by
@@ -4739,6 +5161,10 @@ def main() -> int:
     print(f" card vs CPU ({RAW_CPU_QUERIES} queries)")
     raw_card_vs_cpu(dev, raw)
     raw_b1 = raw["b1"]
+    # phase 21's -sparse -dp fits are held to phase 19's
+    p19 = {"csr": raw["csr"], "vcsr": raw["vcsr"],
+           "RankBoost": raw["fits"]["RankBoost"], **{
+               k: coo["models"][k] for k in ("CoorAscent", "AdaRank")}}
     del raw
     torch.cuda.empty_cache()
     print(f" the reference's wide shape ({WIDE_FEATURES} features, "
@@ -4758,6 +5184,15 @@ def main() -> int:
     t20 = time.perf_counter()
     ext = extensions_phase(dev, fit, tmp, smi)
     print(f"  phase 20 {time.perf_counter() - t20:.1f} s  [{smi}]")
+
+    header(f"== phase 21: -dp for Coordinate Ascent, RankBoost, AdaRank and "
+           f"the nets at the training width ({FIT_QUERIES} queries x "
+           f"{N_FEATURES} features; two gloo ranks on the card), -sparse -dp "
+           f"at {SP_FEATURES} features")
+    t21 = time.perf_counter()
+    dpr = dp_rankers_phase(dev, fit, p19, tmp, smi)
+    del p19
+    print(f"  phase 21 {time.perf_counter() - t21:.1f} s  [{smi}]")
     tmpdir.cleanup()
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -4799,7 +5234,8 @@ def main() -> int:
                    "ranklib_tpu/ops/histogram.py:185",
                    fit["launches"]["histogram"] + rb["launches"]
                    + sp["launches"]["histogram"] + raw_b1["launches"]
-                   + wide["b1"]["launches"] + ext["launches"]["histogram"],
+                   + wide["b1"]["launches"] + ext["launches"]["histogram"]
+                   + sum(sum(v) for v in dpr["rb_launches"].values()),
                    hists["root"][1], hists["root"][2], hists["root"][3],
                    hists["root_bound"], hists["root_library"]),
              paths={
@@ -4820,7 +5256,18 @@ def main() -> int:
                      "bound_ms", "library_ms")},
                  "rankboost_sparse": raw_b1,
                  "rankboost_sparse_wide": wide["b1"],
-                 "dp": dp_path("histogram")}),
+                 "dp": dp_path("histogram"),
+                 "rankboost_dp": {
+                     "launches": sum(dpr["rb_launches"]["RankBoost"]),
+                     "rank_launches": dpr["rb_launches"]["RankBoost"],
+                     "sparse_rank_launches":
+                         dpr["rb_launches"]["RankBoost-sparse"],
+                     "shape": dpr["shard"],
+                     "held_max_abs_err": dpr["b1_max_abs_err"],
+                     **{k: dpr["b1_shard"][k] for k in (
+                         "max_abs_err", "ms", "bare_ms", "plain_ms",
+                         "bound_ms", "bound_by", "library_ms")},
+                     "ms_step_dp_vs_single": dpr["ms_step"]}}),
         dict(entry("split_scan", "split_scan.cu",
                    "ranklib_tpu/ops/split_scan.py:43",
                    fit["launches"]["split_scan"] + sp["launches"]["split_scan"]

@@ -39,10 +39,11 @@ sum|zscore|linear``, ``-qrel`` and, for training, ``-kcv`` on every flow.
 ``-idv`` files with the randomization test. The reference's extensions:
 ``-eventlog`` and ``-profile`` for every ranker, ``-resume`` and ``-ckpt``
 for MART and LambdaMART (dropped silently for the other rankers, as the
-reference drops them), ``-dp`` for the tree rankers (0, 6, 8); ``-dp``
-with another ranker exits with a clean error and rc 1 rather than being
-ignored. Hyperparameter flags of other rankers are accepted and unused,
-as in the reference.
+reference drops them), and ``-dp`` for every ranker but Linear
+Regression, which logs the reference's ``-dp ignored`` line and fits on
+one device (as does a neural ranker whose sparse first layer takes
+``-sparse`` data above the device budget). Hyperparameter flags of other
+rankers are accepted and unused, as in the reference.
 """
 
 from __future__ import annotations
@@ -103,8 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="warm-start tree training from a saved model "
                         "(extension; continues toward -tree total)")
     p.add_argument("-dp", type=int, default=0,
-                   help="data-parallel devices for tree-ranker training "
-                        "(extension; 0 = single device)")
+                   help="data-parallel devices for training (extension; "
+                        "0 = single device)")
     p.add_argument("-randomSeed", type=int, default=0)
     p.add_argument("-eventlog", metavar="file",
                    help="structured JSONL event log of training (extension "
@@ -199,19 +200,6 @@ def _has_flow(args) -> bool:
                 or (args.load and (args.rank or args.test)))
 
 
-def _unported(args) -> str | None:
-    """The error of a training flag the port does not serve yet: ``-dp``
-    with a ranker that has no mesh path."""
-    if args.ana or args.combine or not args.train:
-        return None
-    if args.dp > 1:
-        from ranklib_tpu_torch.models.base import get_ranker_class
-        from ranklib_tpu_torch.models.trainer import dp_refusal
-
-        return dp_refusal(get_ranker_class(args.ranker))
-    return None
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     set_silent(args.silent)
@@ -219,9 +207,6 @@ def main(argv=None) -> int:
         log(f"Error: {_NOTHING_TO_DO}")
         return 1
     try:
-        refusal = _unported(args)
-        if refusal:
-            raise RankLibError(refusal)
         if args.ana and (not args.all or not args.base):
             raise RankLibError("-ana requires -all <dir> and -base <file>")
         if args.combine and not args.ana:

@@ -66,8 +66,6 @@ class Ranker:
     """Base class: the serving half of the reference Ranker's contract."""
 
     NAME = "?"
-    # fit(mesh=...) takes a -dp mesh (parallel.dist) of more than one rank
-    DATA_PARALLEL = False
 
     def __init__(self, **hparams):
         for k, v in hparams.items():

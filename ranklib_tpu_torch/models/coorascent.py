@@ -21,9 +21,17 @@ dense buckets, materialized in bounded chunks; above it
 COO layer (a gather of candidate rows by fid and a sum over each
 document's entries), with the same sweep around it.
 
+Under ``-dp`` (``mesh``, ``parallel.dp``) each rank scores the candidates
+on its shard of the queries (dense buckets or its COO layer) and the
+candidates' metric totals ``[R·C]`` are summed across the ranks once a
+coordinate, so every rank takes the same decisions. The starting metric
+comes from the same summed instrument: a baseline computed otherwise
+could differ from it by more than ``-tolerance`` and flip a first-sweep
+decision (ref :121-125, :245-250).
+
 Flags and defaults: ``-r`` 5, ``-i`` 25 (ladder depth), ``-tolerance``
 0.001, ``-reg`` off, ``-randomSeed`` → ``seed`` (offsets the restarts'
-shuffles). One device; data parallelism is not ported yet.
+shuffles).
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import torch
 
 from ranklib_tpu_torch.data.dataset import Dataset
 from ranklib_tpu_torch.device import choose_device
+from ranklib_tpu_torch.gbdt.grow import sum_across
 from ranklib_tpu_torch.metrics.base import MetricScorer
 from ranklib_tpu_torch.models.base import (
     Ranker, model_header, parse_model_params, register_ranker,
@@ -58,13 +67,17 @@ def restart_orders(n_features: int, n_restart: int, seed: int) -> np.ndarray:
 
 def make_sweep(scorer, *, n_features: int, depth: int, reg: float | None,
                tolerance: float, n_queries: int, step_base: float,
-               step_scale: float, sparse_n: int | None = None):
+               step_scale: float, sparse_n: int | None = None,
+               group=None):
     """One sweep over every coordinate: ``sweep(w, cur, order_T, buckets)
     → (w, cur, improved)`` with ``w [R, F]``, ``cur [R]``, ``order_T
     [F, R]`` int64 and ``buckets`` (feats, labels, mask) chunks, all on
     one device; nothing is read back. ``sweep.coordinate_step`` is one
-    coordinate's step. ``sparse_n``: the document count when ``buckets``
-    is ``(coo_chunks, metric_buckets)`` of ``ops.sparse_eval``."""
+    coordinate's step, ``sweep.mean_metric`` its candidates' instrument.
+    ``sparse_n``: the document count when ``buckets`` is ``(coo_chunks,
+    metric_buckets)`` of ``ops.sparse_eval``. ``group``: a ``-dp`` rank's
+    process group; the candidates' metric totals are summed over it and
+    ``n_queries`` is the global count."""
     F = n_features
 
     def mean_metric(Wc, buckets):
@@ -74,13 +87,13 @@ def make_sweep(scorer, *, n_features: int, depth: int, reg: float | None,
         if sparse_n is not None:
             chunks, sbuckets = buckets
             return sparse_mean_metric(scorer, Wf.contiguous(), chunks,
-                                      sbuckets, sparse_n,
-                                      n_queries).view(R, C)
+                                      sbuckets, sparse_n, n_queries,
+                                      group).view(R, C)
         total = torch.zeros(R * C, dtype=torch.float32, device=Wc.device)
         for feats, labels, mask in buckets:
             total += candidate_metrics(scorer, feats, labels, mask,
                                        Wf).sum(dim=0)
-        return total.view(R, C) / n_queries
+        return sum_across(total, group).view(R, C) / n_queries
 
     def coordinate_step(w, cur, improved, f, buckets):
         R = w.shape[0]
@@ -118,12 +131,14 @@ def make_sweep(scorer, *, n_features: int, depth: int, reg: float | None,
         return w, cur, improved
 
     sweep.coordinate_step = coordinate_step
+    sweep.mean_metric = mean_metric
     return sweep
 
 
 @register_ranker
 class CoorAscent(Ranker):
     NAME = "Coordinate Ascent"
+    MODEL_FIELDS = ("weights",)        # what a -dp fit takes from rank 0
 
     STEP_BASE = 0.05
     STEP_SCALE = 2.0
@@ -136,16 +151,37 @@ class CoorAscent(Ranker):
         self.max_passes = 25          # full feature sweeps per restart
         self.seed = 0                 # -randomSeed: offsets restart shuffles
         self.weights = None           # np.float64 [F], Σ|w| = 1
+        self.rank_launches = None    # the last -dp fit's, a dict a rank
         super().__init__(**hp)
 
-    def prepare_fit(self, train: Dataset, scorer: MetricScorer, device):
+    def prepare_fit(self, train: Dataset, scorer: MetricScorer, device,
+                    shard: tuple | None = None):
         """Upload and build the sweep: (sweep, w, cur, order_T, buckets),
-        the restarts' state at the uniform start."""
+        the restarts' state at the uniform start. ``shard``: (rank,
+        group) of a ``-dp`` rank, which takes its shard of ``train``
+        (``parallel.dp``) and sums across ``group``."""
         F = train.n_features
         R = self.n_restart
         w0 = np.full((F, 1), 1.0 / F, np.float32)
         sparse_n = None
-        if wants_sparse_eval(train):
+        group = None
+        if shard is not None:
+            from ranklib_tpu_torch.ops.batched_eval import _DOC_BUDGET
+            from ranklib_tpu_torch.parallel.dp import (
+                shard_feat_buckets, shard_sparse_data,
+            )
+
+            rank, group = shard
+            n = torch.distributed.get_world_size(group)
+            if wants_sparse_eval(train):
+                chunks, sbuckets, _, sparse_n, _ = shard_sparse_data(
+                    train, n, rank, device, want_qidx=False)
+                buckets = (chunks, sbuckets)
+            else:
+                # the single-device evaluator's [rows·D] cap
+                buckets = [c[:3] for c in shard_feat_buckets(
+                    train, n, rank, device, doc_budget=_DOC_BUDGET)[0]]
+        elif wants_sparse_eval(train):
             chunks, sbuckets, sparse_n = build_sparse_data(train, device)
             buckets = (chunks, sbuckets)
             with full_f32_products():
@@ -161,7 +197,12 @@ class CoorAscent(Ranker):
             scorer, n_features=F, depth=max(1, self.n_max_iteration),
             reg=self.reg, tolerance=self.tolerance,
             n_queries=len(train.queries), step_base=self.STEP_BASE,
-            step_scale=self.STEP_SCALE, sparse_n=sparse_n)
+            step_scale=self.STEP_SCALE, sparse_n=sparse_n, group=group)
+        if shard is not None:
+            # the baseline from the candidates' own summed instrument
+            with full_f32_products():
+                cur0 = float(sweep.mean_metric(
+                    torch.from_numpy(w0.T[None]).to(device), buckets)[0, 0])
         w = torch.full((R, F), 1.0 / F, dtype=torch.float32, device=device)
         if self.reg is not None:
             cur0 -= self.reg * (1.0 / F)     # Σ(1/F)² over F coordinates
@@ -169,12 +210,40 @@ class CoorAscent(Ranker):
         return sweep, w, cur, order_T, buckets
 
     def fit(self, train: Dataset, scorer: MetricScorer, validation=None,
-            device: torch.device | None = None) -> None:
-        """Train on ``device`` (default: :func:`choose_device`'s)."""
+            device: torch.device | None = None, mesh=None,
+            profile_dir: str | None = None) -> None:
+        """Train on ``device`` (default: :func:`choose_device`'s).
+        ``mesh``: a ``parallel.dist.Mesh``; of more than one rank, the
+        data-parallel fit, whose ranks write their profiler traces into
+        ``profile_dir``."""
         device = choose_device(quiet=True) if device is None else device
+        if mesh is not None and mesh.size > 1:
+            from ranklib_tpu_torch.parallel.dp import fit_many
+
+            return fit_many(mesh, [(self, train, scorer, validation)],
+                            profile_dir)
+        self._sweeps(*self.prepare_fit(train, scorer, device), scorer,
+                     validation, device)
+
+    def dp_job(self, train: Dataset, scorer: MetricScorer, validation=None):
+        """The ``parallel.dp.ShardJob`` of this fit under ``-dp``."""
+        from ranklib_tpu_torch.parallel.dp import make_job
+
+        return make_job(self, train, scorer, validation)
+
+    def fit_shard(self, rank: int, device, group, train: Dataset,
+                  scorer: MetricScorer, validation=None) -> None:
+        """One rank's part of a data-parallel fit (``parallel.dp``): its
+        shard of ``train``, the sweeps with ``group``."""
+        self._sweeps(*self.prepare_fit(train, scorer, device,
+                                       (rank, group)),
+                     scorer, validation, device)
+
+    def _sweeps(self, sweep, w, cur, order_T, buckets, scorer, validation,
+                device) -> None:
+        """The sweep loop, the best restart's weights renormalized in f64,
+        and the validation line."""
         R = self.n_restart
-        sweep, w, cur, order_T, buckets = self.prepare_fit(train, scorer,
-                                                           device)
         log(f"Training starts... [{self.NAME}] optimizing {scorer.name} "
             f"({R} restarts in lockstep)")
         for sweep_i in range(self.max_passes):

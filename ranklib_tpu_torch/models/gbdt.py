@@ -55,7 +55,6 @@ from ranklib_tpu_torch.utils.logging import event, is_silent, log
 @register_ranker
 class LambdaMART(Ranker):
     NAME = "LambdaMART"
-    DATA_PARALLEL = True
 
     _NEWTON = True          # leaf output Σλ/Σw (MART: mean residual)
     _POINTWISE = False      # lambda gradients (MART: plain residuals)

@@ -35,8 +35,21 @@ every document through the COO layer.
 Initial weights are U(−0.05, 0.05) from a ``torch.Generator`` seeded with
 ``-randomSeed`` on the CPU, so the card and the CPU start alike; the
 reference draws from ``jax.random``, so the same seed gives other initial
-weights in the two packages (tests inject the reference's draws). One
-device; ``-dp`` is not ported yet.
+weights in the two packages (tests inject the reference's draws).
+
+Under ``-dp`` (``mesh``, ``parallel.dp``) the ranks hold their shards of
+the queries, dealt within each padded size class, every class with the
+same row count on every rank, and step in lockstep: the r-th step of a
+class takes each rank's r-th query of that class (a rank without one
+contributes zeros), the step's gradients are summed across the ranks in
+one ``all_reduce`` of one flat buffer, and every rank applies the same
+update. So ``-dp n`` trains a synchronous minibatch of n queries a step,
+the gradient summed, not averaged: the reference's documented departure
+from sequential SGD, identical at n = 1. The epoch's pair count and
+validation sum are summed too, so the best-on-validation snapshot is the
+same on every rank. The parent draws the initial weights. A sparse first
+layer (above the device budget) is single-device: ``-dp`` then logs the
+reference's line and fits on one device.
 """
 
 from __future__ import annotations
@@ -48,6 +61,7 @@ import torch
 
 from ranklib_tpu_torch.data.dataset import Dataset, iter_buckets, query_feats
 from ranklib_tpu_torch.device import choose_device
+from ranklib_tpu_torch.gbdt.grow import sum_across
 from ranklib_tpu_torch.metrics.base import MetricScorer
 from ranklib_tpu_torch.models.base import (
     Ranker, model_header, parse_model_params, register_ranker,
@@ -133,11 +147,12 @@ def _first_layer(W, b, x) -> torch.Tensor:
     return torch.sigmoid(torch.addmm(b, x, W))
 
 
-def query_step(params, row, loss: str, scorer: MetricScorer,
-               lr: float) -> None:
-    """One SGD step on one query, in place on ``params`` ([W, b] lists):
-    ``row`` = (x [n, F] or :class:`SparseRows`, labels [n], aux) of its
-    real documents."""
+def query_grads(params, row, loss: str, scorer: MetricScorer):
+    """(the gradients ``[dW1, db1, dW2, ...]`` of one query's loss at
+    ``params``, the first layer's δ ``[n, H]``); ``row`` = (x [n, F] or
+    :class:`SparseRows`, labels [n], aux) of its real documents. A sparse
+    first layer's dW1 is None: :func:`query_step` adds it from δ into the
+    rows it touches."""
     x, labels, aux = row
     hs = [x, _first_layer(*params[0], x)]
     for W, b in params[1:]:
@@ -151,6 +166,16 @@ def query_step(params, row, loss: str, scorer: MetricScorer,
         grads[2 * li + 1] = delta.sum(0)
         if li:
             delta = (delta @ params[li][0].T) * hs[li] * (1.0 - hs[li])
+    return grads, delta
+
+
+def query_step(params, row, loss: str, scorer: MetricScorer,
+               lr: float) -> None:
+    """One SGD step on one query, in place on ``params`` ([W, b] lists):
+    ``row`` = (x [n, F] or :class:`SparseRows`, labels [n], aux) of its
+    real documents."""
+    x = row[0]
+    grads, delta = query_grads(params, row, loss, scorer)
     if grads[0] is None:
         # dW1 = Σ vals·δh[docpos] into rows fids, each fid's run in order
         part = (x.vals[:, None] * delta.index_select(0, x.docpos)
@@ -239,6 +264,27 @@ def train_rows(ds: Dataset, loss: str, device) -> TrainData:
     return TrainData(rows, ScoredBuckets(buckets))
 
 
+def shard_train_rows(ds: Dataset, loss: str, device, rank: int,
+                     n_ranks: int) -> TrainData:
+    """:func:`train_rows` of a ``-dp`` rank (``parallel.dp``): its lockstep
+    slots, class by class, each its query's row or None past its queries
+    of the class."""
+    from ranklib_tpu_torch.parallel.dp import shard_feat_buckets
+
+    chunks, _, per_dev = shard_feat_buckets(ds, n_ranks, rank, device)
+    rows = []
+    for feats, labels, mask in chunks:
+        D = labels.shape[1]
+        mine = [qi for Dq, qi in per_dev[rank] if Dq == D]
+        n_docs = mask.sum(dim=1, dtype=torch.int32)
+        for r in range(labels.shape[0]):
+            n = ds.queries[mine[r]].n if r < len(mine) else 0
+            rows.append((feats[r, :n], labels[r, :n],
+                         _aux(loss, labels, mask, r, n, n_docs))
+                        if n else None)
+    return TrainData(rows, ScoredBuckets(chunks))
+
+
 def sparse_train_rows(ds: Dataset, loss: str, device) -> TrainData:
     """:func:`train_rows` for the sparse first layer (ref:
     ``_sparse_query_buckets``): the same queries in the same order, each
@@ -260,16 +306,43 @@ def sparse_train_rows(ds: Dataset, loss: str, device) -> TrainData:
     return TrainData(rows, ScoredBuckets(coo=build_sparse_data(ds, device)))
 
 
+def lockstep_step(params, row, loss: str, scorer: MetricScorer, lr: float,
+                  group) -> None:
+    """One ``-dp`` step: this rank's query's gradients (zeros without a
+    query, ``row`` None) summed across ``group`` in one ``all_reduce`` of
+    one flat buffer, the same update applied on every rank."""
+    flat = [t for p in params for t in p]
+    if row is None:
+        buf = torch.zeros(sum(t.numel() for t in flat),
+                          dtype=torch.float32, device=flat[0].device)
+    else:
+        buf = torch.cat([g.reshape(-1)
+                         for g in query_grads(params, row, loss, scorer)[0]])
+    torch.distributed.all_reduce(buf, group=group)
+    torch._foreach_add_(flat, [g.view(t.shape) for g, t in zip(
+        buf.split([t.numel() for t in flat]), flat)], alpha=-lr)
+
+
 def make_epoch_step(loss: str, scorer: MetricScorer, lr: float,
-                    n_val_q: int, track_mis: bool):
+                    n_val_q: int, track_mis: bool, group=None):
     """One epoch: ``step(state, t, train_data, val_buckets) → state``;
-    nothing is read back. ``step.query_step`` is one query's step."""
+    nothing is read back. ``step.query_step`` is one query's step.
+    ``group``: a ``-dp`` rank's process group; ``train_data.rows`` are then
+    its lockstep slots (None where it has no query), and the pair count
+    and the validation sum are summed across the ranks (``n_val_q``
+    global)."""
+
+    def one_query(params, row):
+        if group is None:
+            query_step(params, row, loss, scorer, lr)
+        else:
+            lockstep_step(params, row, loss, scorer, lr, group)
 
     def step(state: NNState, t: int, data: TrainData, vb) -> NNState:
         params = state.params
         with full_f32_products():
             for row in data.rows:
-                query_step(params, row, loss, scorer, lr)
+                one_query(params, row)
             if track_mis:
                 tot = torch.zeros((), dtype=torch.int64,
                                   device=state.mis.device)
@@ -279,14 +352,14 @@ def make_epoch_step(loss: str, scorer: MetricScorer, lr: float,
                     bad = ((hi[:, :, None] > lo[:, None, :])
                            & (s[:, :, None] <= s[:, None, :]))
                     tot = tot + bad.sum()
-                state.mis[t] = tot
+                state.mis[t] = sum_across(tot, group)
             if vb:
                 tot = torch.zeros((), dtype=torch.float32,
                                   device=state.val_m.device)
                 for s, labels, mask in vb.scores(params):
                     tot = tot + scorer.score_from_scores(labels, s,
                                                          mask).sum()
-                val = tot / n_val_q
+                val = sum_across(tot, group) / n_val_q
                 state.val_m[t] = val
                 better = val > state.best_val
                 state.best_params = [[torch.where(better, a, b)
@@ -296,9 +369,6 @@ def make_epoch_step(loss: str, scorer: MetricScorer, lr: float,
                 state.best_val = torch.where(better, val, state.best_val)
         return state
 
-    def one_query(params, row):
-        query_step(params, row, loss, scorer, lr)
-
     step.query_step = one_query
     return step
 
@@ -307,6 +377,8 @@ def make_epoch_step(loss: str, scorer: MetricScorer, lr: float,
 class RankNet(Ranker):
     NAME = "RankNet"
     LOSS = "ranknet"
+    MODEL_FIELDS = ("params", "n_features")  # what a -dp fit takes from
+                                             # rank 0
 
     def __init__(self, **hp):
         self.n_epoch = 100
@@ -316,22 +388,41 @@ class RankNet(Ranker):
         self.seed = 0                   # -randomSeed: the initial weights
         self.params = None              # [(W, b)] np.float32
         self.n_features = None
+        self.rank_launches = None    # the last -dp fit's, a dict a rank
         super().__init__(**hp)
 
     def _layer_sizes(self, F):
         return [F] + [self.n_hidden_per_layer] * self.n_layers + [1]
 
+    def initial_params(self, n_features: int) -> list:
+        """[(W, b)] of the initial draws (the parent's under ``-dp``)."""
+        return _init_params(torch.Generator().manual_seed(int(self.seed)),
+                            self._layer_sizes(n_features))
+
     def prepare_fit(self, train: Dataset, scorer: MetricScorer,
-                    validation, device):
+                    validation, device, init=None, shard=None):
         """Upload and build the epoch: (step, state, train_data,
-        val_buckets), at the initial weights."""
+        val_buckets), at the initial weights (``init``, else
+        :meth:`initial_params`). ``shard``: (rank, group) of a ``-dp``
+        rank, which takes its lockstep slots of ``train`` and its shard of
+        ``validation`` and sums across ``group``."""
         F = train.n_features
-        init = _init_params(torch.Generator().manual_seed(int(self.seed)),
-                            self._layer_sizes(F))
+        if init is None:
+            init = self.initial_params(F)
         params = [[torch.as_tensor(np.array(a, np.float32)).to(device)
                    for a in p] for p in init]
         vb = None
-        if wants_sparse_eval(train):
+        group = None
+        if shard is not None:
+            from ranklib_tpu_torch.parallel.dp import shard_feat_buckets
+
+            rank, group = shard
+            n = torch.distributed.get_world_size(group)
+            data = shard_train_rows(train, self.LOSS, device, rank, n)
+            if validation is not None:
+                vb = ScoredBuckets(shard_feat_buckets(validation, n, rank,
+                                                      device)[0])
+        elif wants_sparse_eval(train):
             data = sparse_train_rows(train, self.LOSS, device)
             if validation is not None:
                 vb = ScoredBuckets(coo=build_sparse_data(validation, device))
@@ -342,7 +433,8 @@ class RankNet(Ranker):
                     validation, device)])
         n_val_q = len(validation.queries) if validation is not None else 1
         step = make_epoch_step(self.LOSS, scorer, float(self.learning_rate),
-                               n_val_q, track_mis=not is_silent())
+                               n_val_q, track_mis=not is_silent(),
+                               group=group)
         E = max(1, self.n_epoch)
         state = NNState(
             params=params,
@@ -355,17 +447,53 @@ class RankNet(Ranker):
         return step, state, data, vb
 
     def fit(self, train: Dataset, scorer: MetricScorer, validation=None,
-            device: torch.device | None = None) -> None:
-        """Train on ``device`` (default: :func:`choose_device`'s)."""
+            device: torch.device | None = None, mesh=None,
+            profile_dir: str | None = None) -> None:
+        """Train on ``device`` (default: :func:`choose_device`'s).
+        ``mesh``: a ``parallel.dist.Mesh``; of more than one rank, the
+        data-parallel fit, whose ranks write their profiler traces into
+        ``profile_dir``. A sparse first layer ignores ``mesh`` (ref
+        :331-333)."""
         device = choose_device(quiet=True) if device is None else device
         F = train.n_features
+        sparse = wants_sparse_eval(train)
+        if mesh is not None and mesh.size > 1 and not sparse:
+            from ranklib_tpu_torch.parallel.dp import fit_many
+
+            return fit_many(mesh, [(self, train, scorer, validation)],
+                            profile_dir)
+        self._epochs(*self.prepare_fit(train, scorer, validation, device),
+                     F, validation is not None,
+                     dp_ignored=mesh is not None and sparse)
+
+    def dp_job(self, train: Dataset, scorer: MetricScorer, validation=None):
+        """The ``parallel.dp.ShardJob`` of this fit under ``-dp``, with the
+        initial draws made here."""
+        from ranklib_tpu_torch.parallel.dp import make_job
+
+        return make_job(self, train, scorer, validation, init=[
+            (np.asarray(W, np.float32), np.asarray(b, np.float32))
+            for W, b in self.initial_params(train.n_features)])
+
+    def fit_shard(self, rank: int, device, group, train: Dataset,
+                  scorer: MetricScorer, validation=None, init=None) -> None:
+        """One rank's part of a data-parallel fit (``parallel.dp``) from
+        the parent's initial draws ``init``."""
+        self._epochs(*self.prepare_fit(train, scorer, validation, device,
+                                       init, (rank, group)),
+                     train.n_features, validation is not None)
+
+    def _epochs(self, step, state, data, vb, F: int, has_val: bool,
+                dp_ignored: bool = False) -> None:
+        """The epoch loop (console table and ``"epoch"`` events) and the
+        final or best-on-validation parameters."""
         self.n_features = F
-        step, state, data, vb = self.prepare_fit(train, scorer, validation,
-                                                 device)
         log(f"Training starts... [{self.NAME}] {self.n_epoch} epochs, "
             f"lr={float(self.learning_rate):g}, "
             f"layers={self._layer_sizes(F)}")
         log(f"{'#epoch':<8}| {'# mis-ordered pairs':<20}| {'validation':<10}")
+        if dp_ignored:
+            log("(sparse first layer is single-device; -dp ignored)")
         silent = is_silent()
         for epoch in range(1, self.n_epoch + 1):
             state = step(state, epoch - 1, data, vb)
@@ -373,13 +501,12 @@ class RankNet(Ranker):
                                or epoch == 1):
                 mis = float(state.mis[epoch - 1])
                 # the epoch's validation value, not the running best
-                vm = (float(state.val_m[epoch - 1])
-                      if validation is not None else None)
+                vm = (float(state.val_m[epoch - 1]) if has_val else None)
                 vtxt = f"{vm:.4f}" if vm is not None else "-"
                 log(f"{epoch:<8}| {mis:<20.0f}| {vtxt:<10}")
                 event("epoch", ranker=self.NAME, epoch=epoch,
                       misordered_pairs=mis, best_val=vm)
-        final = state.best_params if validation is not None else state.params
+        final = state.best_params if has_val else state.params
         self.params = [(W.cpu().numpy(), b.cpu().numpy()) for W, b in final]
 
     def eval_dataset(self, ds: Dataset, device: torch.device):

@@ -124,7 +124,6 @@ def bag_group_size(M: int, F: int, B: int, N: int, n_bags: int,
 @register_ranker
 class RFRanker(Ranker):
     NAME = "Random Forests"
-    DATA_PARALLEL = True
 
     def __init__(self, **hp):
         self.n_bags = 300

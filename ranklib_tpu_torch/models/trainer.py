@@ -8,6 +8,7 @@ print the wall-clock training time, the reference's only profiling output.
 from __future__ import annotations
 
 import contextlib
+import inspect
 import time
 
 import torch
@@ -15,7 +16,7 @@ import torch
 from ranklib_tpu_torch.data.dataset import Dataset
 from ranklib_tpu_torch.metrics.base import MetricScorer
 from ranklib_tpu_torch.models.base import (
-    RANKER_NAMES, Ranker, get_ranker_class, load_ranker_file,
+    Ranker, get_ranker_class, load_ranker_file,
 )
 from ranklib_tpu_torch.utils.errors import RankLibError
 from ranklib_tpu_torch.utils.logging import log
@@ -48,8 +49,9 @@ def train_ranker(ranker_type, train: Dataset, scorer: MetricScorer,
     (``-feature`` on the streamed ``-sparse`` path, a tree ranker's)
     reaches the fit as a split mask: for trees exactly the dense
     pipeline's column zeroing. ``n_dp > 1``: data-parallel over that many
-    devices (``parallel.dist.make_mesh``; the tree rankers).
-    ``profile_dir``: the fit runs inside :func:`profiled`."""
+    devices (``parallel.dist.make_mesh``) for every ranker whose ``fit``
+    takes a ``mesh``; Linear Regression has none and logs the reference's
+    line. ``profile_dir``: the fit runs inside :func:`profiled`."""
     hparams = dict(hparams or {})
     resume = hparams.pop("_resume_from", None)
     ranker = get_ranker_class(ranker_type)(**hparams)
@@ -65,12 +67,13 @@ def train_ranker(ranker_type, train: Dataset, scorer: MetricScorer,
         ranker.ensemble = loaded.ensemble      # warm start (tree rankers)
     kwargs = {} if feature_mask is None else {"feature_mask": feature_mask}
     if n_dp and n_dp > 1:
-        refusal = dp_refusal(type(ranker))
-        if refusal:
-            raise RankLibError(refusal)
-        from ranklib_tpu_torch.parallel.dist import make_mesh
+        if "mesh" in inspect.signature(ranker.fit).parameters:
+            from ranklib_tpu_torch.parallel.dist import make_mesh
 
-        kwargs.update(mesh=make_mesh(n_dp, device), profile_dir=profile_dir)
+            kwargs.update(mesh=make_mesh(n_dp, device),
+                          profile_dir=profile_dir)
+        else:
+            log(f"({ranker.NAME} has no data-parallel path; -dp ignored)")
     t0 = time.perf_counter()
     with (profiled(profile_dir, device) if profile_dir
           else contextlib.nullcontext()):
@@ -83,13 +86,3 @@ def train_ranker(ranker_type, train: Dataset, scorer: MetricScorer,
     log(f"Training time: {time.perf_counter() - t0:.2f} seconds")
     return ranker
 
-
-def dp_refusal(cls) -> str | None:
-    """The error of ``-dp`` with a ranker class that has no mesh path yet
-    (``DATA_PARALLEL``), else None."""
-    if cls.DATA_PARALLEL:
-        return None
-    *ids, last = [str(i) for i in sorted(RANKER_NAMES)
-                  if get_ranker_class(i).DATA_PARALLEL]
-    return (f"-dp is not yet ported to ranklib_tpu_torch for {cls.NAME} "
-            f"(ported: -dp with -ranker {', '.join(ids)} and {last})")

@@ -141,20 +141,23 @@ def sparse_scores_flat(Wf: torch.Tensor, chunks, N: int) -> torch.Tensor:
 
 
 def sparse_mean_metric(scorer: MetricScorer, Wf: torch.Tensor, chunks,
-                       buckets, N: int, n_queries: int) -> torch.Tensor:
+                       buckets, N: int, n_queries: int,
+                       group=None) -> torch.Tensor:
     """``Wf [F, K]`` → ``[K]`` mean metric over all queries (f32, on the
-    device; nothing is read back)."""
+    device; nothing is read back). ``group``: a ``-dp`` rank's process
+    group, across which the totals are summed (``n_queries`` global)."""
+    from ranklib_tpu_torch.gbdt.grow import sum_across
     from ranklib_tpu_torch.ops.batched_eval import metrics_of_scores
 
     S = sparse_scores_flat(Wf, chunks, N)
     total = torch.zeros(Wf.shape[1], dtype=torch.float32, device=Wf.device)
     for lab, msk, didx in (b[:3] for b in buckets):
         total += metrics_of_scores(scorer, S[didx], lab, msk).sum(dim=0)
-    return total / n_queries
+    return sum_across(total, group) / n_queries
 
 
-def adarank_weak_matrix(ds, scorer: MetricScorer,
-                        device: torch.device) -> np.ndarray:
+def adarank_weak_matrix(ds, scorer: MetricScorer, device: torch.device,
+                        queries=None) -> np.ndarray:
     """AdaRank's weak-metric matrix ``S[q, f]``, the metric of query q
     ranked by feature f alone, as a dense ``[Q, F]`` f32, built sparsely: a
     feature absent from a query scores all its documents 0, whose stable
@@ -162,29 +165,32 @@ def adarank_weak_matrix(ds, scorer: MetricScorer,
     metric m0(q) there; only the present (query, feature) pairs are
     scored, a padded size class at a time in blocks of ≤ 2^26 scores.
     No ``[N, F]`` block and no ``[F, F]`` candidate matrix; ``S`` itself
-    (Q·F) is AdaRank's remaining ceiling."""
+    (Q·F) is AdaRank's remaining ceiling. ``queries``: the rows of these
+    query indices only, in their order (a ``-dp`` rank's own)."""
     from ranklib_tpu_torch.data.dataset import padded_size
     from ranklib_tpu_torch.ops.batched_eval import (
         full_f32_products, metrics_of_scores,
     )
 
-    Q, F = len(ds.queries), ds.n_features
+    F = ds.n_features
+    queries = list(range(len(ds.queries)) if queries is None else queries)
+    Q = len(queries)
     present = []
-    for qi in range(Q):
+    for qi in queries:
         s = int(ds.indptr[ds.qrow[qi]])
         e = int(ds.indptr[ds.qrow[qi + 1]])
         f = np.unique(ds.fids[s:e])
         present.append(f[f < F].astype(np.int64))
     S = np.empty((Q, F), np.float32)
     groups = {}
-    for qi, q in enumerate(ds.queries):
-        groups.setdefault(padded_size(q.n), []).append(qi)
+    for j, qi in enumerate(queries):
+        groups.setdefault(padded_size(ds.queries[qi].n), []).append(j)
 
     def metric(idxs, D, sc):
         labs = np.zeros((len(idxs), D), np.float32)
         msk = np.zeros((len(idxs), D), bool)
-        for b, qi in enumerate(idxs):
-            q = ds.queries[qi]
+        for b, j in enumerate(idxs):
+            q = ds.queries[queries[j]]
             labs[b, : q.n] = q.labels
             msk[b, : q.n] = True
         with full_f32_products():
@@ -197,21 +203,21 @@ def adarank_weak_matrix(ds, scorer: MetricScorer,
     for D, idxs in sorted(groups.items()):
         S[idxs, :] = metric(idxs, D, np.zeros((len(idxs), D, 1),
                                               np.float32))
-        cmax = max(len(present[qi]) for qi in idxs)
+        cmax = max(len(present[j]) for j in idxs)
         if cmax == 0:
             continue
         rows = min(len(idxs), max(1, budget // (D * cmax)))
         for lo in range(0, len(idxs), rows):
-            sub = [qi for qi in idxs[lo: lo + rows] if len(present[qi])]
+            sub = [j for j in idxs[lo: lo + rows] if len(present[j])]
             if not sub:
                 continue
-            c = max(len(present[qi]) for qi in sub)
+            c = max(len(present[j]) for j in sub)
             sc = np.zeros((len(sub), D, c), np.float32)
-            for b, qi in enumerate(sub):
-                fq = present[qi]
-                sc[b, : ds.queries[qi].n, : len(fq)] = \
-                    ds.materialize_query(qi)[:, fq]
+            for b, j in enumerate(sub):
+                fq = present[j]
+                sc[b, : ds.queries[queries[j]].n, : len(fq)] = \
+                    ds.materialize_query(queries[j])[:, fq]
             vals = metric(sub, D, sc)
-            for b, qi in enumerate(sub):
-                S[qi, present[qi]] = vals[b, : len(present[qi])]
+            for b, j in enumerate(sub):
+                S[j, present[j]] = vals[b, : len(present[j])]
     return S

@@ -123,7 +123,8 @@ def test_feature_subset_matches_reference(files):
 
 
 @pytest.mark.parametrize("extra", [
-    ["-train", "x.txt", "-resume", "m.txt", "-dp", "2"],
+    ["-train", "train.txt", "-r", "1", "-i", "4", "-resume", "m.txt", "-dp",
+     "2"],
     ["-train", "train.txt", "-kcv", "3", "-r", "1", "-i", "4", "-sparse"],
     ["-train", "train.txt", "-ranker", "1", "-epoch", "5", "-sparse"],
     ["-train", "train.txt", "-ranker", "2", "-round", "20", "-qrel",
@@ -132,17 +133,17 @@ def test_feature_subset_matches_reference(files):
     ["-ana"], ["-combine", "d"],
 ], ids=["train", "kcv", "sparse", "qrel", "norm", "ana", "combine"])
 def test_unported_flows_exit_cleanly(files, extra, capsys, monkeypatch):
-    """-train itself is ported; the one training flag that is not for
-    every ranker (-dp, here with the default Coordinate Ascent, and with
-    -resume, which that ranker drops) still exits cleanly. -sparse is ported for every ranker: with
-    a raw-value ranker (here the default Coordinate Ascent under -kcv,
-    RankNet, RankBoost with -qrel and Linear Regression with -norm) the
-    same command line runs in both CLIs and prints the same result lines
-    (RankNet from the reference's initial draws). -ana and -combine are
-    ported, and without -all -base or -o exit with the reference's
-    errors."""
+    """Every training flow is ported: -dp with the default Coordinate
+    Ascent (and -resume, which that ranker drops, as the reference does)
+    runs in both CLIs and prints the same result lines. -sparse is ported
+    for every ranker: with a raw-value ranker (here the default Coordinate
+    Ascent under -kcv, RankNet, RankBoost with -qrel and Linear Regression
+    with -norm) the same command line runs in both CLIs and prints the
+    same result lines (RankNet from the reference's initial draws). -ana
+    and -combine are ported, and without -all -base or -o exit with the
+    reference's errors."""
     d, model, test = files
-    if "-sparse" in extra:
+    if "-sparse" in extra or "-dp" in extra:
         import jax
 
         from ranklib_tpu.models import neural as RN
@@ -172,8 +173,7 @@ def test_unported_flows_exit_cleanly(files, extra, capsys, monkeypatch):
     flag = [a for a in extra if a.startswith("-")][-1]
     want = {"-ana": "Error: -ana requires -all <dir> and -base <file>",
             "-combine": "Error: -combine requires -o <output model file>",
-            }.get(flag, f"Error: {flag} is not yet ported to "
-                        f"ranklib_tpu_torch")
+            }[flag]
     assert want in capsys.readouterr().out
 
 
@@ -332,6 +332,10 @@ def test_port_runs_without_jax_or_the_reference(files):
         "import ranklib_tpu_torch.api as rl\n"
         "import ranklib_tpu_torch.parallel.dist as dist\n"
         "import ranklib_tpu_torch.gbdt.boost_dist\n"
+        "import ranklib_tpu_torch.parallel.dp\n"
+        f"rc = main(['-train', {str(d / 'train.txt')!r}, '-ranker', '3', "
+        f"'-round', '3', '-dp', '2'])\n"
+        "assert rc == 0, rc\n"
         f"m = rl.train({str(d / 'train.txt')!r}, ranker=6, n_trees=2, "
         "n_leaves=3, device='cpu')\n"
         f"assert rl.evaluate(m, {test!r}, device='cpu') > 0\n"

@@ -280,32 +280,48 @@ def test_a_raising_rank_fails_the_fit():
 
 
 def test_dp_with_another_ranker_exits_1(tmp_path, capsys):
-    """-dp reaches the tree rankers only; with Coordinate Ascent it exits
-    1 before reading anything."""
-    assert port_main(["-train", str(tmp_path / "none.txt"), "-ranker", "4",
-                      "-dp", "2"]) == 1
-    assert capsys.readouterr().out.strip() == (
-        "Error: -dp is not yet ported to ranklib_tpu_torch for Coordinate "
-        "Ascent (ported: -dp with -ranker 0, 6 and 8)")
+    """-dp reaches every ranker: with Coordinate Ascent, -dp 2 through the
+    CLI exits as the reference's does (0) and prints its result lines (the
+    weights within 1e-6 of its make_mesh(2) fit's)."""
+    from ranklib_tpu.cli import main as ref_main
+
+    paths = _files(tmp_path, n=16)
+    argv = ["-train", paths["train"], "-ranker", "4", "-r", "2", "-i", "5",
+            "-metric2t", "NDCG@10", "-validate", paths["vali"], "-dp", "2"]
+    lines = {}
+    for name, main in (("ref", ref_main), ("port", port_main)):
+        assert main(argv) == 0
+        lines[name] = [ln for ln in capsys.readouterr().out.splitlines()
+                       if " on " in ln and "data:" in ln]
+    assert lines["port"] == lines["ref"] and len(lines["port"]) == 4
+
+
+# per ranker: a small fit's hyperparameters
+_SMALL = {0: dict(n_trees=2, n_leaves=3), 1: dict(n_epoch=1),
+          2: dict(n_rounds=5), 3: dict(n_rounds=5),
+          4: dict(n_restart=1, max_passes=1, n_max_iteration=3),
+          5: dict(n_epoch=1), 6: dict(n_trees=2, n_leaves=3),
+          7: dict(n_epoch=1), 8: dict(n_bags=2, n_trees=1, n_leaves=3),
+          9: {}}
 
 
 @pytest.mark.parametrize("ranker", range(10))
-def test_dp_refusal_is_one_decision(tmp_path, ranker):
-    """Which rankers take -dp is each class's DATA_PARALLEL: the CLI's
-    refusal and the trainer's are the same message, and the trainer
-    refuses before it fits."""
-    from ranklib_tpu_torch.models.base import get_ranker_class
-    from ranklib_tpu_torch.models.trainer import dp_refusal, train_ranker
+def test_dp_refusal_is_one_decision(tmp_path, capsys, ranker):
+    """Which rankers take -dp is one decision, the trainer's: every ranker
+    whose fit takes a mesh fits on it (one launch-count record a rank),
+    and Linear Regression, whose fit takes none, logs the reference's line
+    and fits on one device."""
+    from ranklib_tpu_torch.models.trainer import train_ranker
 
-    cls = get_ranker_class(ranker)
-    refusal = dp_refusal(cls)
-    if ranker in (0, 6, 8):
-        assert cls.DATA_PARALLEL and refusal is None
+    train = read_letor(_files(tmp_path, n=4)["train"])
+    capsys.readouterr()
+    r = train_ranker(ranker, train, create_scorer("NDCG@10"), None,
+                     _SMALL[ranker], CPU, n_dp=2)
+    out = capsys.readouterr().out
+    ignored = "(Linear Regression has no data-parallel path; -dp ignored)"
+    if ranker == 9:
+        assert out.splitlines()[0] == ignored
+        assert getattr(r, "rank_launches", None) is None
         return
-    assert not cls.DATA_PARALLEL
-    assert refusal == (f"-dp is not yet ported to ranklib_tpu_torch for "
-                       f"{cls.NAME} (ported: -dp with -ranker 0, 6 and 8)")
-    with pytest.raises(RankLibError) as e:
-        train_ranker(ranker, read_letor(_files(tmp_path, n=4)["train"]),
-                     create_scorer("NDCG@10"), None, None, CPU, n_dp=2)
-    assert str(e.value) == refusal
+    assert ignored.split()[-2] not in out
+    assert len(r.rank_launches) == 2

@@ -285,11 +285,10 @@ def test_trained_models_load_across_packages(files, capsys):
     assert lines["port"] == lines["ref"]
 
 
-# Every extension is ported for the tree rankers (tests/test_torch_dp.py,
-# tests/test_torch_extensions.py); the one flag still refused is -dp with a
-# ranker that has no mesh path: with RankBoost, -dp is refused in every
-# combination with the other flows and extensions (the cases keep their
-# ids), before any file is read
+# -dp reaches every ranker: with RankBoost, -dp in every combination with
+# the other flows and extensions (the cases keep their ids) exits as the
+# reference's CLI does and prints its result lines; -resume and -ckpt are
+# dropped for RankBoost, as there, and the fit still runs on the mesh
 @pytest.mark.parametrize("extra,flag", [
     (["-kcv", "3", "-sparse", "-dp", "2"], "-dp"),
     (["-sparse", "-dp", "2"], "-dp"),
@@ -304,14 +303,31 @@ def test_trained_models_load_across_packages(files, capsys):
         "extra8--profile"])
 def test_unported_training_flags_exit_1(files, capsys, extra, flag,
                                         tmp_path, monkeypatch):
+    from ranklib_tpu_torch.parallel import dist
+
     _, paths = files
     monkeypatch.chdir(tmp_path)
-    assert port_main(["-train", paths["train"], "-ranker", "2",
-                      *extra]) == 1
-    assert capsys.readouterr().out.strip() == (
-        f"Error: {flag} is not yet ported to ranklib_tpu_torch for "
-        f"RankBoost (ported: -dp with -ranker 0, 6 and 8)")
-    assert os.listdir(tmp_path) == []          # no log, trace or model
+    with open(paths["train"]) as f, open("q.txt", "w") as g:
+        for i, line in enumerate(f):
+            qid, doc = line.split()[1][4:], line.split("#")[1].strip()
+            g.write(f"{qid} 0 {doc} {(i * 7) % 3}\n")
+    meshes = []
+    run = dist.run
+    monkeypatch.setattr(dist, "run", lambda mesh, *a, **k: (
+        meshes.append(mesh.size), run(mesh, *a, **k))[1])
+    argv = ["-train", paths["train"], "-ranker", "2", "-round", "10",
+            "-metric2t", "NDCG@10", *extra]
+    lines = {}
+    for name, main in (("ref", ref_main), ("port", port_main)):
+        assert main(argv) == 0
+        lines[name] = [ln for ln in capsys.readouterr().out.splitlines()
+                       if (" on " in ln and "data:" in ln)
+                       or ln.startswith(("Fold ", "Avg.", "Relevance"))]
+    assert lines["port"] == lines["ref"] and lines["port"]
+    n_dp = int(extra[extra.index(flag) + 1])
+    assert meshes == [n_dp] * (3 if "-kcv" in extra else 1)
+    assert not os.path.exists("m.txt.ckpt") and not os.path.exists(
+        "model.ckpt")
 
 
 def test_other_rankers_are_not_ported(files, capsys):
