@@ -4041,18 +4041,20 @@ def zero_counts():
     H.histogram_multi.launches = 0
 
 
-def _held_rank(fn, n_hold, out_dir, rank, device, group, *args):
+def _held_rank(fn, n_hold, out_dir, scans, rank, device, group, *args):
     """A ``-dp`` rank's ``fn`` with its first ``n_hold`` histogram launches
     (the first tree's root and right children) held against the plain
     version on the very card tensors the rank gave them — counts exact,
-    sums within HIST_TOL — and the rank's root document count kept; the
-    findings go to ``out_dir/rank<r>.json`` for the parent to check, and
-    ``fn``'s result is returned untouched. The held plain launches count
-    nowhere."""
+    sums within HIST_TOL — and the rank's root document count kept; with
+    ``scans``, its first split-scan launch too (:func:`hold_scans`, in
+    the rank, on the summed histograms it was given). The findings go to
+    ``out_dir/rank<r>.json`` for the parent to check, and ``fn``'s result
+    is returned untouched. The held launches count nowhere."""
     from ranklib_tpu_torch.gbdt import grow
     from ranklib_tpu_torch.ops import histogram as H
+    from ranklib_tpu_torch.ops import split_scan as SS
 
-    orig, held = grow.histogram, []
+    orig, orig_scan, held, scan_err = grow.histogram, grow.best_splits, [], []
 
     def hist(binsT, grad, w, B):
         got = orig(binsT, grad, w, B)
@@ -4065,27 +4067,41 @@ def _held_rank(fn, n_hold, out_dir, rank, device, group, *args):
                 "sums_close": bool(torch.allclose(got[..., 0], want[..., 0],
                                                   **HIST_TOL)),
                 "max_abs_err": float((got - want).abs().max()),
-                "docs": float(got[0, :, 1].sum())})
+                "docs": float(got[0, :, 1].sum()),
+                "zero": not bool(got.any())})
         return got
 
-    grow.histogram = hist
+    def scan(*a, **kw):
+        got = orig_scan(*a, **kw)
+        if scans and not scan_err:
+            n = SS.best_splits.launches
+            scan_err.append(hold_scans([(a, kw, got)], f"rank {rank}"))
+            SS.best_splits.launches = n
+        return got
+
+    grow.histogram, grow.best_splits = hist, scan
     try:
         out = fn(rank, device, group, *args)
     finally:
-        grow.histogram = orig
+        grow.histogram, grow.best_splits = orig, orig_scan
+    if scans:
+        held = {"hist": held, "scan_err": scan_err}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(held, f)
     return out
 
 
 @contextlib.contextmanager
-def held_ranks(n_ranks: int, n_hold: int, tmp: str, calls: list):
+def held_ranks(n_ranks: int, n_hold: int, tmp: str, calls: list,
+               scans: list | None = None):
     """Inside the block every ``-dp`` run's ranks go through
     :func:`_held_rank`; at its end each rank's findings are appended to
     ``calls`` (a list of held launches a rank) and checked: ``n_hold``
     launches a rank, each on the card, counts exact and sums within
-    HIST_TOL of the plain version. The rank function must pickle by
-    name, so it is taken from this script imported as a module."""
+    HIST_TOL of the plain version. With ``scans`` (a list) each rank
+    also holds its first split-scan launch, and its gain gap is appended
+    there. The rank function must pickle by name, so it is taken from
+    this script imported as a module."""
     import functools
     import importlib
 
@@ -4097,7 +4113,8 @@ def held_ranks(n_ranks: int, n_hold: int, tmp: str, calls: list):
 
     def run(mesh, fn, *args, **kw):
         return orig(mesh, functools.partial(me._held_rank, fn, n_hold,
-                                            out_dir), *args, **kw)
+                                            out_dir, scans is not None),
+                    *args, **kw)
 
     dist.run = run
     try:
@@ -4106,7 +4123,13 @@ def held_ranks(n_ranks: int, n_hold: int, tmp: str, calls: list):
         dist.run = orig
     for r in range(n_ranks):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
-            calls.append(json.load(f))
+            found = json.load(f)
+        if scans is not None:
+            check(len(found["scan_err"]) == 1,
+                  f"rank {r} held no split-scan launch")
+            scans.append(found["scan_err"][0])
+            found = found["hist"]
+        calls.append(found)
         check(len(calls[r]) == n_hold,
               f"rank {r} held {len(calls[r])} histogram launches, not "
               f"{n_hold}")
@@ -4800,6 +4823,245 @@ def first_queries(ds, n: int):
     return Dataset(ds.queries[:n], ds.n_features)
 
 
+# phase 22: -dp with ranks that hold no query, as four gloo ranks on the
+# one card: 3 training queries of 97-112 documents (one size class, so
+# they go to ranks 0, 1 and 2 and rank 3 holds none) x 16 features under
+# LambdaMART -tree 5, Random Forests -bag 2, RankBoost -round 20 and
+# RankNet -epoch 1 at -dp 4, and RankBoost at -dp 2 with a 1-query
+# validation set; the same fits on CPU ranks beside them. -leaf 4 keeps
+# every node large enough that no split is a near tie between two sum
+# orders (at 10 leaves, two of five trees flip between the single-device
+# and the -dp fit on the CPU). 16 features keep each rank's pickled
+# arguments small: a spawned rank reads them from a pipe that holds 64 KB,
+# so larger ones start the ranks one after another
+DPE_QUERIES, DPE_FEATURES, DPE_TREES, DPE_BAGS = 3, 16, 5, 2
+DPE_LEAVES, DPE_ROUNDS = 4, 20
+
+
+def dp_empty_phase(dev, tmp, smi) -> dict:
+    """Phase 22: the fits' own ``mesh`` argument on a hand-built
+    ``parallel.dist.Mesh`` of gloo ranks on the card, with the launch
+    counters at 0 and each fit's rank models seen. Checks: every rank's
+    model equal, and equal to the CPU ranks' fit (the forest's trees:
+    structure and thresholds, outputs within TOL; LambdaMART's first tree
+    so, and its metric within 1e-3, as phase 6 holds it; RankBoost: the
+    weak sequence, α within 1e-5; RankNet: parameters within 1e-5); each
+    rank's first B1 launch
+    held against the plain version and, on the empty rank, all zeros over
+    its 256 pad docs; each rank's first B2 launch held (:func:`hold_scans`);
+    B1 and B2 launched on every rank of the tree fits, B1 never on
+    RankBoost's empty rank; B1 alone on the empty rank's pad docs
+    (:func:`hist_point`)."""
+    from ranklib_tpu_torch.gbdt.boost_dist import (
+        _shard_queries, build_sharded_data,
+    )
+    from ranklib_tpu_torch.gbdt.binning import bin_features
+    from ranklib_tpu_torch.metrics.base import create_scorer, score_dataset
+    from ranklib_tpu_torch.models import gbdt as G
+    from ranklib_tpu_torch.models import rf as RFM
+    from ranklib_tpu_torch.models.neural import RankNet
+    from ranklib_tpu_torch.models.rankboost import RankBoost
+    from ranklib_tpu_torch.parallel import dist
+    from ranklib_tpu_torch.parallel import dp as PDP
+
+    cpu = torch.device("cpu")
+    scorer = create_scorer("NDCG@10")
+    train = synth_queries(DPE_QUERIES, DPE_FEATURES, 22, 11, 97, 112)
+    vali = synth_queries(1, DPE_FEATURES, 23, 11, 97, 112)
+    deal = _shard_queries(train, 4)
+    empty = [r for r, lst in enumerate(deal) if not lst]
+    full = [r for r, lst in enumerate(deal) if lst]
+    check(len(empty) >= 1, "the 4-rank deal leaves no rank empty")
+    print(f"  {DPE_QUERIES} training queries ({train.n_docs} documents) "
+          f"dealt to 4 ranks: {deal}; ranks {empty} hold none")
+    seen = []
+    check_models, check_rankers = G.check_same_models, PDP.check_same_rankers
+
+    def keep_models(ensembles):
+        seen.append(len({e.to_text() for e in ensembles}))
+        check_models(ensembles)
+
+    def keep_rankers(rankers):
+        seen.append(len({r.model_str() for r in rankers}))
+        check_rankers(rankers)
+
+    def fits():
+        return {"LambdaMART": G.LambdaMART(n_trees=DPE_TREES,
+                                           n_leaves=DPE_LEAVES,
+                                           early_stop=0),
+                "RF": RFM.RFRanker(n_bags=DPE_BAGS, n_leaves=DPE_LEAVES),
+                "RankBoost": RankBoost(n_rounds=DPE_ROUNDS,
+                                       n_threshold=RB_TC),
+                "RankNet": RankNet(n_epoch=1),
+                "RankBoost-v1": RankBoost(n_rounds=DPE_ROUNDS,
+                                          n_threshold=RB_TC)}
+
+    def run_all(rs, mesh4, mesh2, held=None):
+        """Every fit of the phase on ``mesh4`` / ``mesh2``; ``held``: the
+        tree fits' ranks hold their first B1 and B2 launches; returns each
+        part's wall seconds."""
+        walls = {}
+        for name in ("LambdaMART", "RF"):
+            t = time.perf_counter()
+            if held is None:
+                quiet(rs[name].fit, train, scorer, device=mesh4.devices[0],
+                      mesh=mesh4)
+            else:
+                with held_ranks(4, 1, tmp, held[name][0], held[name][1]):
+                    quiet(rs[name].fit, train, scorer,
+                          device=mesh4.devices[0], mesh=mesh4)
+            walls[name] = time.perf_counter() - t
+        t = time.perf_counter()
+        quiet(PDP.fit_many, mesh4, [(rs["RankBoost"], train, scorer, None),
+                                    (rs["RankNet"], train, scorer, None)])
+        walls["RankBoost+RankNet"] = time.perf_counter() - t
+        t = time.perf_counter()
+        quiet(PDP.fit_many, mesh2, [(rs["RankBoost-v1"], train, scorer,
+                                     vali)])
+        walls["RankBoost-v1"] = time.perf_counter() - t
+        return walls
+
+    card = fits()
+    held = {"LambdaMART": ([], []), "RF": ([], [])}
+    zero_counts()
+    G.check_same_models = RFM.check_same_models = keep_models
+    PDP.check_same_rankers = keep_rankers
+    try:
+        t0 = time.perf_counter()
+        walls = run_all(card, dist.Mesh((dev,) * 4, "gloo"),
+                        dist.Mesh((dev,) * 2, "gloo"), held)
+        wall = time.perf_counter() - t0
+    finally:
+        G.check_same_models = RFM.check_same_models = check_models
+        PDP.check_same_rankers = check_rankers
+    parent = counts()
+    n_models = 1 + DPE_BAGS + 3
+    print(f"  on the card (gloo, 4 and 2 ranks on "
+          f"{torch.cuda.get_device_name(0)}): {wall:.1f} s with rank "
+          f"start-up (" + ", ".join(f"{k} {v:.1f} s"
+                                   for k, v in walls.items())
+          + f"); every rank's model equal: {seen == [1] * n_models}; the "
+          f"parent's B1 {parent['histogram']}  [{smi}]")
+    check(seen == [1] * n_models, "the ranks' models differ")
+    check(parent["histogram"] == parent["split_scan"] == 0,
+          "the parent grew trees under -dp")
+
+    # the held launches: B1 on an empty rank is all zeros over its pads.
+    # The forest's first bag is dealt again: its draws, as the ranks make
+    # them
+    sampled = card["RF"]._draw_bag(train, DPE_FEATURES, np.random.default_rng(
+        card["RF"].seed))[0]
+    first_fit = {"LambdaMART": train, "RF": sampled}
+    per_tree = DPE_LEAVES - 1
+    want = {"LambdaMART": DPE_TREES * per_tree, "RF": DPE_BAGS * per_tree}
+    b1_err, scan_err, launches = 0.0, 0.0, {}
+    for name in ("LambdaMART", "RF"):
+        calls, scans = held[name]
+        first = [c[0] for c in calls]
+        ds = first_fit[name]
+        none = [r for r, lst in enumerate(_shard_queries(ds, 4)) if not lst]
+        print(f"  {name}: each rank's first B1 launch held against the plain "
+              f"version (counts exact, max_abs_err "
+              f"{max(c['max_abs_err'] for c in first):.3e}); documents "
+              f"{[c['docs'] for c in first]}; the empty ranks' {none} "
+              f"{first[none[0]]['shape']} {first[none[0]]['dtype']}: all "
+              f"zeros {[first[r]['zero'] for r in none]}; each rank's first "
+              f"B2 launch within the f32 bound of the f64 scan (gain gap "
+              f"{max(scans):.3e})")
+        check(none and all(first[r]["zero"] and first[r]["docs"] == 0
+                           and first[r]["shape"][1] == 256 for r in none),
+              f"{name}: an empty rank's root histogram over its 256 pad "
+              f"docs is not all zeros")
+        check(sum(c["docs"] for c in first) == ds.n_docs,
+              f"{name}: the ranks' roots do not count every document once")
+        ranks = card[name].rank_launches
+        check(all(r["histogram"] == r["split_scan"] == want[name]
+                  for r in ranks),
+              f"{name}: a rank's B1/B2 launches are not {want[name]}: "
+              f"{ranks}")
+        launches[name] = ranks
+        b1_err = max(b1_err, max(c["max_abs_err"] for c in first))
+        scan_err = max(scan_err, max(scans))
+    rb = [r["histogram"] for r in card["RankBoost"].rank_launches]
+    rb_v = [r["histogram"] for r in card["RankBoost-v1"].rank_launches]
+    n_rounds = len(card["RankBoost"].weaks)
+    print(f"  RankBoost -dp 4: B1 launches a rank {rb} ({n_rounds} weak "
+          f"rankers); -dp 2 with 1 validation query: {rb_v}, "
+          f"{len(card['RankBoost-v1'].weaks)} weak rankers kept")
+    check(all(rb[r] == 0 for r in empty),
+          "B1 launched on RankBoost's empty ranks")
+    check(all(rb[r] == rb[full[0]] > 0 for r in full) and all(
+        v == rb_v[0] > 0 for v in rb_v),
+          "RankBoost's ranks with queries did not launch B1 alike")
+    check(all(sum(c.values()) == 0
+              for c in card["RankNet"].rank_launches),
+          "RankNet launched a kernel")
+
+    # the same fits on CPU ranks
+    cpu_fits = fits()
+    t1 = time.perf_counter()
+    cpu_walls = run_all(cpu_fits, dist.make_mesh(4, cpu),
+                        dist.make_mesh(2, cpu))
+    print(f"  the same fits on CPU ranks in {time.perf_counter() - t1:.1f} s "
+          f"(" + ", ".join(f"{k} {v:.1f} s" for k, v in cpu_walls.items())
+          + ")")
+
+    def same_trees(a, b) -> list:
+        """Whether each tree of ``a`` is ``b``'s (structure, thresholds;
+        outputs within TOL)."""
+        return [all(np.array_equal(getattr(ta, f), getattr(tb, f))
+                    for f in ("feature", "threshold", "left", "right",
+                              "is_leaf"))
+                and np.allclose(ta.output, tb.output, **TOL)
+                for ta, tb in zip(a.trees, b.trees, strict=True)]
+
+    # as phases 6 and 10: LambdaMART's lambdas differ card vs CPU in their
+    # last bits, which may flip a later near-tie, so its first tree must
+    # be the CPU's and its metric within 1e-3; the forest's MART residuals
+    # leave every tree the CPU's
+    lm = same_trees(card["LambdaMART"].ensemble,
+                    cpu_fits["LambdaMART"].ensemble)
+    m_lm = [score_dataset(scorer, train, r.eval_dataset(train, dev), dev)[0]
+            for r in (card["LambdaMART"], cpu_fits["LambdaMART"])]
+    rf_same = [ok for a, b in zip(card["RF"].ensembles,
+                                  cpu_fits["RF"].ensembles, strict=True)
+               for ok in same_trees(a, b)]
+    check(lm[0], "LambdaMART: the card's first tree is not the CPU ranks'")
+    check(abs(m_lm[0] - m_lm[1]) <= 1e-3,
+          "LambdaMART: train NDCG@10 differs card vs CPU ranks")
+    check(all(rf_same), "RF: the card's trees are not the CPU ranks'")
+    rb_err = max(_weaks_check(card[k].weaks, cpu_fits[k].weaks,
+                              f"{k} card vs CPU")
+                 for k in ("RankBoost", "RankBoost-v1"))
+    net_err = _params_err(card["RankNet"], cpu_fits["RankNet"])
+    check(net_err <= 1e-5, f"RankNet differs card vs CPU by {net_err:.2e}")
+    print(f"  card vs CPU ranks: LambdaMART {sum(lm)} of {len(lm)} trees "
+          f"identical (train NDCG@10 {m_lm[0]:.6f} vs {m_lm[1]:.6f}); RF "
+          f"{sum(rf_same)} of {len(rf_same)}; RankBoost's sequences equal, "
+          f"alphas within {rb_err:.2e}; RankNet's parameters within "
+          f"{net_err:.2e}")
+
+    # B1 alone on the empty rank's shard: 256 pad docs of weight 0
+    feats, _, _, thr, binned, _, _ = G.flatten_binned(train, 256)
+    if binned is None:
+        binned = bin_features(feats, thr)
+    shard, _, _ = build_sharded_data(train, binned, 4, empty[0], dev)
+    check(not shard.doc_mask.any() and shard.binned_T.shape[1] == 256,
+          "the empty rank's shard is not 256 pad docs")
+    pads, got = hist_point(shard.binned_T, shard.doc_mask, 256)
+    check(not got.any(), "B1 on the empty rank's pads is not all zeros")
+    print(f"  B1 alone on the empty rank's shard "
+          f"{list(shard.binned_T.shape)} {shard.binned_T.dtype} (weights 0): "
+          f"{pads['ms']:.4f} ms vs plain {pads['plain_ms']:.4f}, index_add_ "
+          f"{pads['library_ms']:.4f}, bound {pads['bound_ms']:.4f} "
+          f"({pads['bound_by']})  [{smi}]")
+    return {"launches": launches, "rb": rb, "rb_v1": rb_v,
+            "empty_ranks": empty, "b1_held_max_abs_err": b1_err,
+            "scan_gain_gap": scan_err, "rb_err": rb_err, "net_err": net_err,
+            "pads": pads, "shape": [DPE_FEATURES, 256, 256], "wall": wall,
+            "walls": walls, "cpu_walls": cpu_walls}
+
+
 def bare_times(root: str) -> int:
     """``--bare-times ROOT``: the fused-lambda (B5) and binning (B8)
     kernels of the ``ranklib_tpu_torch`` found under ROOT, each timed by
@@ -5193,6 +5455,13 @@ def main() -> int:
     dpr = dp_rankers_phase(dev, fit, p19, tmp, smi)
     del p19
     print(f"  phase 21 {time.perf_counter() - t21:.1f} s  [{smi}]")
+
+    header(f"== phase 22: -dp with ranks that hold no query ({DPE_QUERIES} "
+           f"training queries x {DPE_FEATURES} features on four gloo ranks "
+           f"on the card; RankBoost at -dp 2 with 1 validation query)")
+    t22 = time.perf_counter()
+    dpe = dp_empty_phase(dev, tmp, smi)
+    print(f"  phase 22 {time.perf_counter() - t22:.1f} s  [{smi}]")
     tmpdir.cleanup()
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -5219,6 +5488,33 @@ def main() -> int:
                 "ms_round": ext["dp"]["ms_round"],
                 "ms_round_single": ext["dp"]["ms_round_single"]}
 
+    def dp_empty_launches(name):
+        """A kernel's launches on phase 22's card fits, every rank's."""
+        n = sum(r[name] for ranks in dpe["launches"].values()
+                for r in ranks)
+        return n + (sum(dpe["rb"]) + sum(dpe["rb_v1"])
+                    if name == "histogram" else 0)
+
+    def dp_empty_path(name):
+        """Phase 22: each rank's launches of the tree fits (and B1's of
+        RankBoost's), the empty rank, and what was held there."""
+        out = {"launches": dp_empty_launches(name),
+               "empty_ranks": dpe["empty_ranks"],
+               **{f"{k}_rank_launches": [r[name] for r in ranks]
+                  for k, ranks in dpe["launches"].items()}}
+        if name == "histogram":
+            out.update({
+                "rankboost_rank_launches": dpe["rb"],
+                "rankboost_v1_rank_launches": dpe["rb_v1"],
+                "held_max_abs_err": dpe["b1_held_max_abs_err"],
+                "shape": dpe["shape"],
+                "empty_rank_pads": {k: dpe["pads"][k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}})
+        else:
+            out["held_gain_gap"] = dpe["scan_gain_gap"]
+        return out
+
     kernels = [
         entry("forest_eval_frombins", "forest_eval.cu",
               "ranklib_tpu/ops/forest_eval.py:524",
@@ -5235,7 +5531,8 @@ def main() -> int:
                    fit["launches"]["histogram"] + rb["launches"]
                    + sp["launches"]["histogram"] + raw_b1["launches"]
                    + wide["b1"]["launches"] + ext["launches"]["histogram"]
-                   + sum(sum(v) for v in dpr["rb_launches"].values()),
+                   + sum(sum(v) for v in dpr["rb_launches"].values())
+                   + dp_empty_launches("histogram"),
                    hists["root"][1], hists["root"][2], hists["root"][3],
                    hists["root_bound"], hists["root_library"]),
              paths={
@@ -5267,14 +5564,17 @@ def main() -> int:
                      **{k: dpr["b1_shard"][k] for k in (
                          "max_abs_err", "ms", "bare_ms", "plain_ms",
                          "bound_ms", "bound_by", "library_ms")},
-                     "ms_step_dp_vs_single": dpr["ms_step"]}}),
+                     "ms_step_dp_vs_single": dpr["ms_step"]},
+                 "dp_empty": dp_empty_path("histogram")}),
         dict(entry("split_scan", "split_scan.cu",
                    "ranklib_tpu/ops/split_scan.py:43",
                    fit["launches"]["split_scan"] + sp["launches"]["split_scan"]
-                   + ext["launches"]["split_scan"], scans[2][0], scans[2][1],
-                   scans[2][2], scans["bound"], None),
+                   + ext["launches"]["split_scan"]
+                   + dp_empty_launches("split_scan"), scans[2][0],
+                   scans[2][1], scans[2][2], scans["bound"], None),
              paths={"lambdamart": {"launches": fit["launches"]["split_scan"]},
-                    "dp": dp_path("split_scan")}),
+                    "dp": dp_path("split_scan"),
+                    "dp_empty": dp_empty_path("split_scan")}),
         entry("histogram_multi", "histogram_multi.cu",
               "ranklib_tpu/ops/histogram.py:51",
               rf["launches"]["histogram_multi"]

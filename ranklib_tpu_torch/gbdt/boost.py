@@ -113,8 +113,10 @@ def make_boost_data(train: Dataset, binned_pad: np.ndarray,
     # inverse of the chunk layout: position of doc d inside
     # concat(chunk didx.flatten()); pad docs and chunk pad slots resolve to
     # the zero tail slot the round appends. Chunks partition the docs, so
-    # one gather replaces a scatter-add per chunk.
-    didx_flat = np.concatenate([d.reshape(-1) for _, _, d in tb_host])
+    # one gather replaces a scatter-add per chunk. A -dp rank that holds
+    # no query has no chunk: all its docs are pads.
+    didx_flat = np.concatenate([d.reshape(-1) for _, _, d in tb_host]
+                               + [np.zeros(0, np.int64)])
     inv = np.full(Npad + 1, len(didx_flat), np.int64)
     real = didx_flat < n_real
     inv[didx_flat[real]] = np.flatnonzero(real)

@@ -9,7 +9,9 @@ along a device axis: each rank builds the ordinary per-fit
 (:func:`build_sharded_data`), on its own device, and runs the ordinary
 round with its process group, which sums
 histograms, node sums, leaf sums and metric sums across the ranks. The
-lambda phase needs no communication: every pair is query-local.
+lambda phase needs no communication: every pair is query-local. A rank
+dealt no query (more ranks than queries, as the reference allows) builds
+a BoostData of pad documents only and adds zeros to every sum.
 
 The reference's ``make_dist_round_step`` and ``init_dist_state`` are the
 ordinary ``make_round_step(..., group=group)`` and ``init_state`` here.

@@ -112,12 +112,14 @@ def device_buckets(ev: LinearMetricEvaluator, n_queries: int) -> list:
 
 
 def make_ada_step(scorer, *, no_eq: bool, max_sel: int, tolerance: float,
-                  n_queries: int, n_vqueries: int,
+                  n_queries: int, n_vqueries: int, has_val: bool,
                   sparse_docs: tuple | None = None, group=None,
                   slots: tuple | None = None):
     """The round: ``step(state, t, S, tb, vb[, qmask]) → state`` with
     ``S [Q, F]`` and ``tb``/``vb`` :func:`device_buckets`, on one device,
-    with no host sync. ``sparse_docs``: (train docs, validation docs) when
+    with no host sync. ``has_val``: a validation set exists (on every
+    rank alike, whatever this rank's shard of it holds). ``sparse_docs``:
+    (train docs, validation docs) when
     ``tb``/``vb`` are ``(coo_chunks, (labels, mask, didx, qidx) buckets)``
     of the COO route. Under ``-dp``: ``group``, the rank's process group
     (``n_queries``/``n_vqueries`` are the global counts); ``slots``, its
@@ -174,7 +176,7 @@ def make_ada_step(scorer, *, no_eq: bool, max_sel: int, tolerance: float,
         tol_stop = keep & (m_train - state.prev_train < tolerance) & (t > 0)
         state.active = keep & ~tol_stop
         state.prev_train = torch.where(keep, m_train, state.prev_train)
-        if vb:
+        if has_val:
             state.val_m[t] = perq_and_mean(state.w, vb, n_vslots,
                                            n_vqueries, n_vdocs)[1]
         state.hfid[t] = fid
@@ -236,7 +238,7 @@ class AdaRank(Ranker):
         step = make_ada_step(
             scorer, no_eq=bool(self.no_eq), max_sel=self.max_sel_count,
             tolerance=self.tolerance, n_queries=Q, n_vqueries=n_vq,
-            sparse_docs=sparse_docs)
+            has_val=validation is not None, sparse_docs=sparse_docs)
         state = init_state(Q, F, round_capacity(self.n_rounds), device)
         return step, state, S, tb, vb
 
@@ -293,7 +295,8 @@ class AdaRank(Ranker):
         step = make_ada_step(
             scorer, no_eq=bool(self.no_eq), max_sel=self.max_sel_count,
             tolerance=self.tolerance, n_queries=Q, n_vqueries=n_vq,
-            sparse_docs=sparse_docs, group=group, slots=(Qpad, n_vslots))
+            has_val=validation is not None, sparse_docs=sparse_docs,
+            group=group, slots=(Qpad, n_vslots))
         state = init_state(Q, F, round_capacity(self.n_rounds), device,
                            qmask)
         return step, state, S, tb, vb, qmask

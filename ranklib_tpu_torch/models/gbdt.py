@@ -216,9 +216,8 @@ class LambdaMART(Ranker):
         take their shards and run the round loop; rank 0 prints, writes
         the checkpoints and the events. Every rank must end with the same
         model; ``rank_launches`` keeps each rank's kernel launches."""
-        from ranklib_tpu_torch.parallel.dist import check_shardable, run
+        from ranklib_tpu_torch.parallel.dist import run
 
-        check_shardable(len(train.queries), mesh)
         feats, _, _, thresholds, binned, _, _ = flatten_binned(
             train, self.n_threshold)
         if binned is None:

@@ -353,7 +353,7 @@ def make_epoch_step(loss: str, scorer: MetricScorer, lr: float,
                            & (s[:, :, None] <= s[:, None, :]))
                     tot = tot + bad.sum()
                 state.mis[t] = sum_across(tot, group)
-            if vb:
+            if vb is not None:           # on every rank alike
                 tot = torch.zeros((), dtype=torch.float32,
                                   device=state.val_m.device)
                 for s, labels, mask in vb.scores(params):

@@ -230,11 +230,14 @@ def weak_search(binned_T: torch.Tensor, pot: torch.Tensor,
 
 
 def make_rb_step(scorer, *, n_thresholds: int, n_queries: int,
-                 n_vqueries: int, train_metric: bool = True, group=None):
+                 n_vqueries: int, has_val: bool, train_metric: bool = True,
+                 group=None):
     """The round: ``step(state, t, data) → state``, on the data's device,
-    with no host sync. ``train_metric=False`` skips the train metric, which
-    only feeds the console table. ``group``: a ``-dp`` rank's process
-    group (the query counts are then global)."""
+    with no host sync. ``has_val``: a validation set exists (on every
+    rank alike, whether or not this rank's shard of it holds a query).
+    ``train_metric=False`` skips the train metric, which only feeds the
+    console table. ``group``: a ``-dp`` rank's process group (the query
+    counts are then global)."""
     T = n_thresholds
 
     def step(state: RBState, t: int, data: RBData) -> RBState:
@@ -257,7 +260,10 @@ def make_rb_step(scorer, *, n_thresholds: int, n_queries: int,
         if train_metric:
             state.train_m[t] = (_bucket_metric_sum(
                 scorer, data.tb, state.scores, group) / n_queries)
-        if data.vb:
+        # every rank takes part in the validation sum, an empty shard
+        # with zeros: whether a rank calls a collective never depends on
+        # its own shard
+        if has_val:
             vq = data.vq_T.index_select(0, f_s.view(1))[0] > t_s
             state.vscores[:-1] += alpha * vq.to(torch.float32)
             state.val_m[t] = (_bucket_metric_sum(
@@ -352,7 +358,8 @@ class RankBoost(Ranker):
             uniq=torch.from_numpy(uniq).to(device), vq_T=vq_T, vb=vb)
         step = make_rb_step(
             scorer, n_thresholds=int(self.n_threshold), n_queries=n_q,
-            n_vqueries=n_vq, train_metric=not is_silent(), group=group)
+            n_vqueries=n_vq, has_val=validation is not None,
+            train_metric=not is_silent(), group=group)
         CAP = round_capacity(self.n_rounds)
         f32 = dict(dtype=torch.float32, device=device)
         i64 = dict(dtype=torch.int64, device=device)

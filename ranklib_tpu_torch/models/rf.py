@@ -271,10 +271,8 @@ class RFRanker(Ranker):
         bin matrix for every bag, here, in shared memory; the ranks
         (:func:`_bags_rank`) fit the bags one after another.
         ``rank_launches`` keeps each rank's kernel launches."""
-        from ranklib_tpu_torch.parallel.dist import check_shardable, run
+        from ranklib_tpu_torch.parallel.dist import run
 
-        check_shardable(int(self.sub_sampling_rate * len(train.queries)),
-                        mesh)
         log("Training starts...")
         feats, _, _, thresholds, binned, _, _ = flatten_binned(
             train, self.n_threshold)

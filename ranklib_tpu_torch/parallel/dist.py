@@ -76,13 +76,6 @@ def make_mesh(n_devices: int, device: torch.device) -> Mesh:
     return Mesh((torch.device("cpu"),) * max(1, n_devices), "gloo")
 
 
-def check_shardable(n_queries: int, mesh: Mesh) -> None:
-    """Every rank needs a training query of its own."""
-    if n_queries < mesh.size:
-        raise RankLibError(f"-dp {mesh.size}: more ranks than the "
-                           f"{n_queries} training queries")
-
-
 class _Lines(io.TextIOBase):
     """Rank 0's stdout: whole lines to the parent's queue."""
 

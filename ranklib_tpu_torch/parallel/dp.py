@@ -7,7 +7,9 @@ shard of the queries and sums its part across the ranks with
 from the sums (a coordinate's candidate, a weak ranker, α, a stop) is then
 the same on every rank. The queries are dealt as the tree rankers deal
 them (``gbdt.boost_dist._shard_queries``: round robin within each padded
-size class, smallest class first).
+size class, smallest class first). A rank may hold no query of the
+training or of the validation set: it takes part in every sum with
+zeros, so whether a rank calls a collective never depends on its shard.
 
 * :func:`shard_feat_buckets` gives a rank its dense feature buckets, and
   :func:`shard_sparse_data` its COO triple and metric buckets (the
@@ -301,10 +303,8 @@ def fit_many(mesh, fits, profile_dir: str | None = None) -> None:
     trace in ``profile_dir``): ``fits`` are ``(ranker, train, scorer,
     validation)``, run one after another on the same group; each ranker
     ends with rank 0's model."""
-    from ranklib_tpu_torch.parallel.dist import check_shardable, run
+    from ranklib_tpu_torch.parallel.dist import run
 
-    for _, train, _, _ in fits:
-        check_shardable(len(train.queries), mesh)
     jobs = [r.dp_job(t, s, v) for r, t, s, v in fits]
     out = run(mesh, run_jobs, jobs, profile_dir=profile_dir)
     for i, (ranker, *_) in enumerate(fits):
