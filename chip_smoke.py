@@ -4041,15 +4041,15 @@ def zero_counts():
     H.histogram_multi.launches = 0
 
 
-def _held_rank(fn, n_hold, out_dir, scans, rank, device, group, *args):
-    """A ``-dp`` rank's ``fn`` with its first ``n_hold`` histogram launches
-    (the first tree's root and right children) held against the plain
-    version on the very card tensors the rank gave them — counts exact,
-    sums within HIST_TOL — and the rank's root document count kept; with
-    ``scans``, its first split-scan launch too (:func:`hold_scans`, in
-    the rank, on the summed histograms it was given). The findings go to
-    ``out_dir/rank<r>.json`` for the parent to check, and ``fn``'s result
-    is returned untouched. The held launches count nowhere."""
+@contextlib.contextmanager
+def holding(n_hold: int, scans: bool, rank: int):
+    """Inside the block, this process's first ``n_hold`` histogram
+    launches of the tree growth held against the plain version on the
+    very card tensors they were given (counts exact, sums within
+    HIST_TOL, the root document count kept); with ``scans``, its first
+    split-scan launch too (:func:`hold_scans`, on the summed histograms
+    it was given). Yields the two lists the findings go to; the held
+    launches count nowhere."""
     from ranklib_tpu_torch.gbdt import grow
     from ranklib_tpu_torch.ops import histogram as H
     from ranklib_tpu_torch.ops import split_scan as SS
@@ -4081,9 +4081,19 @@ def _held_rank(fn, n_hold, out_dir, scans, rank, device, group, *args):
 
     grow.histogram, grow.best_splits = hist, scan
     try:
-        out = fn(rank, device, group, *args)
+        yield held, scan_err
     finally:
         grow.histogram, grow.best_splits = orig, orig_scan
+
+
+def _held_rank(fn, n_hold, out_dir, scans, rank, device, group, *args):
+    """A ``-dp`` rank's ``fn`` with its first ``n_hold`` histogram launches
+    (the first tree's root and right children) and, with ``scans``, its
+    first split-scan launch held (:func:`holding`). The findings go to
+    ``out_dir/rank<r>.json`` for the parent to check, and ``fn``'s result
+    is returned untouched."""
+    with holding(n_hold, scans, rank) as (held, scan_err):
+        out = fn(rank, device, group, *args)
     if scans:
         held = {"hist": held, "scan_err": scan_err}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -4424,6 +4434,7 @@ def extensions_phase(dev, fit, tmp, smi) -> dict:
         k: sum(part[k] for part in (out["ckpt"], out["resume"], out["api"]))
         + sum(r[k] for r in ranks + rf_ranks)
         for k in ("histogram", "split_scan", "forest_eval_frombins")}
+    out["train_path"] = train_path
     return out
 
 
@@ -5062,6 +5073,357 @@ def dp_empty_phase(dev, tmp, smi) -> dict:
             "walls": walls, "cpu_walls": cpu_walls}
 
 
+# phase 23: -dp over two processes that join one group on the card (gloo);
+# LambdaMART -leaf 10 with trees for ~10 s at phase 20's -dp 2 round
+# (57.7 ms), RankBoost -round 50 on phase 16's grid
+J_TREES, J_ROUNDS, J_WORLD = 170, 50, 2
+HOSTBIN_ENV = "RANKLIB_TPU_SERVE_HOSTBIN"
+CHUNK_ENV = "RANKLIB_TPU_SERVE_CHUNK_MB"
+SHARED_GRID_ENV = "RANKLIB_TPU_KCV_SHARED_GRID"
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def joined_worker(rank: int, world: int, init: str, data: str, out: str,
+                  device: str) -> int:
+    """Phase 23's process ``rank`` of ``world``, started by the phase with
+    ``--joined-worker``: joins the group (``parallel.dist.join``, gloo on
+    ``device``), reads the training file itself and fits LambdaMART and
+    RankBoost with ``mesh=make_mesh(world)`` (its first B1 and B2 launches
+    held, :func:`holding`); its findings to ``out``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ranklib_tpu_torch.data.letor import read_letor
+    from ranklib_tpu_torch.metrics.base import create_scorer
+    from ranklib_tpu_torch.models.gbdt import LambdaMART
+    from ranklib_tpu_torch.models.rankboost import RankBoost
+    from ranklib_tpu_torch.parallel import dist
+    from ranklib_tpu_torch.utils.logging import set_event_log
+
+    found = {"rank": rank}
+    try:
+        t0 = time.perf_counter()
+        r, w, device = dist.join(init_method=init, world_size=world,
+                                 rank=rank, backend="gloo",
+                                 device=torch.device(device))
+        found["join"] = [r, w, str(device), torch.distributed.get_backend()]
+        found["join_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train = read_letor(data)
+        found["read_s"] = time.perf_counter() - t0
+        found["docs"] = train.n_docs
+        scorer = create_scorer("NDCG@10")
+        mesh = dist.make_mesh(world, device)
+        found["mesh"] = [mesh.size, mesh.backend, mesh.joined]
+        set_event_log(out + ".ev")         # rank 0 alone writes it
+        zero_counts()
+        lm = LambdaMART(n_trees=J_TREES, n_leaves=N_LEAVES, early_stop=0)
+        with holding(1, True, rank) as (held, scans):
+            t0 = time.perf_counter()
+            quiet(lm.fit, train, scorer, device=device, mesh=mesh)
+            sync(device)
+            found["lm_s"] = time.perf_counter() - t0
+        set_event_log(None)
+        found["lm"] = lm.model_str()
+        found["lm_launches"] = lm.rank_launches
+        found["held"], found["scan_gap"] = held, scans
+        found["lm_metric"] = lm.score_metric(train, scorer, device)
+        rb = RankBoost(n_rounds=J_ROUNDS, n_threshold=RB_TC)
+        t0 = time.perf_counter()
+        quiet(rb.fit, train, scorer, device=device, mesh=mesh)
+        sync(device)
+        found["rb_s"] = time.perf_counter() - t0
+        found["rb"] = [list(map(float, x)) for x in rb.weaks]
+        found["rb_launches"] = rb.rank_launches
+        found["process_counts"] = counts()
+        found["modules"] = sorted(m for m in ("jax", "ranklib_tpu")
+                                  if m in sys.modules)
+    except Exception:
+        import traceback
+
+        found["error"] = traceback.format_exc()
+    finally:
+        with open(out, "w") as f:
+            json.dump(found, f)
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    return 1 if "error" in found else 0
+
+
+def spawned_pair(rank, device, group, lm_args, rb_job):
+    """Phase 23's spawned rank: LambdaMART (``models.gbdt._fit_rank`` of
+    ``lm_args``) and then RankBoost (its ``ShardJob``) on one group; rank
+    0's event log holds LambdaMART's rounds alone. Returns (LambdaMART's
+    result, RankBoost's, the two fits' seconds)."""
+    from ranklib_tpu_torch.models.gbdt import _fit_rank
+    from ranklib_tpu_torch.utils.logging import set_event_log
+
+    t0 = time.perf_counter()
+    lm = _fit_rank(rank, device, group, *lm_args)
+    sync(device)
+    t_lm = time.perf_counter() - t0
+    set_event_log(None)
+    t0 = time.perf_counter()
+    rb = rb_job(rank, device, group)
+    sync(device)
+    return lm, rb, t_lm, time.perf_counter() - t0
+
+
+def joined_phase(dev, tmp, smi, train_path, sparse_path, ens, Xh,
+                 scores_host) -> dict:
+    """Phase 23. (a) Two processes started here (``--joined-worker``)
+    join one gloo group on the card through a ``file://`` rendezvous and
+    fit LambdaMART and RankBoost with ``-dp 2``: every process's model
+    equal, and equal to the spawned two-rank gloo mesh's on the same file;
+    B1 and B2 launched in each process, its first ones held against the
+    plain versions. (b) The shared-grid ``-sparse -kcv 3`` CLI
+    (``RANKLIB_TPU_KCV_SHARED_GRID=1``) on phase 18's 700-feature file,
+    ``-ranker 6`` and ``8``. (c) ``eval_matrix`` under
+    ``RANKLIB_TPU_SERVE_HOSTBIN=0`` at the serving shape: B3 on uploaded
+    features, bit-equal to the host-binned route; and under
+    ``RANKLIB_TPU_SERVE_CHUNK_MB``."""
+    from ranklib_tpu_torch import cli, evaluator
+    from ranklib_tpu_torch.data import binned as PB
+    from ranklib_tpu_torch.data.letor import read_letor
+    from ranklib_tpu_torch.metrics.base import create_scorer
+    from ranklib_tpu_torch.models.gbdt import LambdaMART
+    from ranklib_tpu_torch.models.rankboost import RankBoost
+    from ranklib_tpu_torch.ops import forest_eval as fe
+    from ranklib_tpu_torch.parallel import dist
+    from ranklib_tpu_torch.utils.logging import set_event_log
+
+    out = {}
+    # (a) the joined processes
+    jdir = tempfile.mkdtemp(prefix="joined_", dir=tmp)
+    init = "file://" + os.path.join(jdir, "rendezvous")
+    root = os.path.dirname(os.path.abspath(__file__))
+    files = [os.path.join(jdir, f"rank{r}.json") for r in range(J_WORLD)]
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        # each process's output to a file: a full pipe would stall it
+        # while its peer waits for it in a collective
+        for r in range(J_WORLD):
+            with open(files[r] + ".log", "w") as log_f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--joined-worker", str(r), str(J_WORLD), init,
+                     train_path, files[r], str(dev)],
+                    cwd=root, stdout=log_f, stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    logs = [open(f + ".log").read() for f in files]
+    found = []
+    for r, p in enumerate(procs):
+        check(os.path.exists(files[r]),
+              f"joined process {r} wrote nothing:\n{logs[r][-3000:]}")
+        with open(files[r]) as f:
+            found.append(json.load(f))
+        check(p.returncode == 0 and "error" not in found[r],
+              f"joined process {r} failed:\n"
+              f"{found[r].get('error', logs[r][-3000:])}")
+    j_ms = round_ms(files[0] + ".ev")
+    check(os.path.getsize(files[1] + ".ev") == 0,
+          "a joined process other than rank 0 wrote the event log")
+    for f in found:
+        check(f["join"] == [f["rank"], J_WORLD, str(dev), "gloo"]
+              and f["mesh"] == [J_WORLD, "gloo", True],
+              f"process {f['rank']} did not join as rank {f['rank']}: "
+              f"{f['join']} {f['mesh']}")
+        check(f["modules"] == [], f"process {f['rank']} imported "
+                                  f"{f['modules']}")
+    lm_same = len({f["lm"] for f in found}) == 1
+    rb_same = len({json.dumps(f["rb"]) for f in found}) == 1
+    check(lm_same and rb_same, "the joined processes' models differ")
+    per_tree = N_LEAVES - 1
+    for f in found:
+        own = f["lm_launches"][f["rank"]]
+        check(own["histogram"] == own["split_scan"] == J_TREES * per_tree,
+              f"process {f['rank']}: B1/B2 launches {own}, not "
+              f"{J_TREES} x {per_tree}")
+        check(f["rb_launches"][f["rank"]]["histogram"] == J_ROUNDS,
+              f"process {f['rank']}: RankBoost's B1 launches are not "
+              f"{J_ROUNDS}")
+        check(len(f["held"]) == 1 and f["held"][0]["device"] == str(dev)
+              and f["held"][0]["counts_equal"]
+              and f["held"][0]["sums_close"],
+              f"process {f['rank']}: its first B1 launch differs from the "
+              f"plain version: {f['held']}")
+        check(len(f["scan_gap"]) == 1,
+              f"process {f['rank']} held no B2 launch")
+    print(f"  {J_WORLD} joined processes (gloo on {dev}, file:// "
+          f"rendezvous): {wall:.1f} s in all; join "
+          f"{max(f['join_s'] for f in found):.1f} s, read "
+          f"{max(f['read_s'] for f in found):.1f} s "
+          f"({found[0]['docs']} docs); LambdaMART -tree {J_TREES} -leaf "
+          f"{N_LEAVES} {[round(f['lm_s'], 2) for f in found]} s, "
+          f"{j_ms:.3f} ms a round (rank 0's event log), train NDCG@10 "
+          f"{found[0]['lm_metric']:.4f} in each: "
+          f"{len({f['lm_metric'] for f in found}) == 1}; RankBoost -round "
+          f"{J_ROUNDS} {[round(f['rb_s'], 2) for f in found]} s; models "
+          f"equal across the processes: LambdaMART {lm_same}, RankBoost "
+          f"{rb_same}  [{smi}]")
+    print(f"  B1/B2 launches a process (LambdaMART): "
+          f"{[f['lm_launches'][f['rank']]['histogram'] for f in found]}/"
+          f"{[f['lm_launches'][f['rank']]['split_scan'] for f in found]}; "
+          f"RankBoost's B1 "
+          f"{[f['rb_launches'][f['rank']]['histogram'] for f in found]}; "
+          f"each process's first B1 launch held (counts exact, max_abs_err "
+          f"{max(f['held'][0]['max_abs_err'] for f in found):.3e}, root "
+          f"documents {[f['held'][0]['docs'] for f in found]}), its first "
+          f"B2 within the f32 bound (gain gap "
+          f"{max(f['scan_gap'][0] for f in found):.3e})")
+
+    # the spawned two-rank mesh on the same file: both fits in one mesh,
+    # so its ranks start once
+    import importlib
+
+    from ranklib_tpu_torch.parallel.dp import take_rank0
+
+    me = importlib.import_module("chip_smoke")
+    train = read_letor(train_path)
+    scorer = create_scorer("NDCG@10")
+    mesh = dist.Mesh((dev, dev), "gloo")
+    ev = os.path.join(jdir, "spawned.ev")
+    zero_counts()
+    set_event_log(ev)
+    lm = LambdaMART(n_trees=J_TREES, n_leaves=N_LEAVES, early_stop=0)
+    rb = RankBoost(n_rounds=J_ROUNDS, n_threshold=RB_TC)
+    t0 = time.perf_counter()
+    try:
+        ranks, _ = quiet(lambda: dist.run(
+            mesh, me.spawned_pair,
+            lm.rank_args(train, scorer, None, dev, mesh),
+            rb.dp_job(mesh, train, scorer)))
+    finally:
+        set_event_log(None)
+    s_wall = time.perf_counter() - t0
+    lm.take_ranks([r[0] for r in ranks])
+    take_rank0(rb, [r[1] for r in ranks])
+    s_lm, s_rb = (max(r[i] for r in ranks) for i in (2, 3))
+    s_ms = round_ms(ev)
+    spawned_lm = lm.model_str() == found[0]["lm"]
+    spawned_rb = [list(map(float, x)) for x in rb.weaks] == found[0]["rb"]
+    print(f"  the spawned two-rank gloo mesh on the same file, both fits in "
+          f"one mesh: {s_wall:.1f} s with rank start-up; LambdaMART "
+          f"{s_lm:.1f} s, {s_ms:.3f} ms a round; RankBoost {s_rb:.1f} s; "
+          f"the joined models equal the spawned ones: LambdaMART "
+          f"{spawned_lm}, RankBoost {spawned_rb}")
+    check(spawned_lm and spawned_rb,
+          "the joined models differ from the spawned mesh's")
+    spawned_launches = {k: sum(r[k] for r in lm.rank_launches)
+                        for k in ("histogram", "split_scan")}
+    spawned_launches["histogram"] += sum(r["histogram"]
+                                         for r in rb.rank_launches)
+    out["joined"] = {
+        "wall": wall, "ms_round": j_ms, "ms_round_spawned": s_ms,
+        "lm_s": [f["lm_s"] for f in found], "lm_s_spawned": s_lm,
+        "rb_s": [f["rb_s"] for f in found], "rb_s_spawned": s_rb,
+        "spawned_wall": s_wall,
+        "process_launches": [
+            {k: f["lm_launches"][f["rank"]][k]
+             + (f["rb_launches"][f["rank"]][k] if k == "histogram" else 0)
+             for k in ("histogram", "split_scan")} for f in found],
+        "spawned_launches": spawned_launches,
+        "held_max_abs_err": max(f["held"][0]["max_abs_err"] for f in found),
+        "scan_gain_gap": max(f["scan_gap"][0] for f in found)}
+
+    # (b) the shared-grid -kcv on phase 18's file (the per-fold default
+    # beside it took 5.1-6.1 s against 5.2-5.3, PR 17: dropped for the
+    # phase's time)
+    calls = []
+    orig = PB.binned_from_csr
+
+    def counted(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+
+    out["kcv"] = {}
+    PB.binned_from_csr = counted
+    os.environ[SHARED_GRID_ENV] = "1"
+    try:
+        for ranker, extra in (
+                ("6", ["-tree", str(SP_TREES), "-leaf", str(N_LEAVES)]),
+                ("8", ["-bag", str(SP_BAGS)])):
+            calls.clear()
+            zero_counts()
+            t0 = time.perf_counter()
+            rc, text = quiet(cli.main, [
+                "-train", sparse_path, "-ranker", ranker, *extra,
+                "-metric2t", "NDCG@10", "-missingZero", "-sparse", "-kcv",
+                "3"])
+            sync(dev)
+            s = time.perf_counter() - t0
+            c = counts()
+            check(rc == 0 and "not applicable" not in text,
+                  f"-kcv 3 -sparse -ranker {ranker} failed:\n{text[-2000:]}")
+            avg = [ln for ln in text.splitlines() if ln.startswith("Avg.")]
+            check(len(avg) == 1, f"no Avg. line:\n{text[-2000:]}")
+            test_m = float(avg[0].split("|")[2])
+            check(0.0 <= test_m <= 1.0, f"-kcv test NDCG {test_m}")
+            check(not calls, f"-kcv on the shared grid: {len(calls)} CSR "
+                             f"binnings, not 0")
+            tree_k = "histogram" if ranker == "6" else "histogram_multi"
+            check(c[tree_k] > 0 and c["forest_eval_frombins"] > 0,
+                  f"-kcv -ranker {ranker} launched {c}")
+            out["kcv"][f"{ranker}-shared"] = {"s": s, "launches": c,
+                                              "avg": avg[0]}
+            print(f"  -kcv 3 -sparse -ranker {ranker} {' '.join(extra)} "
+                  f"(shared grid): {s:.1f} s, {len(calls)} CSR binnings; "
+                  f"{avg[0].strip()}; launches {c}")
+    finally:
+        os.environ.pop(SHARED_GRID_ENV, None)
+        PB.binned_from_csr = orig
+    check(evaluator.KCV_SHARED_GRID_ENV == SHARED_GRID_ENV,
+          "the evaluator reads another switch")
+
+    # (c) the serving switches at the serving shape
+    fe.forest_eval_bins.launches = fe.forest_eval_frombins.launches = 0
+    os.environ[HOSTBIN_ENV] = "0"
+    try:
+        off = ens.eval_matrix(Xh, dev)
+        sync(dev)
+        b3 = fe.forest_eval_bins.launches
+        fb = fe.forest_eval_frombins.launches
+        off_ms = wall_ms(lambda: ens.eval_matrix(Xh, dev), 5)
+    finally:
+        os.environ.pop(HOSTBIN_ENV, None)
+    check(b3 == 1 and fb == 0, f"HOSTBIN=0 launched B3 {b3} and B4 {fb} "
+                               f"times, not once and never")
+    check(np.array_equal(off, scores_host), "HOSTBIN=0 scores are not the "
+                                            "host-binned route's")
+    on_ms = wall_ms(lambda: ens.eval_matrix(Xh, dev), 5)
+    chunks = {}
+    for mb in ("1", "64"):
+        os.environ[CHUNK_ENV] = mb
+        try:
+            fe.forest_eval_frombins.launches = 0
+            got = ens.eval_matrix(Xh, dev)
+            n = fe.forest_eval_frombins.launches
+            chunks[mb] = (n, wall_ms(lambda: ens.eval_matrix(Xh, dev), 5))
+        finally:
+            os.environ.pop(CHUNK_ENV, None)
+        check(np.array_equal(got, scores_host),
+              f"CHUNK_MB={mb} scores are not the default's")
+    print(f"  eval_matrix at {N_DOCS} docs x {N_TREES} trees: "
+          f"{HOSTBIN_ENV}=0 (B3 on uploaded f32, {b3} launch) {off_ms:.3f} "
+          f"ms wall vs the host-binned route {on_ms:.3f} ms, bit-equal; "
+          + "; ".join(f"{CHUNK_ENV}={mb}: {n} chunks, {ms:.3f} ms, "
+                      f"bit-equal" for mb, (n, ms) in chunks.items())
+          + f"  [{smi}]")
+    out["serving"] = {"b3_launches": b3, "hostbin_off_ms": off_ms,
+                      "hostbin_ms": on_ms, "chunks": chunks}
+    return out
+
+
 def bare_times(root: str) -> int:
     """``--bare-times ROOT``: the fused-lambda (B5) and binning (B8)
     kernels of the ``ranklib_tpu_torch`` found under ROOT, each timed by
@@ -5130,6 +5492,10 @@ def bare_times(root: str) -> int:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--joined-worker"] and len(sys.argv) == 8:
+        # phase 23's processes (on the device the phase names)
+        return joined_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                             sys.argv[5], sys.argv[6], sys.argv[7])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
@@ -5462,6 +5828,15 @@ def main() -> int:
     t22 = time.perf_counter()
     dpe = dp_empty_phase(dev, tmp, smi)
     print(f"  phase 22 {time.perf_counter() - t22:.1f} s  [{smi}]")
+
+    header(f"== phase 23: -dp over {J_WORLD} processes that join one group "
+           f"(gloo on the card; {FIT_QUERIES} queries x {N_FEATURES} "
+           f"features), the shared-grid -sparse -kcv at {SP_FEATURES} "
+           f"features and the serving switches at {N_DOCS} docs")
+    t23 = time.perf_counter()
+    joined = joined_phase(dev, tmp, smi, ext["train_path"],
+                          sp["paths"]["train"], ens, Xh, scores_host)
+    print(f"  phase 23 {time.perf_counter() - t23:.1f} s  [{smi}]")
     tmpdir.cleanup()
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -5515,24 +5890,52 @@ def main() -> int:
             out["held_gain_gap"] = dpe["scan_gain_gap"]
         return out
 
+    def joined_launches(name):
+        """A kernel's launches in phase 23: the joined processes', the
+        spawned mesh's ranks' and the -kcv CLI runs'."""
+        j = joined["joined"]
+        return (sum(p.get(name, 0) for p in j["process_launches"])
+                + j["spawned_launches"].get(name, 0)
+                + sum(v["launches"][name] for v in joined["kcv"].values()))
+
+    def joined_path(name):
+        j = joined["joined"]
+        held = ({"held_max_abs_err": j["held_max_abs_err"]}
+                if name == "histogram"
+                else {"held_gain_gap": j["scan_gain_gap"]})
+        return {"launches": joined_launches(name), **held,
+                "process_launches": [p[name] for p in j["process_launches"]],
+                "spawned_launches": j["spawned_launches"][name],
+                "kcv_launches": {k: v["launches"][name]
+                                 for k, v in joined["kcv"].items()},
+                "ms_round": j["ms_round"],
+                "ms_round_spawned": j["ms_round_spawned"]}
+
     kernels = [
         entry("forest_eval_frombins", "forest_eval.cu",
               "ranklib_tpu/ops/forest_eval.py:524",
               launches["forest_eval_frombins"]
               + sp["launches"]["forest_eval_frombins"]
-              + ext["launches"]["forest_eval_frombins"], err_fb, ms_fb,
+              + ext["launches"]["forest_eval_frombins"]
+              + joined_launches("forest_eval_frombins"), err_fb, ms_fb,
               plain_ms_fb, bound_fb, None),
-        entry("forest_eval_bins", "forest_eval.cu",
-              "ranklib_tpu/ops/forest_eval.py:269",
-              launches["forest_eval_bins"], err_b, ms_b, plain_ms_b, bound_b,
-              None),
+        dict(entry("forest_eval_bins", "forest_eval.cu",
+                   "ranklib_tpu/ops/forest_eval.py:269",
+                   launches["forest_eval_bins"]
+                   + joined["serving"]["b3_launches"], err_b, ms_b,
+                   plain_ms_b, bound_b, None),
+             paths={"hostbin_off": {
+                 "launches": joined["serving"]["b3_launches"],
+                 "wall_ms": joined["serving"]["hostbin_off_ms"],
+                 "hostbin_wall_ms": joined["serving"]["hostbin_ms"]}}),
         dict(entry("histogram", "histogram.cu",
                    "ranklib_tpu/ops/histogram.py:185",
                    fit["launches"]["histogram"] + rb["launches"]
                    + sp["launches"]["histogram"] + raw_b1["launches"]
                    + wide["b1"]["launches"] + ext["launches"]["histogram"]
                    + sum(sum(v) for v in dpr["rb_launches"].values())
-                   + dp_empty_launches("histogram"),
+                   + dp_empty_launches("histogram")
+                   + joined_launches("histogram"),
                    hists["root"][1], hists["root"][2], hists["root"][3],
                    hists["root_bound"], hists["root_library"]),
              paths={
@@ -5565,20 +5968,24 @@ def main() -> int:
                          "max_abs_err", "ms", "bare_ms", "plain_ms",
                          "bound_ms", "bound_by", "library_ms")},
                      "ms_step_dp_vs_single": dpr["ms_step"]},
-                 "dp_empty": dp_empty_path("histogram")}),
+                 "dp_empty": dp_empty_path("histogram"),
+                 "joined": joined_path("histogram")}),
         dict(entry("split_scan", "split_scan.cu",
                    "ranklib_tpu/ops/split_scan.py:43",
                    fit["launches"]["split_scan"] + sp["launches"]["split_scan"]
                    + ext["launches"]["split_scan"]
-                   + dp_empty_launches("split_scan"), scans[2][0],
+                   + dp_empty_launches("split_scan")
+                   + joined_launches("split_scan"), scans[2][0],
                    scans[2][1], scans[2][2], scans["bound"], None),
              paths={"lambdamart": {"launches": fit["launches"]["split_scan"]},
                     "dp": dp_path("split_scan"),
-                    "dp_empty": dp_empty_path("split_scan")}),
+                    "dp_empty": dp_empty_path("split_scan"),
+                    "joined": joined_path("split_scan")}),
         entry("histogram_multi", "histogram_multi.cu",
               "ranklib_tpu/ops/histogram.py:51",
               rf["launches"]["histogram_multi"]
-              + sp["launches"]["histogram_multi"], rf_hists["root"][0],
+              + sp["launches"]["histogram_multi"]
+              + joined_launches("histogram_multi"), rf_hists["root"][0],
               rf_hists["root"][1], rf_hists["root"][2],
               rf_hists["root_bound"], rf_hists["root_library"]),
         entry("forest_eval_full", "forest_eval.cu",

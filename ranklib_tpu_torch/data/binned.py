@@ -21,6 +21,8 @@ Host peak is the 2-byte bin matrix. The tree rankers train on it
 bit-identically to the dense path. :func:`binned_from_csr` bins a
 :class:`~ranklib_tpu_torch.data.sparse.CSRDataset` in bounded dense chunks
 (``-sparse -norm``, the ``-tvs``/``-tts`` split grids and ``-kcv`` folds).
+:meth:`BinnedDataset.subset_queries` cuts the folds of
+``RANKLIB_TPU_KCV_SHARED_GRID=1`` out of one bin matrix.
 """
 
 from __future__ import annotations
@@ -47,6 +49,22 @@ class BinnedDataset(Dataset):
 
     thresholds: np.ndarray = None   # [F, B] float32, +inf padded
     binned: np.ndarray = None       # [N, F] int16, query file order
+
+    def subset_queries(self, idxs) -> "BinnedDataset":
+        """The queries ``idxs`` (in that order) with their rows of the bin
+        matrix, on the same grid (ref ``subset_queries``, binned.py:54):
+        the ``-kcv`` folds of the shared grid, which ``data.cv.prepare_cv``
+        cuts with this method."""
+        idxs = list(idxs)
+        qptr = np.zeros(len(self.queries) + 1, np.int64)
+        np.cumsum([q.n for q in self.queries], out=qptr[1:])
+        rows = (np.concatenate([np.arange(qptr[i], qptr[i + 1])
+                                for i in idxs])
+                if idxs else np.zeros(0, np.int64))
+        return BinnedDataset(
+            queries=[self.queries[i] for i in idxs],
+            n_features=self.n_features, thresholds=self.thresholds,
+            binned=self.binned[rows])
 
 
 def read_letor_binned(path: str, n_threshold: int = 256,

@@ -6,7 +6,9 @@ features/FeatureManager.java:~200 prepareCV): query i lands in test fold
 ``tvs`` (ref: Evaluator -tvs) the tail of each fold's training queries
 becomes validation. ``split_tvs`` serves -tvs and -tts on one file.
 A ``-sparse`` CSR dataset (it has ``subset_queries``) splits into row
-copies; the tree rankers bin each split on its own grid afterwards.
+copies; the tree rankers bin each split on its own grid afterwards. A
+streamed bin matrix (``data.binned.BinnedDataset``, the shared grid of
+``RANKLIB_TPU_KCV_SHARED_GRID=1``) splits into its rows on that grid.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ def prepare_cv(ds: Dataset, n_fold: int, tvs: float = -1.0, lazy=False):
     fold_test = [list(range(f, len(ds.queries), n_fold))
                  for f in range(n_fold)]
 
-    if hasattr(ds, "subset_queries"):        # CSR row subsets
+    if hasattr(ds, "subset_queries"):        # CSR or bin-matrix row subsets
         make = ds.subset_queries
     else:
         def make(idxs):

@@ -15,14 +15,15 @@ Line format (ref: learning/DataPoint.java:~120):
 Plain files go through the port's native C++ parser (``native/``, built at
 first use by ``native.loader``); missing compilers and malformed files fall
 back to the Python parser, which also owns the precise error messages.
-:func:`read_descs` is the '#' side-pass of the ``-sparse`` loaders.
+:func:`read_descs` is the '#' side-pass of the ``-sparse`` loaders;
+:func:`write_letor` writes a dataset back out.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ranklib_tpu_torch.data.dataset import Dataset, Query
+from ranklib_tpu_torch.data.dataset import Dataset, Query, query_feats
 from ranklib_tpu_torch.utils.errors import RankLibError
 from ranklib_tpu_torch.utils.io import open_text
 from ranklib_tpu_torch.utils.logging import log
@@ -219,3 +220,18 @@ def read_descs(path: str, n_docs: int | None = None) -> list:
             f"{path}: desc pass saw {len(descs)} data lines, "
             f"expected {n_docs}")
     return descs
+
+
+def write_letor(ds: Dataset, path: str) -> None:
+    """Write a Dataset back out in LETOR format, every fid 1..F, each
+    document's '#' description after its values (ref ``write_letor``,
+    letor.py:270; the same bytes). A CSR dataset's rows are
+    materialized a query at a time."""
+    with open(path, "w") as f:
+        for qi, q in enumerate(ds.queries):
+            X = query_feats(ds, qi)
+            for i in range(q.n):
+                feats = " ".join(f"{fid}:{X[i, fid - 1]:g}"
+                                 for fid in range(1, ds.n_features + 1))
+                desc = (" " + q.descs[i]) if q.descs and q.descs[i] else ""
+                f.write(f"{q.labels[i]:g} qid:{q.qid} {feats}{desc}\n")

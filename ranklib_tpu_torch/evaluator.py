@@ -200,19 +200,22 @@ def _stream_file(path, args, must_rel, feature_fids, train):
     return ds
 
 
-def _sparse_train(args, feature_fids, must_rel, split: bool):
+def _sparse_train(args, feature_fids, must_rel, split: bool,
+                  what: str | None = None):
     """The -sparse training set of a tree ranker: (train, held-out or
     None, the streamed path's -feature split mask or None), or (None,
-    None, None) when the loader does not apply (logged; the caller runs
-    the dense pipeline). ``split``: -tts/-tvs, whose grid the dense
-    pipeline takes from the training subset, so the file is read as CSR,
-    split, and each side binned with the training side's grid."""
+    None, None) when the loader does not apply (logged, as ``what`` when
+    given; the caller runs the dense pipeline). ``split``: -tts/-tvs,
+    whose grid the dense pipeline takes from the training subset, so the
+    file is read as CSR, split, and each side binned with the training
+    side's grid."""
     from ranklib_tpu_torch.data.binned import (
         binned_from_csr, read_letor_binned,
     )
 
-    what = ("CSR split-grid loader" if split else
-            "CSR-normalized binning" if args.norm else "streaming loader")
+    what = what or ("CSR split-grid loader" if split else
+                    "CSR-normalized binning" if args.norm else
+                    "streaming loader")
     try:
         if split:
             ds = _prepare(args.train, feature_fids, args.missingZero,
@@ -315,12 +318,26 @@ def evaluate_train(args, device: torch.device) -> Ranker:
     return ranker
 
 
+KCV_SHARED_GRID_ENV = "RANKLIB_TPU_KCV_SHARED_GRID"
+
+
 def _sparse_kcv_data(args, feature_fids, must_rel):
-    """The host CSR of -sparse -kcv with a tree ranker, or None when the
-    loader does not apply (logged). Each fold then bins its own training
-    rows (:func:`_bin_folds`): per-fold grids, as the dense pipeline and
-    the reference's per-fold ranker init take them (ref:
-    FeatureManager.java:~200 prepareCV)."""
+    """(data, the -feature split mask or None) of -sparse -kcv with a tree
+    ranker, or (None, None) when the loader does not apply (logged).
+
+    By default the host CSR: each fold then bins its own training rows
+    (:func:`_bin_folds`), per-fold grids, as the dense pipeline and the
+    reference's per-fold ranker init take them (ref:
+    FeatureManager.java:~200 prepareCV). Under
+    ``RANKLIB_TPU_KCV_SHARED_GRID=1`` (ref ``evaluate_kcv``, :396-437)
+    the whole file is binned once, on one grid, and the folds are its
+    rows (``BinnedDataset.subset_queries``): exact only where no feature
+    has more than ``-tc`` distinct values. Without -norm it is streamed
+    (``-feature`` a split mask); with -norm it is binned from CSR."""
+    if os.environ.get(KCV_SHARED_GRID_ENV) == "1":
+        ds, _, mask = _sparse_train(args, feature_fids, must_rel, False,
+                                    what="sparse kcv loader")
+        return ds, mask
     try:
         ds = _prepare(args.train, feature_fids, args.missingZero, must_rel,
                       norm=args.norm, sparse=True,
@@ -328,10 +345,10 @@ def _sparse_kcv_data(args, feature_fids, must_rel):
     except RankLibError as e:
         log(f"[-sparse] sparse kcv loader not applicable ({e}); "
             f"using the dense pipeline")
-        return None
+        return None, None
     if args.qrel:
         apply_qrel(ds, args.qrel)
-    return ds
+    return ds, None
 
 
 def _bin_folds(folds, tc: int):
@@ -351,15 +368,17 @@ def evaluate_kcv(args, device: torch.device) -> None:
     """Flow 3.2: -train file -kcv k [-kcvmd dir -kcvmn name]: train and
     score one ranker a fold, save each fold's model, print the summary
     table. With -sparse the folds ride the host CSR (``subset_queries``);
-    a tree ranker's are binned a fold at a time."""
+    a tree ranker's are binned a fold at a time, or cut from one bin
+    matrix under ``RANKLIB_TPU_KCV_SHARED_GRID=1``."""
     feature_fids = read_feature_file(args.feature) if args.feature else None
     train_scorer = create_scorer(args.metric2t, gmax=args.gmax)
     test_scorer = (create_scorer(args.metric2T, gmax=args.gmax)
                    if args.metric2T else train_scorer)
-    ds = None
+    ds = feature_mask = None
     if _sparse_tree(args):
-        ds = _sparse_kcv_data(args, feature_fids, train_scorer.needs_rel)
-    fold_binning = ds is not None
+        ds, feature_mask = _sparse_kcv_data(args, feature_fids,
+                                            train_scorer.needs_rel)
+    fold_binning = ds is not None and getattr(ds, "binned", None) is None
     if ds is None:
         ds = _prepare(args.train, feature_fids, args.missingZero,
                       train_scorer.needs_rel, norm=args.norm,
@@ -375,7 +394,7 @@ def evaluate_kcv(args, device: torch.device) -> None:
         # -profile: one trace directory a fold (ref :465-473)
         ranker = train_ranker(
             args.ranker, tr, train_scorer, va, args.hparams, device,
-            n_dp=args.dp, profile_dir=(
+            feature_mask=feature_mask, n_dp=args.dp, profile_dir=(
                 os.path.join(args.profile, f"fold{fold + 1}")
                 if args.profile else None))
         m_tr, _ = score_dataset(train_scorer, tr,

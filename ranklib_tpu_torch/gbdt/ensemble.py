@@ -14,7 +14,10 @@ Serving routes (:meth:`TreeEnsemble.eval_matrix`), chosen by
 :meth:`TreeEnsemble.serving_route`:
 
 * host-binned — bin on the host against the model's own threshold grid
-  (native binner), upload uint8/int16 ids, :func:`forest_eval_frombins`;
+  (native binner), upload uint8/int16 ids, :func:`forest_eval_frombins`,
+  in chunks of ``RANKLIB_TPU_SERVE_CHUNK_MB`` (8) MiB of ids;
+  ``RANKLIB_TPU_SERVE_HOSTBIN=0`` turns it off (the reference's switches),
+  and the device-resident route scores uploaded f32 chunks instead;
 * device-resident — :meth:`TreeEnsemble._device_eval_fn`, which bins on
   the device inside :func:`forest_eval_bins`;
 * f32 — :func:`forest_eval_full`, the test ``x <= threshold`` itself, for
@@ -32,6 +35,7 @@ CPU.
 from __future__ import annotations
 
 import functools
+import math
 import os
 import xml.etree.ElementTree as ET
 
@@ -46,6 +50,10 @@ from ranklib_tpu_torch.utils.errors import RankLibError
 
 # the reference's opt-in for the split bin-space route
 SERVE_SPLIT_ENV = "RANKLIB_TPU_SERVE_SPLIT"
+# the reference's switches of the host-binned route: "0" turns it off; the
+# MiB of ids a chunk (unset, bad or <= 0: the default)
+SERVE_HOSTBIN_ENV = "RANKLIB_TPU_SERVE_HOSTBIN"
+SERVE_CHUNK_ENV = "RANKLIB_TPU_SERVE_CHUNK_MB"
 
 
 class Tree:
@@ -90,7 +98,8 @@ class TreeEnsemble:
     # chunk.
     _KERNEL_CHUNK = 1 << 20
     _EVAL_CHUNK = 1 << 14
-    # Bytes of host-binned ids per upload in the host-binned route.
+    # Bytes of host-binned ids per upload in the host-binned route, unless
+    # RANKLIB_TPU_SERVE_CHUNK_MB says otherwise.
     _SERVE_CHUNK_BYTES = 8 << 20
 
     def __init__(self):
@@ -490,26 +499,47 @@ class TreeEnsemble:
         ``device``: the host-binned route when the bin-space kernels take
         the model, else the device route of :meth:`serving_route` on
         uploaded features. ``RANKLIB_TPU_SERVE_SPLIT=1`` wins over the
-        host-binned route (ref :468-475), so the split route is what runs."""
+        host-binned route (ref :468-475), so the split route is what runs;
+        ``RANKLIB_TPU_SERVE_HOSTBIN=0`` turns the host-binned route off
+        (ref :471), and the ``"bins"`` route bins uploaded f32 chunks on
+        the device. The routes' scores are bit-equal."""
         feats = np.asarray(feats, np.float32)
         N, F = feats.shape
         if not self.trees or N == 0:
             return np.zeros(N, np.float32)
-        if self.serving_route(F, device.type)[0] == "bins":
+        if (self.serving_route(F, device.type)[0] == "bins"
+                and os.environ.get(SERVE_HOSTBIN_ENV, "1") != "0"):
             return self._eval_matrix_hostbin(feats, device)
         fn, C = self._device_eval_fn(F, device)
         parts = [fn(torch.from_numpy(np.ascontiguousarray(feats[lo:lo + C]))
                     .to(device)) for lo in range(0, N, C)]
         return torch.cat(parts).cpu().numpy()
 
+    def serve_chunk_bytes(self) -> int:
+        """Bytes of ids a chunk of the host-binned route:
+        ``RANKLIB_TPU_SERVE_CHUNK_MB`` MiB, read as the reference reads it
+        (ref :566-573: a value that is not a number, or is not above 0,
+        reads as the default), else ``_SERVE_CHUNK_BYTES``. In the
+        reference the budget sizes a pipelined bin/upload overlap; this
+        loop overlaps nothing, so here it only sizes the host memory a
+        chunk takes."""
+        try:
+            mb = float(os.environ.get(SERVE_CHUNK_ENV, "nan"))
+        except ValueError:
+            mb = float("nan")
+        if not (math.isfinite(mb) and mb > 0):
+            return self._SERVE_CHUNK_BYTES
+        return max(1, int(mb * (1 << 20)))
+
     def _eval_matrix_hostbin(self, feats: np.ndarray,
                              device: torch.device) -> np.ndarray:
         """Host-binned serving (ref ``_eval_matrix_hostbin``, :499) as a
-        plain loop over chunks of ~_SERVE_CHUNK_BYTES of ids: bin against
-        the model grid on the host (native binner: ``#{grid < x}``, clamped
-        to n_grid, NaN → n_grid, narrowed and transposed in one pass; numpy
-        fallback), upload the uint8 ids (int16 when n_grid == 256, whose
-        ids reach 256), score with :func:`forest_eval_frombins`."""
+        plain loop over chunks of :meth:`serve_chunk_bytes` of ids: bin
+        against the model grid on the host (native binner: ``#{grid <
+        x}``, clamped to n_grid, NaN → n_grid, narrowed and transposed in
+        one pass; numpy fallback), upload the uint8 ids (int16 when n_grid
+        == 256, whose ids reach 256), score with
+        :func:`forest_eval_frombins`."""
         from ranklib_tpu_torch.gbdt.binning import bin_features
         from ranklib_tpu_torch.native.loader import (
             native_bin_features_transposed,
@@ -520,7 +550,7 @@ class TreeEnsemble:
         grid = self._model_grid_np(F)
         n_grid = pack.n_grid
         dt = np.uint8 if n_grid < 256 else np.int16
-        C = max(1, self._SERVE_CHUNK_BYTES // (F * np.dtype(dt).itemsize))
+        C = max(1, self.serve_chunk_bytes() // (F * np.dtype(dt).itemsize))
         parts = []
         for lo in range(0, N, C):
             chunk = feats[lo:lo + C]

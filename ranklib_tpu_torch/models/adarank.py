@@ -319,11 +319,12 @@ class AdaRank(Ranker):
                      scorer=scorer, n_features=train.n_features,
                      has_val=validation is not None)
 
-    def dp_job(self, train: Dataset, scorer: MetricScorer, validation=None):
-        """The ``parallel.dp.ShardJob`` of this fit under ``-dp``."""
+    def dp_job(self, mesh, train: Dataset, scorer: MetricScorer,
+               validation=None):
+        """The ``parallel.dp.ShardJob`` of this fit on ``mesh``."""
         from ranklib_tpu_torch.parallel.dp import make_job
 
-        return make_job(self, train, scorer, validation)
+        return make_job(self, mesh, train, scorer, validation)
 
     def fit_shard(self, rank: int, device, group, train: Dataset,
                   scorer: MetricScorer, validation=None) -> None:

@@ -17,6 +17,7 @@ static fields; neither package keeps that global state).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ranklib_tpu_torch.data.dataset import Dataset
@@ -80,6 +81,22 @@ class Ranker:
     def eval_dataset(self, ds: Dataset, device: torch.device) -> list:
         """Per-query score arrays (list aligned with ds.queries)."""
         raise NotImplementedError
+
+    def rank_dataset(self, ds: Dataset, device: torch.device) -> list:
+        """Per-query permutations sorting the documents by score,
+        descending and stable (ref ``rank_dataset``, base.py:93; the
+        reference's Ranker.rank sorts with a merge sort)."""
+        return [np.argsort(-np.asarray(s), kind="stable")
+                for s in self.eval_dataset(ds, device)]
+
+    def score_metric(self, ds: Dataset, scorer,
+                     device: torch.device) -> float:
+        """The macro-averaged metric of this model's scores of ``ds``
+        (ref ``score_metric``, base.py:100), computed on ``device``."""
+        from ranklib_tpu_torch.metrics.base import score_dataset
+
+        return score_dataset(scorer, ds, self.eval_dataset(ds, device),
+                             device)[0]
 
     def model_str(self) -> str:
         """Text model body, RankLib-interoperable."""

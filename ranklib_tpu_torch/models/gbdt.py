@@ -210,14 +210,25 @@ class LambdaMART(Ranker):
 
     def _fit_distributed(self, train: Dataset, scorer, validation, device,
                          mesh, feature_mask=None, profile_dir=None) -> None:
-        """``-dp`` (ref ``_fit_distributed``, :307-386): the grid and the
-        bins come from the whole training set, here; the ranks
-        (:func:`_fit_rank`) map the bin matrices from shared memory,
-        take their shards and run the round loop; rank 0 prints, writes
-        the checkpoints and the events. Every rank must end with the same
-        model; ``rank_launches`` keeps each rank's kernel launches."""
+        """``-dp`` (ref ``_fit_distributed``, :307-386): the ranks
+        (:func:`_fit_rank` of :meth:`rank_args`) take their shards and
+        run the round loop; rank 0 prints (a joined process prints its
+        own), writes the checkpoints and the events; :meth:`take_ranks`
+        keeps the result."""
         from ranklib_tpu_torch.parallel.dist import run
 
+        self.take_ranks(run(mesh, _fit_rank,
+                            *self.rank_args(train, scorer, validation,
+                                            device, mesh, feature_mask),
+                            profile_dir=profile_dir))
+
+    def rank_args(self, train: Dataset, scorer, validation, device, mesh,
+                  feature_mask=None) -> tuple:
+        """The arguments of :func:`_fit_rank` after its first three: the
+        grid and the bins of the whole training set, made here (in every
+        process of a joined mesh) and handed to the ranks of ``mesh``
+        (shared memory, or a joined rank's own), and a warm start's
+        scores."""
         feats, _, _, thresholds, binned, _, _ = flatten_binned(
             train, self.n_threshold)
         if binned is None:
@@ -233,10 +244,14 @@ class LambdaMART(Ranker):
         log(f"Training starts... [data-parallel over {mesh.size} devices]")
         worker = copy.copy(self)
         worker.fit_state = worker.feature_impacts = None
-        out = run(mesh, _fit_rank, worker, labels_only(train),
-                  shared(binned), thresholds, labels_only(validation),
-                  shared(vbinned), feature_mask, scorer, init, vinit,
-                  profile_dir=profile_dir)
+        return (worker, labels_only(train), shared(binned, mesh), thresholds,
+                labels_only(validation), shared(vbinned, mesh), feature_mask,
+                scorer, init, vinit)
+
+    def take_ranks(self, out: list) -> None:
+        """Every rank's :func:`_fit_rank` result: the models must be
+        equal; rank 0's is kept, with each rank's launch counts in
+        ``rank_launches``."""
         check_same_models([ens for ens, _, _ in out])
         self.ensemble, self.feature_impacts, _ = out[0]
         self.rank_launches = [c for _, _, c in out]
@@ -323,12 +338,14 @@ class MART(LambdaMART):
 def _fit_rank(rank, device, group, ranker, train, binned, thresholds,
               validation, vbinned, feature_mask, scorer, init, vinit):
     """A ``-dp`` rank of :meth:`LambdaMART._fit_distributed`: (its model,
-    its feature impacts, its :func:`launch_counts`)."""
+    its feature impacts, its :func:`launch_counts` over the fit)."""
+    before = launch_counts()
     ranker.fit_shard(rank, device, group, train, binned.numpy(), thresholds,
                      scorer, validation,
                      None if vbinned is None else vbinned.numpy(),
                      feature_mask, init, vinit)
-    return ranker.ensemble, ranker.feature_impacts, launch_counts()
+    return (ranker.ensemble, ranker.feature_impacts,
+            launches_since(before))
 
 
 def launch_counts() -> dict:
@@ -346,6 +363,12 @@ def launch_counts() -> dict:
             "forest_eval_frombins": forest_eval_frombins.launches}
 
 
+def launches_since(before: dict) -> dict:
+    """This process's :func:`launch_counts` since ``before`` (a joined
+    process runs several fits)."""
+    return {k: v - before[k] for k, v in launch_counts().items()}
+
+
 def labels_only(ds: Dataset | None) -> Dataset | None:
     """``ds`` without its feature values (what a ``-dp`` rank is sent:
     its bins travel in shared memory)."""
@@ -355,12 +378,14 @@ def labels_only(ds: Dataset | None) -> Dataset | None:
                    ds.n_features)
 
 
-def shared(a: np.ndarray | None) -> torch.Tensor | None:
-    """A host array as a tensor in shared memory: the ``-dp`` ranks map
-    it, none copies it."""
+def shared(a: np.ndarray | None, mesh) -> torch.Tensor | None:
+    """A host array for the ranks of ``mesh``: in shared memory, which
+    spawned ranks map and none copies; a joined process's own array as it
+    is (its ranks are itself)."""
     if a is None:
         return None
-    return torch.from_numpy(np.ascontiguousarray(a)).share_memory_()
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t if mesh.joined else t.share_memory_()
 
 
 def check_same_models(ensembles) -> None:

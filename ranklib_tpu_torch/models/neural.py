@@ -466,12 +466,14 @@ class RankNet(Ranker):
                      F, validation is not None,
                      dp_ignored=mesh is not None and sparse)
 
-    def dp_job(self, train: Dataset, scorer: MetricScorer, validation=None):
-        """The ``parallel.dp.ShardJob`` of this fit under ``-dp``, with the
-        initial draws made here."""
+    def dp_job(self, mesh, train: Dataset, scorer: MetricScorer,
+               validation=None):
+        """The ``parallel.dp.ShardJob`` of this fit on ``mesh``, with the
+        initial draws made here (in every process of a joined mesh, from
+        the same seed)."""
         from ranklib_tpu_torch.parallel.dp import make_job
 
-        return make_job(self, train, scorer, validation, init=[
+        return make_job(self, mesh, train, scorer, validation, init=[
             (np.asarray(W, np.float32), np.asarray(b, np.float32))
             for W, b in self.initial_params(train.n_features)])
 

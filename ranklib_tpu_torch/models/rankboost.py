@@ -392,10 +392,12 @@ class RankBoost(Ranker):
                                                    device)
         self._rounds(step, state, data, grid, scorer, validation is not None)
 
-    def dp_job(self, train: Dataset, scorer: MetricScorer, validation=None):
-        """The ``parallel.dp.ShardJob`` of this fit under ``-dp``: the grid
+    def dp_job(self, mesh, train: Dataset, scorer: MetricScorer,
+               validation=None):
+        """The ``parallel.dp.ShardJob`` of this fit on ``mesh``: the grid
         and every document's ids (training and validation) from the whole
-        sets, the ids in shared memory; no feature values."""
+        sets, the ids in shared memory for spawned ranks; no feature
+        values."""
         from ranklib_tpu_torch.models.gbdt import shared
         from ranklib_tpu_torch.parallel.dp import make_job
 
@@ -403,9 +405,10 @@ class RankBoost(Ranker):
         grid, binned = host_bins(train, T)
         vbinned = (host_bins(validation, T, grid)[1]
                    if validation is not None else None)
-        return make_job(self, train, scorer, validation, features=False,
-                        grid=grid, uniq=label_levels(train),
-                        binned=shared(binned), vbinned=shared(vbinned))
+        return make_job(self, mesh, train, scorer, validation,
+                        features=False, grid=grid, uniq=label_levels(train),
+                        binned=shared(binned, mesh),
+                        vbinned=shared(vbinned, mesh))
 
     def fit_shard(self, rank: int, device, group, train: Dataset,
                   scorer: MetricScorer, validation, grid, uniq, binned,

@@ -57,7 +57,7 @@ from ranklib_tpu_torch.models.base import (
 from ranklib_tpu_torch.models.gbdt import (
     MART, LambdaMART, _eval_binned, _export, _export_tree,
     check_same_models, eval_ensemble_dataset, flatten_binned, labels_only,
-    launch_counts, pad_binned, shared,
+    launch_counts, launches_since, pad_binned, shared,
 )
 from ranklib_tpu_torch.utils.errors import RankLibError
 from ranklib_tpu_torch.utils.logging import is_silent, log, set_silent
@@ -278,7 +278,8 @@ class RFRanker(Ranker):
             train, self.n_threshold)
         if binned is None:
             binned = bin_features(feats, thresholds)
-        out = run(mesh, _bags_rank, self, labels_only(train), shared(binned),
+        out = run(mesh, _bags_rank, self, labels_only(train),
+                  shared(binned, mesh),
                   thresholds, feature_mask, scorer, profile_dir=profile_dir)
         for bag in range(self.n_bags):
             check_same_models([ens[bag] for ens, _ in out])
@@ -332,7 +333,8 @@ def _bags_rank(rank, device, group, rf: RFRanker, train: Dataset, binned,
     draws, in the reference's order, then the bag's data-parallel fit on
     this rank's share of its queries (their rows of the full ``binned``);
     rank 0 logs each bag's train metric. Returns (the bags' ensembles,
-    the rank's :func:`launch_counts`)."""
+    the rank's :func:`launch_counts` over the fit)."""
+    before = launch_counts()
     binned = binned.numpy()
     F = binned.shape[1]
     qptr = flatten_meta(train)[1]
@@ -357,7 +359,7 @@ def _bags_rank(rank, device, group, rf: RFRanker, train: Dataset, binned,
             m = _bag_train_metric(ranker.ensemble, sampled, qidx, qptr,
                                   binned, thresholds, scorer, device)
             log(f"bag {bag + 1:<5}| {scorer.name}-bag: {m:.4f}")
-    return ensembles, launch_counts()
+    return ensembles, launches_since(before)
 
 
 def parse_ensembles(text: str) -> list[TreeEnsemble]:

@@ -49,9 +49,11 @@ def train_ranker(ranker_type, train: Dataset, scorer: MetricScorer,
     (``-feature`` on the streamed ``-sparse`` path, a tree ranker's)
     reaches the fit as a split mask: for trees exactly the dense
     pipeline's column zeroing. ``n_dp > 1``: data-parallel over that many
-    devices (``parallel.dist.make_mesh``) for every ranker whose ``fit``
-    takes a ``mesh``; Linear Regression has none and logs the reference's
-    line. ``profile_dir``: the fit runs inside :func:`profiled`."""
+    devices (``parallel.dist.make_mesh``; in a process that joined a group,
+    over its processes) for every ranker whose ``fit`` takes a ``mesh``;
+    Linear Regression has none and logs the reference's line.
+    ``profile_dir``: the fit runs inside :func:`profiled` (a joined
+    process's trace is named after its rank)."""
     hparams = dict(hparams or {})
     resume = hparams.pop("_resume_from", None)
     ranker = get_ranker_class(ranker_type)(**hparams)
@@ -66,16 +68,21 @@ def train_ranker(ranker_type, train: Dataset, scorer: MetricScorer,
                 f"(got {ranker.NAME})")
         ranker.ensemble = loaded.ensemble      # warm start (tree rankers)
     kwargs = {} if feature_mask is None else {"feature_mask": feature_mask}
+    worker = None
     if n_dp and n_dp > 1:
         if "mesh" in inspect.signature(ranker.fit).parameters:
             from ranklib_tpu_torch.parallel.dist import make_mesh
 
-            kwargs.update(mesh=make_mesh(n_dp, device),
-                          profile_dir=profile_dir)
+            mesh = make_mesh(n_dp, device)
+            if mesh.joined:
+                # this process is a rank: the trace below is its trace
+                worker = f"rank{torch.distributed.get_rank()}"
+            kwargs.update(mesh=mesh,
+                          profile_dir=None if mesh.joined else profile_dir)
         else:
             log(f"({ranker.NAME} has no data-parallel path; -dp ignored)")
     t0 = time.perf_counter()
-    with (profiled(profile_dir, device) if profile_dir
+    with (profiled(profile_dir, device, worker) if profile_dir
           else contextlib.nullcontext()):
         ranker.fit(train, scorer, validation, device=device, **kwargs)
         if device.type == "cuda":

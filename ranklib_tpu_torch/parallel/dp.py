@@ -205,17 +205,32 @@ class SharedData:
                           **a, **self.csr)
 
 
+@dataclass
+class OwnData:
+    """A dataset as a joined process hands it to its own rank: itself
+    (every process read the whole file, as every JAX process holds the
+    whole array the reference's ``_place`` slices)."""
+
+    ds: Dataset
+
+    def open(self) -> Dataset:
+        return self.ds
+
+
 _CSR_ARRAYS = ("indptr", "fids", "vals", "qrow", "ns_indptr", "ns_fids",
                "ns_a", "ns_b")
 
 
-def share(ds: Dataset | None, features: bool = True) -> SharedData | None:
-    """``ds`` for the ``-dp`` ranks (:class:`SharedData`): a dense
-    dataset's features flattened to one ``[N, F]`` f32 array, a CSR
-    dataset's arrays as they are; without ``features``, its labels and
-    queries only."""
+def share(ds: Dataset | None, mesh, features: bool = True):
+    """``ds`` for the ranks of ``mesh``: spawned ranks get a
+    :class:`SharedData` (a dense dataset's features flattened to one
+    ``[N, F]`` f32 array, a CSR dataset's arrays as they are; without
+    ``features``, its labels and queries only); a joined process's rank,
+    :class:`OwnData`, no copy."""
     if ds is None:
         return None
+    if mesh.joined:
+        return OwnData(ds)
     from ranklib_tpu_torch.models.gbdt import shared
 
     queries = [Query(q.qid, q.labels, None) for q in ds.queries]
@@ -227,8 +242,9 @@ def share(ds: Dataset | None, features: bool = True) -> SharedData | None:
         for q in ds.queries:
             feats[pos: pos + q.n] = q.feats
             pos += q.n
-        return SharedData(queries, ds.n_features, {"feats": shared(feats)})
-    arrays = {k: shared(getattr(ds, k)) for k in _CSR_ARRAYS
+        return SharedData(queries, ds.n_features,
+                          {"feats": shared(feats, mesh)})
+    arrays = {k: shared(getattr(ds, k), mesh) for k in _CSR_ARRAYS
               if getattr(ds, k) is not None}
     return SharedData(queries, ds.n_features, arrays,
                       {"norm_kind": ds.norm_kind, "ns_width": ds.ns_width})
@@ -248,16 +264,15 @@ class ShardJob:
     extra: dict | None = None
 
     def __call__(self, rank: int, device, group):
-        from ranklib_tpu_torch.models.gbdt import launch_counts
+        from ranklib_tpu_torch.models.gbdt import launch_counts, launches_since
 
         before = launch_counts()
         self.ranker.fit_shard(
             rank, device, group, self.train.open(), self.scorer,
             self.validation.open() if self.validation is not None else None,
             **(self.extra or {}))
-        after = launch_counts()
         self.ranker.fit_state = None       # device tensors stay here
-        return self.ranker, {k: after[k] - before[k] for k in after}
+        return self.ranker, launches_since(before)
 
 
 def run_jobs(rank: int, device, group, jobs) -> list:
@@ -284,28 +299,28 @@ def take_rank0(ranker, results) -> None:
     ranker.rank_launches = [c for _, c in results]
 
 
-def make_job(ranker, train: Dataset, scorer, validation=None,
+def make_job(ranker, mesh, train: Dataset, scorer, validation=None,
              features: bool = True, **extra) -> ShardJob:
     """A :class:`ShardJob` of a copy of ``ranker`` (its hyperparameters,
-    no fitted state) on ``train`` and ``validation`` (:func:`share`d, with
-    or without their ``features``); ``extra``: the rest of ``fit_shard``'s
-    arguments."""
+    no fitted state) on ``train`` and ``validation`` (:func:`share`d for
+    ``mesh``, with or without their ``features``); ``extra``: the rest of
+    ``fit_shard``'s arguments."""
     worker = copy.copy(ranker)
     worker.rank_launches = None
     if hasattr(worker, "fit_state"):
         worker.fit_state = None          # an earlier fit's device tensors
-    return ShardJob(worker, share(train, features), scorer,
-                    share(validation, features), extra or None)
+    return ShardJob(worker, share(train, mesh, features), scorer,
+                    share(validation, mesh, features), extra or None)
 
 
 def fit_many(mesh, fits, profile_dir: str | None = None) -> None:
-    """``-dp`` fits in one spawned mesh (the ranks start once; each rank's
+    """``-dp`` fits in one mesh (spawned ranks start once; each rank's
     trace in ``profile_dir``): ``fits`` are ``(ranker, train, scorer,
     validation)``, run one after another on the same group; each ranker
     ends with rank 0's model."""
     from ranklib_tpu_torch.parallel.dist import run
 
-    jobs = [r.dp_job(t, s, v) for r, t, s, v in fits]
+    jobs = [r.dp_job(mesh, t, s, v) for r, t, s, v in fits]
     out = run(mesh, run_jobs, jobs, profile_dir=profile_dir)
     for i, (ranker, *_) in enumerate(fits):
         take_rank0(ranker, [o[i] for o in out])
