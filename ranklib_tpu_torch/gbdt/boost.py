@@ -29,6 +29,7 @@ from ranklib_tpu_torch.ops.lambda_kernel import (
     RoundLambdas, chunk_lambdas, lambda_round, round_lambda_data,
     supports_fused,
 )
+from ranklib_tpu_torch.utils.trace import span
 
 
 def round_capacity(n_trees: int) -> int:
@@ -47,8 +48,11 @@ def run_silent_rounds(step, state, n_rounds: int, *data, block: int = 50):
     dispatching rounds that can no longer change the model."""
     for t in range(n_rounds):
         state = step(state, t, *data)
-        if (t + 1) % block == 0 and not bool(state.active):
-            break
+        if (t + 1) % block == 0:
+            with span("host_read"):
+                active = bool(state.active)
+            if not active:
+                break
     return state
 
 
@@ -101,41 +105,48 @@ def make_boost_data(train: Dataset, binned_pad: np.ndarray,
     when given and separable, the per-chunk swap scales are computed here,
     once per fit, and under the fused route its per-query factors."""
     Npad, F = binned_pad.shape
-    tb_host = _host_buckets(train, n_real)
-    tb = _upload(tb_host, device)
-    vb, Nvpad = [], 0
-    if validation is not None:
-        Nvpad = vbinned.shape[0]
-        vb = _upload(_host_buckets(validation, Nvpad), device)
-    tb_scale = []
-    if scorer is not None and scorer.metric in SEPARABLE_METRICS:
-        tb_scale = [chunk_scale(scorer, lab, msk) for lab, msk, _ in tb]
-    # inverse of the chunk layout: position of doc d inside
-    # concat(chunk didx.flatten()); pad docs and chunk pad slots resolve to
-    # the zero tail slot the round appends. Chunks partition the docs, so
-    # one gather replaces a scatter-add per chunk. A -dp rank that holds
-    # no query has no chunk: all its docs are pads.
-    didx_flat = np.concatenate([d.reshape(-1) for _, _, d in tb_host]
-                               + [np.zeros(0, np.int64)])
-    inv = np.full(Npad + 1, len(didx_flat), np.int64)
-    real = didx_flat < n_real
-    inv[didx_flat[real]] = np.flatnonzero(real)
+    Nvpad = 0 if validation is None else vbinned.shape[0]
     mask = (np.ones(F, bool) if feature_mask is None
             else np.asarray(feature_mask, bool))
-    labels_flat = torch.from_numpy(labels_pad).to(device)
-    tb_inv = torch.from_numpy(inv[:Npad]).to(device)
-    fused = None
-    if scorer is not None and supports_fused(scorer):
-        fused = round_lambda_data(scorer, labels_flat, flatten_meta(train)[1],
-                                  tb_host, tb, tb_inv, device)
+    with span("prepare.upload"):
+        labels_flat = torch.from_numpy(labels_pad).to(device)
+        binned_T = upload_bins(np.ascontiguousarray(binned_pad.T), device)
+        doc_mask = torch.from_numpy(np.arange(Npad) < n_real).to(device)
+        feat_mask = torch.from_numpy(mask).to(device)
+        vbinned_dev = (upload_bins(vbinned, device) if vbinned is not None
+                       else None)
+    with span("prepare.buckets"):
+        tb_host = _host_buckets(train, n_real)
+        tb = _upload(tb_host, device)
+        vb = ([] if validation is None
+              else _upload(_host_buckets(validation, Nvpad), device))
+        tb_scale = []
+        if scorer is not None and scorer.metric in SEPARABLE_METRICS:
+            tb_scale = [chunk_scale(scorer, lab, msk) for lab, msk, _ in tb]
+        # inverse of the chunk layout: position of doc d inside
+        # concat(chunk didx.flatten()); pad docs and chunk pad slots
+        # resolve to the zero tail slot the round appends. Chunks
+        # partition the docs, so one gather replaces a scatter-add per
+        # chunk. A -dp rank that holds no query has no chunk: all its
+        # docs are pads.
+        didx_flat = np.concatenate([d.reshape(-1) for _, _, d in tb_host]
+                                   + [np.zeros(0, np.int64)])
+        inv = np.full(Npad + 1, len(didx_flat), np.int64)
+        real = didx_flat < n_real
+        inv[didx_flat[real]] = np.flatnonzero(real)
+        tb_inv = torch.from_numpy(inv[:Npad]).to(device)
+        fused = None
+        if scorer is not None and supports_fused(scorer):
+            fused = round_lambda_data(scorer, labels_flat,
+                                      flatten_meta(train)[1], tb_host, tb,
+                                      tb_inv, device)
     return BoostData(
-        binned_T=upload_bins(np.ascontiguousarray(binned_pad.T), device),
+        binned_T=binned_T,
         labels_flat=labels_flat,
-        doc_mask=torch.from_numpy(np.arange(Npad) < n_real).to(device),
-        feat_mask=torch.from_numpy(mask).to(device),
+        doc_mask=doc_mask,
+        feat_mask=feat_mask,
         tb=tb,
-        vbinned=(upload_bins(vbinned, device) if vbinned is not None
-                 else None),
+        vbinned=vbinned_dev,
         vb=vb,
         tb_scale=tb_scale,
         tb_inv=tb_inv,
@@ -221,60 +232,75 @@ def make_round_step(scorer, *, n_bins: int, n_leaves: int,
     lam_fn = lambda_fn(scorer)
 
     def step(state: BoostState, t: int, data: BoostData) -> BoostState:
+        with span("step"):
+            return _round(state, t, data)
+
+    def _round(state: BoostState, t: int, data: BoostData) -> BoostState:
         scores = state.scores
 
         # ---- pseudo-responses ------------------------------------------
-        if pointwise:
-            lam = torch.where(data.doc_mask > 0,
-                              data.labels_flat - scores[:-1], 0.0)
-            w = torch.ones_like(lam)
-        elif data.fused is not None:
-            lam, w = lambda_round(data.fused, scores)
-        else:
-            lam, w = chunk_lambdas(lam_fn, data.tb,
-                                   data.tb_scale or [None] * len(data.tb),
-                                   scores, data.tb_inv)
+        with span("round.lambdas"):
+            if pointwise:
+                lam = torch.where(data.doc_mask > 0,
+                                  data.labels_flat - scores[:-1], 0.0)
+                w = torch.ones_like(lam)
+            elif data.fused is not None:
+                lam, w = lambda_round(data.fused, scores)
+            else:
+                lam, w = chunk_lambdas(lam_fn, data.tb,
+                                       data.tb_scale or [None] * len(data.tb),
+                                       scores, data.tb_inv)
 
         # ---- tree -------------------------------------------------------
-        arr = grow_tree(data.binned_T, lam, n_bins=n_bins, n_leaves=n_leaves,
-                        min_leaf_support=min_leaf_support,
-                        doc_mask=data.doc_mask, feature_mask=data.feat_mask,
-                        group=group)
-        out = leaf_outputs(arr.node_of_doc, lam, w, M, newton,
-                           doc_mask=data.doc_mask, group=group)
-        scores[:-1] += lr * out.index_select(0, arr.node_of_doc)
+        with span("round.grow"):
+            arr = grow_tree(data.binned_T, lam, n_bins=n_bins,
+                            n_leaves=n_leaves,
+                            min_leaf_support=min_leaf_support,
+                            doc_mask=data.doc_mask,
+                            feature_mask=data.feat_mask, group=group)
+        with span("round.leaf_outputs"):
+            out = leaf_outputs(arr.node_of_doc, lam, w, M, newton,
+                               doc_mask=data.doc_mask, group=group)
+        with span("round.score_update"):
+            scores[:-1] += lr * out.index_select(0, arr.node_of_doc)
 
         # ---- metrics ----------------------------------------------------
         if train_metric:
-            state.train_m[t] = (_bucket_metric_sum(scorer, data.tb, scores,
-                                                   group) / n_queries)
+            with span("round.train_metric"):
+                state.train_m[t] = (_bucket_metric_sum(scorer, data.tb,
+                                                       scores, group)
+                                    / n_queries)
         # with validation: a -dp rank whose shard drew no validation query
         # still takes part in the sum
         if data.vbinned is not None:
-            Nv = data.vbinned.shape[0]
-            node = torch.zeros(Nv, dtype=torch.int64, device=scores.device)
-            for _ in range(n_leaves):        # max depth of a leaf-wise tree
-                # leaf slots carry feature −1: clamp so the gather stays
-                # in range (the where below keeps leaves where they are)
-                f = arr.feature[node].clamp(min=0).long()
-                vbin = data.vbinned.gather(1, f[:, None])[:, 0]
-                nxt = torch.where(vbin.to(torch.int32) <= arr.bin[node],
-                                  arr.left[node], arr.right[node]).long()
-                node = torch.where(arr.is_leaf[node], node, nxt)
-            state.vscores[:-1] += lr * out[node]
-            state.val_m[t] = (_bucket_metric_sum(scorer, data.vb,
-                                                 state.vscores, group)
-                              / n_vqueries)
+            with span("round.validate"):
+                Nv = data.vbinned.shape[0]
+                node = torch.zeros(Nv, dtype=torch.int64,
+                                   device=scores.device)
+                for _ in range(n_leaves):    # max depth of a leaf-wise tree
+                    # leaf slots carry feature −1: clamp so the gather
+                    # stays in range (the where below keeps leaves where
+                    # they are)
+                    f = arr.feature[node].clamp(min=0).long()
+                    vbin = data.vbinned.gather(1, f[:, None])[:, 0]
+                    nxt = torch.where(vbin.to(torch.int32) <= arr.bin[node],
+                                      arr.left[node], arr.right[node]).long()
+                    node = torch.where(arr.is_leaf[node], node, nxt)
+                state.vscores[:-1] += lr * out[node]
+                state.val_m[t] = (_bucket_metric_sum(scorer, data.vb,
+                                                     state.vscores, group)
+                                  / n_vqueries)
 
         # ---- record the tree --------------------------------------------
-        state.tfeat[t] = arr.feature
-        state.tbin[t] = arr.bin
-        state.tleft[t] = arr.left
-        state.tright[t] = arr.right
-        state.tleaf[t] = arr.is_leaf
-        state.tout[t] = out
-        state.tnodes[t] = arr.n_nodes
-        state.impacts += arr.impacts
+        with span("round.record"):
+            state.tfeat[t] = arr.feature
+            state.tbin[t] = arr.bin
+            state.tleft[t] = arr.left
+            state.tright[t] = arr.right
+            state.tleaf[t] = arr.is_leaf
+            state.tout[t] = out
+            state.tnodes[t] = arr.n_nodes
+            state.impacts += arr.impacts
         return state
 
     return step

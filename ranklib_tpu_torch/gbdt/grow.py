@@ -40,13 +40,15 @@ import torch
 
 from ranklib_tpu_torch.ops.histogram import histogram, histogram_multi
 from ranklib_tpu_torch.ops.split_scan import best_splits
+from ranklib_tpu_torch.utils.trace import span
 
 
 def sum_across(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` summed over ``group``'s ranks (the reference's ``psum``), or
     ``x`` itself without a group."""
     if group is not None:
-        torch.distributed.all_reduce(x, group=group)
+        with span("all_reduce"):
+            torch.distributed.all_reduce(x, group=group)
     return x
 
 
@@ -95,101 +97,103 @@ def grow_tree(binned_T: torch.Tensor, grad: torch.Tensor, n_bins: int,
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
 
-    dw = (torch.ones(N, **f32) if doc_mask is None
-          else doc_mask.to(torch.float32))
-    root_hist = sum_across(histogram(binned_T, grad, dw, B), group)
-    S0 = root_hist[0, :, 0].sum()          # feature 0 bins every doc once
-    SQ0 = sum_across((dw * grad * grad).sum(), group)
-    C0 = root_hist[0, :, 1].sum()
-    g0, f0, b0, ok0 = best_splits(
-        root_hist[None], mls,
-        None if feature_mask is None else feature_mask[None])
+    with span("grow.root"):
+        dw = (torch.ones(N, **f32) if doc_mask is None
+              else doc_mask.to(torch.float32))
+        root_hist = sum_across(histogram(binned_T, grad, dw, B), group)
+        S0 = root_hist[0, :, 0].sum()          # feature 0 bins every doc once
+        SQ0 = sum_across((dw * grad * grad).sum(), group)
+        C0 = root_hist[0, :, 1].sum()
+        g0, f0, b0, ok0 = best_splits(
+            root_hist[None], mls,
+            None if feature_mask is None else feature_mask[None])
 
-    # no Python scalar is written into a device tensor below: that
-    # setitem copies from the host and waits for the device
-    root = torch.arange(M, device=dev) == 0
-    hist = torch.zeros((M, F, B, 2), **f32)
-    hist[0] = root_hist
-    stats = torch.zeros((M, 3), **f32)
-    stats[0] = torch.stack([S0, SQ0, C0])
-    deviance = torch.where(root, torch.inf, -torch.inf)
-    best_gain = torch.zeros(M, **f32)
-    best_gain[0:1] = g0
-    best_f = torch.zeros(M, **i32)
-    best_f[0:1] = f0
-    best_b = torch.zeros(M, **i32)
-    best_b[0:1] = b0
-    splittable = torch.zeros(M, dtype=torch.bool, device=dev)
-    splittable[0:1] = ok0
+        # no Python scalar is written into a device tensor below: that
+        # setitem copies from the host and waits for the device
+        root = torch.arange(M, device=dev) == 0
+        hist = torch.zeros((M, F, B, 2), **f32)
+        hist[0] = root_hist
+        stats = torch.zeros((M, 3), **f32)
+        stats[0] = torch.stack([S0, SQ0, C0])
+        deviance = torch.where(root, torch.inf, -torch.inf)
+        best_gain = torch.zeros(M, **f32)
+        best_gain[0:1] = g0
+        best_f = torch.zeros(M, **i32)
+        best_f[0:1] = f0
+        best_b = torch.zeros(M, **i32)
+        best_b[0:1] = b0
+        splittable = torch.zeros(M, dtype=torch.bool, device=dev)
+        splittable[0:1] = ok0
 
-    feature = torch.full((M,), -1, **i32)
-    sbin = torch.full((M,), -1, **i32)
-    left = torch.full((M,), -1, **i32)
-    right = torch.full((M,), -1, **i32)
-    is_leaf = root.clone()
-    node_of_doc = torch.zeros(N, **i32)
-    n_nodes = torch.ones(1, **i32)
-    impacts = torch.zeros(F, **f32)
-    fm2 = None if feature_mask is None else feature_mask.expand(2, F)
-    true1 = torch.ones(1, dtype=torch.bool, device=dev)
+        feature = torch.full((M,), -1, **i32)
+        sbin = torch.full((M,), -1, **i32)
+        left = torch.full((M,), -1, **i32)
+        right = torch.full((M,), -1, **i32)
+        is_leaf = root.clone()
+        node_of_doc = torch.zeros(N, **i32)
+        n_nodes = torch.ones(1, **i32)
+        impacts = torch.zeros(F, **f32)
+        fm2 = None if feature_mask is None else feature_mask.expand(2, F)
+        true1 = torch.ones(1, dtype=torch.bool, device=dev)
 
     for k in range(n_leaves - 1):
-        build_children = k < n_leaves - 2      # the last iteration is peeled
-        cand = torch.where(is_leaf & splittable, deviance, -torch.inf)
-        leaf = torch.argmax(cand).view(1)                  # [1] int64
-        valid = cand.index_select(0, leaf) > -torch.inf     # [1] bool
-        f_s = best_f.index_select(0, leaf)
-        b_s = best_b.index_select(0, leaf)
-        st = stats.index_select(0, leaf)[0]                 # S, SQ, C
-        # feature impact: the deviance this split removes, (S_L²/c_L +
-        # S_R²/c_R) − S²/c (ref: LambdaMART impacts[])
-        parent_term = torch.where(
-            st[2] > 0, st[0] * st[0] / torch.clamp(st[2], min=1.0), 0.0)
-        impacts.index_add_(0, f_s.long(), torch.where(
-            valid, best_gain.index_select(0, leaf) - parent_term, 0.0))
-        la = n_nodes.long()
-        ra = la + 1
+        with span("grow.split"):
+            build_children = k < n_leaves - 2   # the last one is peeled
+            cand = torch.where(is_leaf & splittable, deviance, -torch.inf)
+            leaf = torch.argmax(cand).view(1)                  # [1] int64
+            valid = cand.index_select(0, leaf) > -torch.inf     # [1] bool
+            f_s = best_f.index_select(0, leaf)
+            b_s = best_b.index_select(0, leaf)
+            st = stats.index_select(0, leaf)[0]                 # S, SQ, C
+            # feature impact: the deviance this split removes, (S_L²/c_L +
+            # S_R²/c_R) − S²/c (ref: LambdaMART impacts[])
+            parent_term = torch.where(
+                st[2] > 0, st[0] * st[0] / torch.clamp(st[2], min=1.0), 0.0)
+            impacts.index_add_(0, f_s.long(), torch.where(
+                valid, best_gain.index_select(0, leaf) - parent_term, 0.0))
+            la = n_nodes.long()
+            ra = la + 1
 
-        col = binned_T.index_select(0, f_s.long())[0].to(torch.int32)
-        in_node = node_of_doc == leaf.to(torch.int32)
-        go_left = col <= b_s
-        new_assign = torch.where(in_node,
-                                 torch.where(go_left, n_nodes, n_nodes + 1),
-                                 node_of_doc)
-        node_of_doc = torch.where(valid, new_assign, node_of_doc)
+            col = binned_T.index_select(0, f_s.long())[0].to(torch.int32)
+            in_node = node_of_doc == leaf.to(torch.int32)
+            go_left = col <= b_s
+            new_assign = torch.where(
+                in_node, torch.where(go_left, n_nodes, n_nodes + 1),
+                node_of_doc)
+            node_of_doc = torch.where(valid, new_assign, node_of_doc)
 
-        if build_children:
-            w_r = dw * (in_node & ~go_left & valid)
-            hist_r = sum_across(histogram(binned_T, grad, w_r, B), group)
-            hist_l = hist.index_select(0, leaf)[0] - hist_r
-            # S_r and C_r from the child histogram itself (feature 0 bins
-            # every doc exactly once), so the scan's sums and these share
-            # their provenance; only SQ needs a pass over the docs
-            S_r = hist_r[0, :, 0].sum()
-            C_r = hist_r[0, :, 1].sum()
-            SQ_r = sum_across((w_r * grad * grad).sum(), group)
-            S_l, SQ_l, C_l = st[0] - S_r, st[1] - SQ_r, st[2] - C_r
-            g2, f2, b2, ok2 = best_splits((hist_l[None], hist_r[None]), mls,
-                                          fm2)
-            _upd(hist, la, hist_l[None], valid)
-            _upd(hist, ra, hist_r[None], valid)
-            _upd(stats, la, torch.stack([S_l, SQ_l, C_l])[None], valid)
-            _upd(stats, ra, torch.stack([S_r, SQ_r, C_r])[None], valid)
-            _upd(deviance, la, _deviance(SQ_l, S_l, C_l), valid)
-            _upd(deviance, ra, _deviance(SQ_r, S_r, C_r), valid)
-            for arr, v in ((best_gain, g2), (best_f, f2), (best_b, b2),
-                           (splittable, ok2)):
-                _upd(arr, la, v[0:1], valid)
-                _upd(arr, ra, v[1:2], valid)
+            if build_children:
+                w_r = dw * (in_node & ~go_left & valid)
+                hist_r = sum_across(histogram(binned_T, grad, w_r, B), group)
+                hist_l = hist.index_select(0, leaf)[0] - hist_r
+                # S_r and C_r from the child histogram itself (feature 0 bins
+                # every doc exactly once), so the scan's sums and these share
+                # their provenance; only SQ needs a pass over the docs
+                S_r = hist_r[0, :, 0].sum()
+                C_r = hist_r[0, :, 1].sum()
+                SQ_r = sum_across((w_r * grad * grad).sum(), group)
+                S_l, SQ_l, C_l = st[0] - S_r, st[1] - SQ_r, st[2] - C_r
+                g2, f2, b2, ok2 = best_splits(
+                    (hist_l[None], hist_r[None]), mls, fm2)
+                _upd(hist, la, hist_l[None], valid)
+                _upd(hist, ra, hist_r[None], valid)
+                _upd(stats, la, torch.stack([S_l, SQ_l, C_l])[None], valid)
+                _upd(stats, ra, torch.stack([S_r, SQ_r, C_r])[None], valid)
+                _upd(deviance, la, _deviance(SQ_l, S_l, C_l), valid)
+                _upd(deviance, ra, _deviance(SQ_r, S_r, C_r), valid)
+                for arr, v in ((best_gain, g2), (best_f, f2), (best_b, b2),
+                               (splittable, ok2)):
+                    _upd(arr, la, v[0:1], valid)
+                    _upd(arr, ra, v[1:2], valid)
 
-        _upd(feature, leaf, f_s, valid)
-        _upd(sbin, leaf, b_s, valid)
-        _upd(left, leaf, n_nodes, valid)
-        _upd(right, leaf, n_nodes + 1, valid)
-        _upd(is_leaf, leaf, ~true1, valid)
-        _upd(is_leaf, la, true1, valid)
-        _upd(is_leaf, ra, true1, valid)
-        n_nodes = n_nodes + 2 * valid.to(torch.int32)
+            _upd(feature, leaf, f_s, valid)
+            _upd(sbin, leaf, b_s, valid)
+            _upd(left, leaf, n_nodes, valid)
+            _upd(right, leaf, n_nodes + 1, valid)
+            _upd(is_leaf, leaf, ~true1, valid)
+            _upd(is_leaf, la, true1, valid)
+            _upd(is_leaf, ra, true1, valid)
+            n_nodes = n_nodes + 2 * valid.to(torch.int32)
 
     return TreeArrays(feature, sbin, left, right, is_leaf, n_nodes[0],
                       node_of_doc, impacts)
@@ -268,102 +272,108 @@ def grow_forest(binned_T: torch.Tensor, grads: torch.Tensor, n_bins: int,
     i32 = dict(dtype=torch.int32, device=dev)
     cidx = torch.arange(Cb, device=dev)
 
-    dw = (torch.ones((Cb, N), **f32) if doc_weights is None
-          else doc_weights.to(torch.float32))
-    root_hist = histogram_multi(binned_T, grads, dw, B)       # [Cb,F,B,2]
-    S0 = (dw * grads).sum(dim=1)
-    SQ0 = (dw * grads * grads).sum(dim=1)
-    C0 = dw.sum(dim=1)
-    g0, f0, b0, ok0 = best_splits(root_hist, mls, feature_masks)
+    with span("grow.root"):
+        dw = (torch.ones((Cb, N), **f32) if doc_weights is None
+              else doc_weights.to(torch.float32))
+        root_hist = histogram_multi(binned_T, grads, dw, B)       # [Cb,F,B,2]
+        S0 = (dw * grads).sum(dim=1)
+        SQ0 = (dw * grads * grads).sum(dim=1)
+        C0 = dw.sum(dim=1)
+        g0, f0, b0, ok0 = best_splits(root_hist, mls, feature_masks)
 
-    root = (torch.arange(M, device=dev) == 0).expand(Cb, M)
-    hist = torch.empty((Cb, M, F, B, 2), **f32)
-    hist[:, 0] = root_hist
-    hidx = torch.zeros((Cb, M), **i32)
-    stats = torch.zeros((Cb, M, 3), **f32)
-    stats[:, 0] = torch.stack([S0, SQ0, C0], dim=1)
-    deviance = torch.where(root, torch.inf, -torch.inf)
-    best_gain = torch.zeros((Cb, M), **f32)
-    best_gain[:, 0] = g0
-    best_f = torch.zeros((Cb, M), **i32)
-    best_f[:, 0] = f0
-    best_b = torch.zeros((Cb, M), **i32)
-    best_b[:, 0] = b0
-    splittable = torch.zeros((Cb, M), dtype=torch.bool, device=dev)
-    splittable[:, 0] = ok0
+        root = (torch.arange(M, device=dev) == 0).expand(Cb, M)
+        hist = torch.empty((Cb, M, F, B, 2), **f32)
+        hist[:, 0] = root_hist
+        hidx = torch.zeros((Cb, M), **i32)
+        stats = torch.zeros((Cb, M, 3), **f32)
+        stats[:, 0] = torch.stack([S0, SQ0, C0], dim=1)
+        deviance = torch.where(root, torch.inf, -torch.inf)
+        best_gain = torch.zeros((Cb, M), **f32)
+        best_gain[:, 0] = g0
+        best_f = torch.zeros((Cb, M), **i32)
+        best_f[:, 0] = f0
+        best_b = torch.zeros((Cb, M), **i32)
+        best_b[:, 0] = b0
+        splittable = torch.zeros((Cb, M), dtype=torch.bool, device=dev)
+        splittable[:, 0] = ok0
 
-    feature = torch.full((Cb, M), -1, **i32)
-    sbin = torch.full((Cb, M), -1, **i32)
-    left = torch.full((Cb, M), -1, **i32)
-    right = torch.full((Cb, M), -1, **i32)
-    is_leaf = root.clone()
-    node_of_doc = torch.zeros((Cb, N), **i32)
-    n_nodes = torch.ones(Cb, **i32)
-    impacts = torch.zeros((Cb, F), **f32)
-    fm2 = (None if feature_masks is None
-           else torch.cat([feature_masks, feature_masks]))
+        feature = torch.full((Cb, M), -1, **i32)
+        sbin = torch.full((Cb, M), -1, **i32)
+        left = torch.full((Cb, M), -1, **i32)
+        right = torch.full((Cb, M), -1, **i32)
+        is_leaf = root.clone()
+        node_of_doc = torch.zeros((Cb, N), **i32)
+        n_nodes = torch.ones(Cb, **i32)
+        impacts = torch.zeros((Cb, F), **f32)
+        fm2 = (None if feature_masks is None
+               else torch.cat([feature_masks, feature_masks]))
 
     for k in range(n_leaves - 1):
-        build_children = k < n_leaves - 2      # the last iteration is peeled
-        cand = torch.where(is_leaf & splittable, deviance, -torch.inf)
-        leaf = torch.argmax(cand, dim=1)                   # [Cb] int64
-        valid = _take(cand, leaf) > -torch.inf
-        f_s = _take(best_f, leaf)
-        b_s = _take(best_b, leaf)
-        pstats = stats.gather(1, leaf[:, None, None].expand(-1, 1, 3))[:, 0]
-        parent_term = torch.where(
-            pstats[:, 2] > 0,
-            pstats[:, 0] * pstats[:, 0] / torch.clamp(pstats[:, 2], min=1.0),
-            0.0)
-        # one (bag, feature) cell per bag: no two adds meet
-        impacts.view(-1).index_add_(0, cidx * F + f_s.long(), torch.where(
-            valid, _take(best_gain, leaf) - parent_term, 0.0))
-        la = n_nodes.long()
-        ra = la + 1
+        with span("grow.split"):
+            build_children = k < n_leaves - 2   # the last one is peeled
+            cand = torch.where(is_leaf & splittable, deviance, -torch.inf)
+            leaf = torch.argmax(cand, dim=1)                   # [Cb] int64
+            valid = _take(cand, leaf) > -torch.inf
+            f_s = _take(best_f, leaf)
+            b_s = _take(best_b, leaf)
+            pstats = stats.gather(
+                1, leaf[:, None, None].expand(-1, 1, 3))[:, 0]
+            parent_term = torch.where(
+                pstats[:, 2] > 0,
+                pstats[:, 0] * pstats[:, 0]
+                / torch.clamp(pstats[:, 2], min=1.0),
+                0.0)
+            # one (bag, feature) cell per bag: no two adds meet
+            impacts.view(-1).index_add_(0, cidx * F + f_s.long(), torch.where(
+                valid, _take(best_gain, leaf) - parent_term, 0.0))
+            la = n_nodes.long()
+            ra = la + 1
 
-        col = binned_T.index_select(0, f_s.long()).to(torch.int32)  # [Cb,N]
-        in_node = node_of_doc == leaf[:, None].to(torch.int32)
-        go_left = col <= b_s[:, None]
-        new_assign = torch.where(
-            in_node, torch.where(go_left, n_nodes[:, None],
-                                 n_nodes[:, None] + 1), node_of_doc)
-        node_of_doc = torch.where(valid[:, None], new_assign, node_of_doc)
+            col = binned_T.index_select(0, f_s.long()).to(
+                torch.int32)                                    # [Cb, N]
+            in_node = node_of_doc == leaf[:, None].to(torch.int32)
+            go_left = col <= b_s[:, None]
+            new_assign = torch.where(
+                in_node, torch.where(go_left, n_nodes[:, None],
+                                     n_nodes[:, None] + 1), node_of_doc)
+            node_of_doc = torch.where(valid[:, None], new_assign, node_of_doc)
 
-        if build_children:
-            # right child directly, left by subtraction (parent − sibling)
-            w_r = dw * (in_node & ~go_left & valid[:, None])
-            hist_r = histogram_multi(binned_T, grads, w_r, B)
-            hist_l = hist[cidx, _take(hidx, leaf).long()] - hist_r
-            S_r = (w_r * grads).sum(dim=1)
-            SQ_r = (w_r * grads * grads).sum(dim=1)
-            C_r = w_r.sum(dim=1)
-            S_l = pstats[:, 0] - S_r
-            SQ_l = pstats[:, 1] - SQ_r
-            C_l = pstats[:, 2] - C_r
-            g2, f2, b2, ok2 = best_splits((hist_l, hist_r), mls, fm2)
-            # unconditional row writes: a row an invalid bag never maps
-            # is never read
-            hist[:, 2 * k + 1] = hist_l
-            hist[:, 2 * k + 2] = hist_r
-            _put(hidx, la, 2 * k + 1, valid)
-            _put(hidx, ra, 2 * k + 2, valid)
-            _put(stats, la, torch.stack([S_l, SQ_l, C_l], dim=1), valid)
-            _put(stats, ra, torch.stack([S_r, SQ_r, C_r], dim=1), valid)
-            _put(deviance, la, _deviance(SQ_l, S_l, C_l), valid)
-            _put(deviance, ra, _deviance(SQ_r, S_r, C_r), valid)
-            for arr, v in ((best_gain, g2), (best_f, f2), (best_b, b2),
-                           (splittable, ok2)):
-                _put(arr, la, v[:Cb], valid)
-                _put(arr, ra, v[Cb:], valid)
+            if build_children:
+                # right child directly, left by subtraction (parent −
+                # sibling)
+                w_r = dw * (in_node & ~go_left & valid[:, None])
+                hist_r = histogram_multi(binned_T, grads, w_r, B)
+                hist_l = hist[cidx, _take(hidx, leaf).long()] - hist_r
+                S_r = (w_r * grads).sum(dim=1)
+                SQ_r = (w_r * grads * grads).sum(dim=1)
+                C_r = w_r.sum(dim=1)
+                S_l = pstats[:, 0] - S_r
+                SQ_l = pstats[:, 1] - SQ_r
+                C_l = pstats[:, 2] - C_r
+                g2, f2, b2, ok2 = best_splits((hist_l, hist_r), mls, fm2)
+                # unconditional row writes: a row an invalid bag never maps
+                # is never read
+                hist[:, 2 * k + 1] = hist_l
+                hist[:, 2 * k + 2] = hist_r
+                _put(hidx, la, 2 * k + 1, valid)
+                _put(hidx, ra, 2 * k + 2, valid)
+                _put(stats, la, torch.stack([S_l, SQ_l, C_l], dim=1), valid)
+                _put(stats, ra, torch.stack([S_r, SQ_r, C_r], dim=1), valid)
+                _put(deviance, la, _deviance(SQ_l, S_l, C_l), valid)
+                _put(deviance, ra, _deviance(SQ_r, S_r, C_r), valid)
+                for arr, v in ((best_gain, g2), (best_f, f2), (best_b, b2),
+                               (splittable, ok2)):
+                    _put(arr, la, v[:Cb], valid)
+                    _put(arr, ra, v[Cb:], valid)
 
-        _put(feature, leaf, f_s, valid)
-        _put(sbin, leaf, b_s, valid)
-        _put(left, leaf, n_nodes, valid)
-        _put(right, leaf, n_nodes + 1, valid)
-        _put(is_leaf, leaf, False, valid)
-        _put(is_leaf, la, True, valid)
-        _put(is_leaf, ra, True, valid)
-        n_nodes = n_nodes + 2 * valid.to(torch.int32)
+            _put(feature, leaf, f_s, valid)
+            _put(sbin, leaf, b_s, valid)
+            _put(left, leaf, n_nodes, valid)
+            _put(right, leaf, n_nodes + 1, valid)
+            _put(is_leaf, leaf, False, valid)
+            _put(is_leaf, la, True, valid)
+            _put(is_leaf, ra, True, valid)
+            n_nodes = n_nodes + 2 * valid.to(torch.int32)
 
     return TreeArrays(feature, sbin, left, right, is_leaf, n_nodes,
                       node_of_doc, impacts)

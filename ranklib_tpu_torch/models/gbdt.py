@@ -50,6 +50,7 @@ from ranklib_tpu_torch.models.base import (
 )
 from ranklib_tpu_torch.utils.errors import RankLibError
 from ranklib_tpu_torch.utils.logging import event, is_silent, log
+from ranklib_tpu_torch.utils.trace import span
 
 
 @register_ranker
@@ -110,11 +111,20 @@ class LambdaMART(Ranker):
         """Bin (or take the streamed bins), upload, build the round and
         seed a warm start's scores: (step, state, data, thresholds);
         ``step(state, t, data)`` runs round t."""
-        feats, labels, _, thresholds, binned_real, N, F = flatten_binned(
-            train, self.n_threshold)
-        binned, labels_pad, Npad = pad_binned(feats, binned_real, thresholds,
-                                              labels, N)
-        vfeats, vbinned = _validation_bins(validation, thresholds)
+        with span("prepare"):
+            return self._prepare_fit(train, scorer, validation, device,
+                                     feature_mask)
+
+    def _prepare_fit(self, train: Dataset, scorer, validation, device,
+                     feature_mask):
+        with span("prepare.bin"):
+            feats, labels, _, thresholds, binned_real, N, F = \
+                flatten_binned(train, self.n_threshold)
+        with span("prepare.pad"):
+            binned, labels_pad, Npad = pad_binned(feats, binned_real,
+                                                  thresholds, labels, N)
+        with span("prepare.validation_bins"):
+            vfeats, vbinned = _validation_bins(validation, thresholds)
         data, Npad, Nvpad = make_boost_data(
             train, binned, labels_pad, N, validation, vbinned, device,
             feature_mask, scorer=None if self._POINTWISE else scorer)
@@ -162,11 +172,11 @@ class LambdaMART(Ranker):
             state = step(state, t, data)
             built = t + 1
             if not silent:
-                tm = float(state.train_m[t])
+                with span("host_read"):
+                    tm = float(state.train_m[t])
+                    vm = float(state.val_m[t]) if has_val else None
                 line = f"{built:<8}| {tm:<11.4f}"
-                vm = None
                 if has_val:
-                    vm = float(state.val_m[t])
                     line += f"| {vm:<11.4f}"
                 log(line)
                 event("round", ranker=self.NAME, round=built,
@@ -175,7 +185,7 @@ class LambdaMART(Ranker):
                 self.ensemble = _export(state, built, thresholds, lr, prior)
                 self.save(self.ckpt_path)
             if has_val and self.early_stop > 0 and built % check == 0:
-                sr = _stop_round(state.val_m[:built].cpu().numpy(),
+                sr = _stop_round(_to_host(state.val_m[:built]),
                                  self.early_stop)
                 if sr is not None:
                     built, stopped = sr, True
@@ -184,7 +194,7 @@ class LambdaMART(Ranker):
                     break
         if has_val and self.early_stop > 0 and built and not stopped:
             # the last rounds may not land on the check stride
-            sr = _stop_round(state.val_m[:built].cpu().numpy(),
+            sr = _stop_round(_to_host(state.val_m[:built]),
                              self.early_stop)
             if sr is not None:
                 built = sr
@@ -194,12 +204,12 @@ class LambdaMART(Ranker):
         if has_val and built:
             # roll back to the best validation round (ref: LambdaMART
             # learn() post-loop ensemble truncation)
-            keep = int(np.nanargmax(state.val_m[:built].cpu().numpy())) + 1
+            keep = int(np.nanargmax(_to_host(state.val_m[:built]))) + 1
         self.ensemble = _export(state, keep, thresholds, lr, prior)
         self.fit_state = state
         # per-feature deviance reduction over all splits (ref: LambdaMART
         # impacts[], printed after training)
-        self.feature_impacts = state.impacts.cpu().numpy().astype(np.float64)
+        self.feature_impacts = _to_host(state.impacts).astype(np.float64)
         if not silent and self.feature_impacts.any():
             top = np.argsort(-self.feature_impacts)[:10]
             log("-- Feature impacts (top 10, deviance reduced)")
@@ -547,13 +557,20 @@ def _export_tree(feature, sbin, left, right, is_leaf, out, n_nodes,
                 output=out[:n])
 
 
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` read back to the host, inside a ``host_read`` span."""
+    with span("host_read"):
+        return t.cpu().numpy()
+
+
 def _export(state, keep: int, thresholds, weight: float,
             prior: TreeEnsemble | None = None) -> TreeEnsemble:
     """``prior``'s trees, then the first ``keep`` recorded trees, as a
     TreeEnsemble (one read of the records)."""
-    arrs = [a[:keep].cpu().numpy() for a in (
-        state.tfeat, state.tbin, state.tleft, state.tright, state.tleaf,
-        state.tout, state.tnodes)]
+    with span("host_read"):
+        arrs = [a[:keep].cpu().numpy() for a in (
+            state.tfeat, state.tbin, state.tleft, state.tright, state.tleaf,
+            state.tout, state.tnodes)]
     ens = TreeEnsemble()
     if prior is not None:
         for tree, w in zip(prior.trees, prior.weights):

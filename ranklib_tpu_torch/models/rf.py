@@ -61,6 +61,7 @@ from ranklib_tpu_torch.models.gbdt import (
 )
 from ranklib_tpu_torch.utils.errors import RankLibError
 from ranklib_tpu_torch.utils.logging import is_silent, log, set_silent
+from ranklib_tpu_torch.utils.trace import span
 
 # device memory a group of bags may take: a quarter of the card's, or this
 # much on the CPU
@@ -99,11 +100,12 @@ def group_step(scores: torch.Tensor, doc_w: torch.Tensor,
     [Cb, F] bool. Returns (scores, (feature, bin, left, right, is_leaf,
     n_nodes, out)) as device tensors; nothing is read back."""
     M = 2 * n_leaves - 1
-    lam = labels[None, :] - scores                      # MART residuals
-    arr = grow_forest(binned_T, lam, n_bins, n_leaves, 1, doc_w, fmask)
-    out = leaf_outputs_forest(arr.node_of_doc, lam, torch.ones_like(lam), M,
-                              False, doc_w)
-    scores = scores + lr * out.gather(1, arr.node_of_doc.long())
+    with span("step"):
+        lam = labels[None, :] - scores                  # MART residuals
+        arr = grow_forest(binned_T, lam, n_bins, n_leaves, 1, doc_w, fmask)
+        out = leaf_outputs_forest(arr.node_of_doc, lam, torch.ones_like(lam),
+                                  M, False, doc_w)
+        scores = scores + lr * out.gather(1, arr.node_of_doc.long())
     return scores, (arr.feature, arr.bin, arr.left, arr.right, arr.is_leaf,
                     arr.n_nodes, out)
 
@@ -175,33 +177,44 @@ class RFRanker(Ranker):
                                           feature_mask)
         rng = np.random.default_rng(self.seed)
         log("Training starts...")
-        feats, labels, qptr, thresholds, binned_real, N, F = flatten_binned(
-            train, self.n_threshold)
-        doc_counts = np.diff(qptr)
-        B = thresholds.shape[1]
-        binned, labels_pad, Npad = pad_binned(feats, binned_real, thresholds,
-                                              labels, N)
-        data, Npad, _ = make_boost_data(train, binned, labels_pad, N, None,
-                                        None, device, scorer=scorer)
-        step = make_round_step(
-            scorer, n_bins=B, n_leaves=self.n_leaves, min_leaf_support=1,
-            learning_rate=self.learning_rate, pointwise=False, newton=True,
-            n_queries=len(train.queries), n_vqueries=1, train_metric=False)
+        with span("fit.setup"):
+            with span("fit.bin"):
+                feats, labels, qptr, thresholds, binned_real, N, F = \
+                    flatten_binned(train, self.n_threshold)
+            doc_counts = np.diff(qptr)
+            B = thresholds.shape[1]
+            with span("fit.pad"):
+                binned, labels_pad, Npad = pad_binned(
+                    feats, binned_real, thresholds, labels, N)
+            with span("fit.upload"):
+                data, Npad, _ = make_boost_data(train, binned, labels_pad, N,
+                                                None, None, device,
+                                                scorer=scorer)
+            step = make_round_step(
+                scorer, n_bins=B, n_leaves=self.n_leaves, min_leaf_support=1,
+                learning_rate=self.learning_rate, pointwise=False,
+                newton=True, n_queries=len(train.queries), n_vqueries=1,
+                train_metric=False)
         self.ensembles = []
         silent = is_silent()
         for bag in range(self.n_bags):
-            sampled, qidx, mult, fmask = self._draw_bag(train, F, rng,
-                                                        feature_mask)
-            doc_w = np.zeros(Npad, np.float32)
-            doc_w[:N] = np.repeat(mult, doc_counts)
-            bag_data = dataclasses.replace(
-                data, doc_mask=torch.from_numpy(doc_w).to(device),
-                feat_mask=torch.from_numpy(fmask).to(device))
-            state = init_state(self.n_trees, self.n_leaves, Npad, 0, F,
-                               device)
-            for t in range(self.n_trees):
-                state = step(state, t, bag_data)
-            ens = _export(state, self.n_trees, thresholds, self.learning_rate)
+            with span("rf.group"):
+                with span("fit.bag_draws"):
+                    sampled, qidx, mult, fmask = self._draw_bag(
+                        train, F, rng, feature_mask)
+                with span("rf.doc_w"):
+                    doc_w = np.zeros(Npad, np.float32)
+                    doc_w[:N] = np.repeat(mult, doc_counts)
+                    bag_data = dataclasses.replace(
+                        data, doc_mask=torch.from_numpy(doc_w).to(device),
+                        feat_mask=torch.from_numpy(fmask).to(device))
+                    state = init_state(self.n_trees, self.n_leaves, Npad, 0,
+                                       F, device)
+                for t in range(self.n_trees):
+                    state = step(state, t, bag_data)
+                with span("rf.export"):
+                    ens = _export(state, self.n_trees, thresholds,
+                                  self.learning_rate)
             self.ensembles.append(ens)
             if not silent:
                 m = _bag_train_metric(ens, sampled, qidx, qptr, binned_real,
@@ -217,46 +230,65 @@ class RFRanker(Ranker):
         trees once per group."""
         rng = np.random.default_rng(self.seed)
         log("Training starts...")
-        feats, labels, qptr, thresholds, binned_real, N, F = flatten_binned(
-            train, self.n_threshold)
-        Q = len(train.queries)
-        B = thresholds.shape[1]
-        binned, labels_pad, Npad = pad_binned(feats, binned_real, thresholds,
-                                              labels, N)
-        binned_T = upload_bins(np.ascontiguousarray(binned.T), device)
-        labels_dev = torch.from_numpy(labels_pad).to(device)
-        bags = [self._draw_bag(train, F, rng, feature_mask)
-                for _ in range(self.n_bags)]
-        # doc → query, with a zero-weight sentinel query Q for pad docs
-        qod = np.full(Npad, Q, np.int64)
-        qod[:N] = np.repeat(np.arange(Q), np.diff(qptr))
-        query_of_doc = torch.from_numpy(qod).to(device)
-
-        M = 2 * self.n_leaves - 1
-        Cb = bag_group_size(M, F, B, Npad, self.n_bags, device)
+        with span("fit.setup"):
+            with span("fit.bin"):
+                feats, labels, qptr, thresholds, binned_real, N, F = \
+                    flatten_binned(train, self.n_threshold)
+            Q = len(train.queries)
+            B = thresholds.shape[1]
+            with span("fit.pad"):
+                binned, labels_pad, Npad = pad_binned(
+                    feats, binned_real, thresholds, labels, N)
+            with span("fit.transpose"):
+                binned_t = np.ascontiguousarray(binned.T)
+            with span("fit.upload"):
+                binned_T = upload_bins(binned_t, device)
+                labels_dev = torch.from_numpy(labels_pad).to(device)
+            with span("fit.bag_draws"):
+                bags = [self._draw_bag(train, F, rng, feature_mask)
+                        for _ in range(self.n_bags)]
+            with span("fit.doc_map"):
+                # doc → query, with a zero-weight sentinel query Q for pad
+                # docs
+                qod = np.full(Npad, Q, np.int64)
+                qod[:N] = np.repeat(np.arange(Q), np.diff(qptr))
+                query_of_doc = torch.from_numpy(qod).to(device)
+            M = 2 * self.n_leaves - 1
+            Cb = bag_group_size(M, F, B, Npad, self.n_bags, device)
         lr = self.learning_rate
         self.ensembles = []
         silent = is_silent()
         for lo in range(0, self.n_bags, Cb):
             group = bags[lo:lo + Cb]
-            mult = np.zeros((len(group), Q + 1), np.float32)   # col Q: pads
-            mult[:, :Q] = [m for _, _, m, _ in group]
-            doc_w = torch.from_numpy(mult).to(device)[:, query_of_doc]
-            fmask = torch.from_numpy(np.stack([f for *_, f in group])).to(
-                device)
-            scores = torch.zeros((len(group), Npad), dtype=torch.float32,
-                                 device=device)
-            rounds = []
-            for _ in range(self.n_trees):
-                scores, tree = group_step(scores, doc_w, fmask, binned_T,
-                                          labels_dev, B, self.n_leaves, lr)
-                rounds.append(tree)
-            rounds = [[a.cpu().numpy() for a in tree] for tree in rounds]
+            with span("rf.group"):
+                with span("rf.doc_w"):
+                    mult = np.zeros((len(group), Q + 1), np.float32)  # Q: pads
+                    mult[:, :Q] = [m for _, _, m, _ in group]
+                    doc_w = torch.from_numpy(mult).to(device)[:, query_of_doc]
+                    fmask = torch.from_numpy(
+                        np.stack([f for *_, f in group])).to(device)
+                    scores = torch.zeros((len(group), Npad),
+                                         dtype=torch.float32, device=device)
+                rounds = []
+                for _ in range(self.n_trees):
+                    scores, tree = group_step(scores, doc_w, fmask, binned_T,
+                                              labels_dev, B, self.n_leaves,
+                                              lr)
+                    rounds.append(tree)
+                with span("rf.export"):
+                    with span("host_read"):
+                        rounds = [[a.cpu().numpy() for a in tree]
+                                  for tree in rounds]
+                    ensembles = []
+                    for c in range(len(group)):
+                        ens = TreeEnsemble()
+                        for tf, tb, tl, tr, tlf, tn, out in rounds:
+                            ens.add(_export_tree(tf[c], tb[c], tl[c], tr[c],
+                                                 tlf[c], out[c], int(tn[c]),
+                                                 thresholds), lr)
+                        ensembles.append(ens)
             for c, (sampled, qidx, *_) in enumerate(group):
-                ens = TreeEnsemble()
-                for tf, tb, tl, tr, tlf, tn, out in rounds:
-                    ens.add(_export_tree(tf[c], tb[c], tl[c], tr[c], tlf[c],
-                                         out[c], int(tn[c]), thresholds), lr)
+                ens = ensembles[c]
                 self.ensembles.append(ens)
                 if not silent:
                     m = _bag_train_metric(ens, sampled, qidx, qptr,
