@@ -16,7 +16,10 @@ Run from the repository root with no arguments::
 It needs CUDA and exits non-zero at once without it. With
 ``--bare-times ROOT`` it instead times the fused-lambda and binning
 kernels of the package under ROOT (an older tree, for an A/B call) by
-bare launches at this script's shapes and prints one JSON line. It
+bare launches at this script's shapes and prints one JSON line; with
+``--b7-times ROOT`` the multi-bag histogram of the package under ROOT at
+the benchmark's Random Forests group shapes, with and without feature
+lists (phase 10's B7 rows), likewise. It
 imports torch, numpy and ranklib_tpu_torch only (never JAX or the
 reference package).
 Phases, none of whose failures is caught:
@@ -27,36 +30,37 @@ Phases, none of whose failures is caught:
 2. each CUDA kernel against its plain PyTorch version on the card, small
    cases. Forest kernels: odd shapes, uint8 and int16 ids, n_grid == 256,
    documents on thresholds, NaN and ±inf features, a one-leaf tree (the
-   bins and frombins kernels bit-equal to their plain versions; atol =
-   rtol = 1e-5 against the plain f32 traversal), heap-shaped trees of 150
-   leaves whose chunks are too large to stage. Histogram: odd (N, F, B),
-   uint8/int16/int32 ids with some ≥ B, bool masks, f32 multiplicities
-   and all-zero weights (counts exact, sums atol 2e-4 / rtol 1e-5, two
-   launches bit-identical), and int16/int32 ids in [-3, B + 4) through
-   both histogram kernels (counts exact: ids < 0 add nothing). Split
-   scan: Cn 1 and 2, B 8/11/256/512/1100, feature masks, -mls 0 with
-   empty sides (integer histograms with planted ties exactly equal; float
-   histograms to rtol 1e-5; two launches and the pair form identical).
-   Multi-bag histogram: the same id types and odd B with ids >= B, C
-   1/3/8/the RF group size, an all-zero bag and multiplicities up to 3
-   (counts exact, two launches bit-identical). f32 forest route: odd
+   bins and frombins kernels bit-equal to their plain versions; atol = rtol
+   = 1e-5 against the plain f32 traversal), heap-shaped trees of 150 leaves
+   whose chunks are too large to stage. Histogram: odd (N, F, B),
+   uint8/int16/int32 ids with some ≥ B, bool masks, f32 multiplicities and
+   all-zero weights (counts exact, sums atol 2e-4 / rtol 1e-5, two launches
+   bit-identical), and int16/int32 ids in [-3, B + 4) through both
+   histogram kernels (counts exact: ids < 0 add nothing). Split scan: Cn 1
+   and 2, B 8/11/256/512/1100, feature masks, -mls 0 with empty sides
+   (integer histograms with planted ties exactly equal; float histograms to
+   rtol 1e-5; two launches and the pair form identical). Multi-bag
+   histogram: the same id types and odd B with ids >= B, C 1/3/8/the RF
+   group size, an all-zero bag and multiplicities up to 3 (counts exact,
+   two launches bit-identical), and with feature lists (ragged, empty,
+   full; one slice and several) against the plain version under the same
+   lists, unlisted cells +0.0, the columns counter. f32 forest route: odd
    shapes, NaN/±inf features, more than 256 thresholds on a feature,
-   thresholds near ±3.4e38, an input wider than MAX_FEATURES, one
-   document, a one-leaf tree and 150-leaf trees whose chunks are too
-   large to stage (kernel and plain bit-identical, both within 1e-5 of
-   the f32 traversal). On the forest cases also the split route's
-   binning kernel (ids equal to ``device_bins``, scores bit-equal to the
-   bins kernel) and the predicate epilogue on uint8 and bf16 node tests
-   (bit-equal to its plain version); the binning kernel alone on hostile
-   grids (1-1,034 thresholds with +inf pads, ±0.0, ±inf, NaN; uint8 and
-   int16 ids, the grid read from global memory past 511 thresholds; N and
-   F off its tiles and words; ids equal to ``device_bins``); the fused
-   lambda round kernel on small fits (queries of 1 to 2,100 documents,
-   one of a single label, score ties and ±0.0, pad documents; NDCG, DCG,
-   P@k, P@0; atol 2e-5, rtol 1e-4 against its plain version, two launches
-   bit-identical, pads 0); the probes' dot (signed int8, 0/1 f32) at
-   every tile edge of M, N and K and with int8 sums near 2^31, and the
-   int16 compare, exactly;
+   thresholds near ±3.4e38, an input wider than MAX_FEATURES, one document,
+   a one-leaf tree and 150-leaf trees whose chunks are too large to stage
+   (kernel and plain bit-identical, both within 1e-5 of the f32 traversal).
+   On the forest cases also the split route's binning kernel (ids equal to
+   ``device_bins``, scores bit-equal to the bins kernel) and the predicate
+   epilogue on uint8 and bf16 node tests (bit-equal to its plain version);
+   the binning kernel alone on hostile grids (1-1,034 thresholds with +inf
+   pads, ±0.0, ±inf, NaN; uint8 and int16 ids, the grid read from global
+   memory past 511 thresholds; N and F off its tiles and words; ids equal
+   to ``device_bins``); the fused lambda round kernel on small fits
+   (queries of 1 to 2,100 documents, one of a single label, score ties and
+   ±0.0, pad documents; NDCG, DCG, P@k, P@0; atol 2e-5, rtol 1e-4 against
+   its plain version, two launches bit-identical, pads 0); the probes' dot
+   (signed int8, 0/1 f32) at every tile edge of M, N and K and with int8
+   sums near 2^31, and the int16 compare, exactly;
 3. the serving path at the full width the repo measures — 1,000 trees x 10
    leaves over 136 features scoring 262,144 documents — with its launch
    counters at 0: ``TreeEnsemble.eval_matrix`` (host binning, then the
@@ -99,15 +103,21 @@ Phases, none of whose failures is caught:
 10. Random Forests at the training width — 300 bags of one 100-leaf MART
     tree, -frate 0.3, -srate 1.0, 256 bins, the port's group size — with
     the multi-bag histogram and split-scan counters at 0: the fit (each
-    counter must read groups x 99), a second fit saving the same model
-    text, one group step under ``set_sync_debug_mode("error")``, card vs
+    counter must read groups x 99, and B7's columns counter 99 x 300 x 40,
+    the bags' sampled features), a second fit saving the same model text,
+    one group step with feature lists under
+    ``set_sync_debug_mode("error")``, card vs
     CPU at 4 bags x 8 leaves on 200 queries (-rtype 0 and a small -rtype
     6), and the multi-bag histogram kernel vs plain and its ``index_add_``
     at the group's width (root and a ~10% child), the host time of a call,
     the split scan on those two as the pair growth passes ([600, 136, 256,
     2] under the bags' feature masks: kernel vs plain, its own time), and
     the kernel on the roots and the 98 right children of a group step
-    grown there (replayed from its splits; summed per group step);
+    grown there (replayed from its splits; summed per group step); then
+    the kernel at the benchmark's RF group shapes (106 bags x 136 features
+    x 2,273,280 documents; 66 x 700 x 472,656), root and ~10% child, with
+    and without each bag's feature list (on its plan and on one slice:
+    the one-slice listed cells bit-equal to the list-free ones);
 11. the f32 forest route at the serving width: 1,000 trees x 10 leaves
     whose first 8 features carry a 1,024-point threshold grid, 262,144
     documents: kernel vs plain (bit-identical) and vs the f32 traversal,
@@ -1472,6 +1482,192 @@ def hist_multi_small_checks(dev, group: int) -> float:
     return worst
 
 
+def hist_multi_list_checks(dev) -> None:
+    """Multi-bag histogram kernel with feature lists vs the plain version
+    under the same lists: ragged lists, an empty and a full one, lists
+    across 32-lane groups, one slice and several; the listed cells
+    bit-equal to the list-free launch where both plans have one slice;
+    every unlisted cell +0.0; the columns counter."""
+    from ranklib_tpu_torch.ops import histogram as H
+
+    rng = np.random.default_rng(29)
+    for N, F, B, counts in [(300, 6, 8, (2, 0, 6)), (1, 3, 5, (1, 2, 0)),
+                            (5000, 40, 256, (12, 3, 0, 40, 7)),
+                            (20000, 70, 11, (1, 33, 65)),
+                            (2000, 136, 256, (40,) * 8),
+                            (20000, 136, 256, (40,) * 8)]:
+        C = len(counts)
+        masks = np.zeros((C, F), bool)
+        for c, k in enumerate(counts):
+            masks[c, rng.choice(F, k, replace=False)] = True
+        lists = torch.from_numpy(H.feature_lists(masks)).to(dev)
+        m = torch.from_numpy(masks).to(dev)
+        Fs = lists.shape[1]
+        one = H.plan(F, B, C, N, Fs).slices == H.plan(F, B, C, N).slices == 1
+        grads = torch.from_numpy(
+            rng.normal(size=(C, N)).astype(np.float32)).to(dev)
+        w = rng.integers(0, 4, (C, N)).astype(np.float32)
+        w[C // 2] = 0.0
+        wt = torch.from_numpy(w).to(dev)
+        for dt, top in ((torch.uint8, 256), (torch.int16, 32767),
+                        (torch.int32, 1 << 30)):
+            ids = rng.integers(0, min(B + 3, top), size=(F, N))
+            binsT = torch.from_numpy(ids).to(dt).contiguous().to(dev)
+            before = H.histogram_multi.columns
+            got = H.histogram_multi(binsT, grads, wt, B, features=lists)
+            cols = H.histogram_multi.columns - before
+            again = H.histogram_multi(binsT, grads, wt, B, features=lists)
+            free = H.histogram_multi(binsT, grads, wt, B)
+            want = H.histogram_multi_plain(binsT, grads, wt, B, lists)
+            torch.cuda.synchronize()
+            what = (f"listed multi-bag histogram ({N}, {F}, {B}, {counts}, "
+                    f"{dt})")
+            check(got.shape == want.shape == (C, F, B, 2), f"{what}: shape")
+            check(torch.equal(got[..., 1], want[..., 1]),
+                  f"{what}: counts differ")
+            check(torch.allclose(got[..., 0], want[..., 0], **HIST_TOL),
+                  f"{what}: sums differ")
+            check(torch.equal(got, again), f"{what}: not reproducible")
+            rest = got[~m]
+            check(bool((rest == 0).all()) and not bool(
+                torch.signbit(rest).any()), f"{what}: unlisted cells not +0")
+            check(cols == C * Fs, f"{what}: columns {cols}, not {C * Fs}")
+            if one:
+                check(torch.equal(got[m], free[m]),
+                      f"{what}: listed cells differ from the list-free ones")
+            else:
+                check(torch.equal(got[m][..., 1], free[m][..., 1])
+                      and torch.allclose(got[m][..., 0], free[m][..., 0],
+                                         **HIST_TOL),
+                      f"{what}: listed cells off the list-free ones")
+        print(f"  listed multi-bag histogram ({N}, {F}, {B}, bags of "
+              f"{counts} features, {H.plan(F, B, C, N, Fs).slices} "
+              f"slice(s)) x uint8/int16/int32: ok"
+              + (", listed cells bit-equal to the list-free launch"
+                 if one else ""))
+
+
+# the largest group of each Random Forests cell of the benchmark
+# (ltrbench, BENCHMARK.json): bags, features and padded documents
+B7_GROUPS = (("rf.mslr30k", 106, 136, 2273280),
+             ("rf.yahoo1", 66, 700, 472656))
+
+
+@contextlib.contextmanager
+def one_slice_plans(H):
+    """Every histogram launch laid out on one document slice, whatever
+    ``H.plan`` chose."""
+    orig = H.plan
+
+    def one(F, B, C, N, Fs=None):
+        p = orig(F, B, C, N, Fs)
+        return p._replace(slices=1, slice_len=-(-max(N, 1) // 128) * 128,
+                          grid=(1,) + p.grid[1:])
+    H.plan = one
+    try:
+        yield
+    finally:
+        H.plan = orig
+
+
+def b7_list_times(dev) -> dict:
+    """B7 at each RF cell's largest group (``B7_GROUPS``; uint8 ids over
+    256 bins, -frate 0.3: int(0.3 F) features a bag) on the root's weights
+    (Poisson(1) multiplicities) and a ~10% child's: device ms of the
+    list-free launch and, where the tree's ``histogram_multi`` takes a
+    feature list, of the listed launch on its own plan and on one slice.
+    The one-slice listed cells must equal the list-free ones bit for bit;
+    the planned ones hold the same counts, and sums no further from a
+    float64 sum (two bags) than twice the list-free ones'; the unlisted
+    cells read +0.0 and the columns counter C x int(0.3 F)."""
+    import inspect
+
+    from ranklib_tpu_torch.ops import histogram as H
+
+    listed = "features" in inspect.signature(H.histogram_multi).parameters
+    out = {}
+    for cell, C, F, N in B7_GROUPS:
+        g = torch.Generator(device=dev).manual_seed(F)
+        binsT = torch.randint(0, 256, (F, N), dtype=torch.uint8, device=dev,
+                              generator=g)
+        grads = torch.randn((C, N), device=dev, generator=g)
+        root = torch.poisson(torch.ones((C, N), device=dev), generator=g)
+        child = root * (torch.rand((C, N), device=dev, generator=g) < 0.1)
+        k = int(0.3 * F)
+        rng = np.random.default_rng(F)
+        masks = np.zeros((C, F), bool)
+        for c in range(C):
+            masks[c, rng.permutation(F)[:k]] = True
+        row = {"bags": C, "features": F, "docs": N,
+               "free_plan": list(H.plan(F, 256, C, N).grid)}
+        if listed:                   # an older tree's B7 takes no list
+            lists = torch.from_numpy(H.feature_lists(masks)).to(dev)
+            m = torch.from_numpy(masks).to(dev)
+
+        def b7(w, features=None):
+            if features is None:
+                return H.histogram_multi(binsT, grads, w, 256)
+            return H.histogram_multi(binsT, grads, w, 256, features=features)
+
+        def sum64(c, w):
+            """Bag c's sums of g·w over its listed features, in float64."""
+            fs = lists[c][lists[c] >= 0].long()
+            idx = (torch.arange(len(fs), device=dev)[:, None] * 256
+                   + binsT.index_select(0, fs).long()).reshape(-1)
+            gw = (grads[c] * w[c]).double().expand(len(fs), N).reshape(-1)
+            return torch.zeros(len(fs) * 256, dtype=torch.float64,
+                               device=dev).index_add_(0, idx, gw).view(
+                                   len(fs), 256)
+
+        for name, w in (("root", root), ("child", child)):
+            row[f"{name}_free_ms"] = event_ms(lambda: b7(w), 5)
+            if not listed:
+                continue
+            free = b7(w)
+            before = H.histogram_multi.columns
+            got = b7(w, lists)
+            check(H.histogram_multi.columns - before == C * k,
+                  f"B7 {cell} {name}: the columns counter is off")
+            row[f"{name}_list_ms"] = event_ms(lambda: b7(w, lists), 5)
+            with one_slice_plans(H):
+                got1 = b7(w, lists)
+                row[f"{name}_list1_ms"] = event_ms(lambda: b7(w, lists), 5)
+            torch.cuda.synchronize()
+            what = f"B7 {cell} {name}"
+            check(H.plan(F, 256, C, N).slices == 1
+                  and torch.equal(got1[m], free[m]),
+                  f"{what}: one-slice listed cells differ from the "
+                  f"list-free launch")
+            check(torch.equal(got[m][..., 1], free[m][..., 1]),
+                  f"{what}: planned listed counts differ from the "
+                  f"list-free ones")
+            # the planned launch sums in slices, the list-free one in one
+            # chain of ~N/256 documents a cell: both held to a float64 sum
+            # of two bags' listed columns, the sliced no further off
+            err = [max(float((h[c, m[c], :, 0].double() - sum64(c, w))
+                             .abs().max()) for c in (0, C // 2))
+                   for h in (free, got)]
+            row[f"{name}_err64"] = err
+            check(err[1] <= 2 * err[0] + 1e-6,
+                  f"{what}: planned listed sums off float64 by {err[1]:.3e}"
+                  f", the list-free ones by {err[0]:.3e}")
+            for h in (got, got1):
+                rest = h[~m]
+                check(bool((rest == 0).all())
+                      and not bool(torch.signbit(rest).any()),
+                      f"{what}: unlisted cells not +0")
+            row["list_plan"] = list(H.plan(F, 256, C, N, k).grid)
+            row["columns_share"] = k / F
+            del free, got, got1
+        out[cell] = row
+        print(f"  B7 {cell}: {C} bags x [{F}, {N}] uint8: "
+              + ", ".join(f"{key} {val:.4f}" if isinstance(val, float)
+                          else f"{key} {val}" for key, val in row.items()))
+        del binsT, grads, root, child
+        torch.cuda.empty_cache()
+    return out
+
+
 def widen_grid(ens, n_feats: int, n_thr: int, n_nodes: int):
     """Move the first ``n_nodes`` splits of a fresh ensemble onto features
     0..n_feats-1 with thresholds from an ``n_thr``-point grid, so a
@@ -1626,7 +1822,7 @@ def rf_training_phase(dev, train, group: int) -> dict:
     rf = RF.RFRanker(**hp)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    H.histogram_multi.launches = 0
+    H.histogram_multi.launches = H.histogram_multi.columns = 0
     SS.best_splits.launches = 0
     H.histogram.launches = 0
     t0 = time.perf_counter()
@@ -1648,6 +1844,13 @@ def rf_training_phase(dev, train, group: int) -> dict:
           and launches["split_scan"] == want, "RF launch counts are off")
     check(launches["histogram"] == 0,
           "-rtype 0 launched the single-bag histogram")
+    cols = int(0.3 * F)
+    check(H.histogram_multi.columns == RF_BAGS * (RF_LEAVES - 1) * cols,
+          f"B7 built {H.histogram_multi.columns} columns, not each bag's "
+          f"{cols} sampled features at every launch")
+    print(f"  B7 columns / (launches x bags x features): "
+          f"{H.histogram_multi.columns / (RF_BAGS * (RF_LEAVES - 1) * F):.4f}"
+          f" ({cols} of {F} features a bag)")
     check(len(rf.ensembles) == RF_BAGS
           and all(len(e) == 1 for e in rf.ensembles), "wrong number of trees")
     leaves = np.mean([e.trees[0].is_leaf.sum() for e in rf.ensembles])
@@ -1674,12 +1877,13 @@ def rf_training_phase(dev, train, group: int) -> dict:
     fm = rng.random((group, F)) < 0.3
     fm[:, 0] = True
     fmask = torch.from_numpy(fm).to(dev)
+    flist = torch.from_numpy(H.feature_lists(fm)).to(dev)
     scores = torch.zeros((group, Npad), dtype=torch.float32, device=dev)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         new_scores, _ = RF.group_step(scores, doc_w, fmask, binned_T,
-                                      labels_d, B, RF_LEAVES, 0.1)
+                                      labels_d, B, RF_LEAVES, 0.1, flist)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -5491,6 +5695,21 @@ def bare_times(root: str) -> int:
     return 0
 
 
+def b7_times(root: str) -> int:
+    """``--b7-times ROOT``: :func:`b7_list_times` on the
+    ``ranklib_tpu_torch`` found under ROOT, so that an A/B call times an
+    older tree's multi-bag histogram (which takes no feature list) as this
+    one's. Prints one JSON line."""
+    sys.path.insert(0, os.path.abspath(root))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    out = b7_list_times(torch.device("cuda", 0))
+    print(json.dumps({"b7_times": out, "root": root, "device": smi}))
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--joined-worker"] and len(sys.argv) == 8:
         # phase 23's processes (on the device the phase names)
@@ -5502,7 +5721,10 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--bare-times"] and len(sys.argv) == 3:
         return bare_times(sys.argv[2])
-    check(len(sys.argv) == 1, "usage: chip_smoke.py [--bare-times ROOT]")
+    if sys.argv[1:2] == ["--b7-times"] and len(sys.argv) == 3:
+        return b7_times(sys.argv[2])
+    check(len(sys.argv) == 1,
+          "usage: chip_smoke.py [--bare-times ROOT | --b7-times ROOT]")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ranklib_tpu_torch import cli
     from ranklib_tpu_torch.models import rf as RF
@@ -5542,6 +5764,7 @@ def main() -> int:
     group = RF.bag_group_size(2 * RF_LEAVES - 1, N_FEATURES, 256, FIT_NPAD,
                               RF_BAGS, dev)
     hist_multi_small_checks(dev, group)
+    hist_multi_list_checks(dev)
     full_small_checks(dev)
     bins_only_small_checks(dev)
     lambda_small_checks(dev)
@@ -5718,6 +5941,8 @@ def main() -> int:
     rf_hists = rf_kernel_times(rf)
     rf_scan_times(rf)
     del rf["binned_T"], rf["grads"], rf["doc_w"], rf["fmask"]
+    print(" B7 at the RF cells' group shapes, with and without feature lists")
+    b7_list_times(dev)
     print(f"  RF fit {rf['wall']:.3f} s, peak {rf['peak'] / 2**30:.2f} GiB  "
           f"[{smi}]")
 

@@ -27,9 +27,9 @@
                       int64_t N, int F, int B, int warp_bins, int ranges,   \
                       int64_t slice_len, int slices, int vec,               \
                       float* partial, float* out, void* stream) {           \
-    const hist::Geometry g{N,         F,      B,   1, warp_bins, ranges,    \
-                           slice_len, slices, vec};                         \
-    return hist::launch(bins, grad, w, g, partial, out,                     \
+    const hist::Geometry g{N,         F,         B,      1,  F,             \
+                           warp_bins, ranges,    slice_len, slices, vec};   \
+    return hist::launch(bins, grad, w, nullptr, g, partial, out,            \
                         static_cast<cudaStream_t>(stream));                 \
   }
 

@@ -14,25 +14,30 @@
 // How: the TPU kernel shares one one-hot build across 2C matmul rows. Here
 // each (bag, 32-feature group) is one warp that walks only the 32-document
 // chunks its bag weights: the lane-owned column design of
-// histogram_common.cuh (design, determinism and bound there). With enough
-// (bag, group) warps to fill the card the launch has one document slice,
-// so every cell sums in document order, as the plain version's index_add_
-// does.
+// histogram_common.cuh (design, determinism and bound there). Given each
+// bag's feature list, the groups are 32 entries of the list, so a bag
+// takes warps for its sampled features alone and the rest read zero. With
+// enough (bag, group) warps to fill the card the launch has one document
+// slice, so every cell sums in document order, as the plain version's
+// index_add_ does.
 
 #include "histogram_common.cuh"
 
-// bins [F, N] contiguous; grads, w [C, N] f32 contiguous; partial
-// [slices, C, F, B, 2] scratch when slices > 1; out [C, F, B, 2] f32. The
-// rest is the planner's (ops/histogram.py plan). Returns the cudaError_t of
-// the launches (0 on success).
+// bins [F, N] contiguous; grads, w [C, N] f32 contiguous; feats [C, Fs]
+// int32, each bag's features in ascending order and -1 past its count, or
+// null for every feature (Fs = F); partial [slices, C, Fs, B, 2] scratch
+// when slices > 1; out [C, F, B, 2] f32. The rest is the planner's
+// (ops/histogram.py plan). Returns the cudaError_t of the launches (0 on
+// success).
 #define HIST_MULTI_ENTRY(NAME, T)                                            \
   extern "C" int NAME(const T* bins, const float* grads, const float* w,    \
-                      int64_t N, int F, int B, int C, int warp_bins,        \
-                      int ranges, int64_t slice_len, int slices, int vec,   \
-                      float* partial, float* out, void* stream) {           \
-    const hist::Geometry g{N,         F,      B,   C, warp_bins, ranges,    \
-                           slice_len, slices, vec};                         \
-    return hist::launch(bins, grads, w, g, partial, out,                    \
+                      const int* feats, int64_t N, int F, int B, int C,     \
+                      int Fs, int warp_bins, int ranges, int64_t slice_len, \
+                      int slices, int vec, float* partial, float* out,      \
+                      void* stream) {                                       \
+    const hist::Geometry g{N,         F,         B,      C,  Fs,            \
+                           warp_bins, ranges,    slice_len, slices, vec};   \
+    return hist::launch(bins, grads, w, feats, g, partial, out,             \
                         static_cast<cudaStream_t>(stream));                 \
   }
 

@@ -29,7 +29,8 @@ subtraction from the summed parent. Without a group nothing is summed.
 
 :func:`grow_forest` grows the trees of a group of Random-Forests bags in
 lockstep (the same rules per bag, a leading [Cb] axis everywhere): one
-:func:`histogram_multi` launch per split serves every bag.
+:func:`histogram_multi` launch per split serves every bag, and builds
+only the features each bag samples when given their lists.
 """
 
 from __future__ import annotations
@@ -244,7 +245,7 @@ def _put(arr: torch.Tensor, idx: torch.Tensor, val, valid: torch.Tensor):
 
 def grow_forest(binned_T: torch.Tensor, grads: torch.Tensor, n_bins: int,
                 n_leaves: int, min_leaf_support: int = 1, doc_weights=None,
-                feature_masks=None) -> TreeArrays:
+                feature_masks=None, feature_lists=None) -> TreeArrays:
     """Grow ``Cb`` independent regression trees in lockstep on one bin
     matrix (ref ``grow_forest``, grow.py:256): bag c's tree is the one
     :func:`grow_tree` grows on ``grads[c]`` under ``doc_weights[c]`` and
@@ -252,8 +253,11 @@ def grow_forest(binned_T: torch.Tensor, grads: torch.Tensor, n_bins: int,
 
     ``grads`` [Cb, N] f32; ``doc_weights`` optional [Cb, N] f32
     multiplicities (0 excludes a doc); ``feature_masks`` optional [Cb, F]
-    bool. Returns TreeArrays with a leading [Cb] axis (node_of_doc
-    [Cb, N], impacts [Cb, F]).
+    bool. ``feature_lists`` optional [Cb, Fs] int32, the features each
+    mask holds (``ops.histogram.feature_lists``): the histograms then hold
+    those features alone, and zeros where the masks discard the scan.
+    Returns TreeArrays with a leading [Cb] axis (node_of_doc [Cb, N],
+    impacts [Cb, F]).
 
     As in the reference: node statistics (S, SQ, C) are sums over the doc
     axis, not histogram rows; both children of every bag go through one
@@ -275,7 +279,8 @@ def grow_forest(binned_T: torch.Tensor, grads: torch.Tensor, n_bins: int,
     with span("grow.root"):
         dw = (torch.ones((Cb, N), **f32) if doc_weights is None
               else doc_weights.to(torch.float32))
-        root_hist = histogram_multi(binned_T, grads, dw, B)       # [Cb,F,B,2]
+        root_hist = histogram_multi(binned_T, grads, dw, B,
+                                    features=feature_lists)       # [Cb,F,B,2]
         S0 = (dw * grads).sum(dim=1)
         SQ0 = (dw * grads * grads).sum(dim=1)
         C0 = dw.sum(dim=1)
@@ -342,7 +347,8 @@ def grow_forest(binned_T: torch.Tensor, grads: torch.Tensor, n_bins: int,
                 # right child directly, left by subtraction (parent −
                 # sibling)
                 w_r = dw * (in_node & ~go_left & valid[:, None])
-                hist_r = histogram_multi(binned_T, grads, w_r, B)
+                hist_r = histogram_multi(binned_T, grads, w_r, B,
+                                         features=feature_lists)
                 hist_l = hist[cidx, _take(hidx, leaf).long()] - hist_r
                 S_r = (w_r * grads).sum(dim=1)
                 SQ_r = (w_r * grads * grads).sum(dim=1)

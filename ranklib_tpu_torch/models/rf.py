@@ -15,8 +15,9 @@ the bags' ``<ensemble>`` blocks under one ``## Random Forests`` header.
 
 * ``-rtype 0``: groups of bags grow their trees in lockstep
   (:func:`group_step` → ``gbdt.grow.grow_forest``), one multi-bag
-  histogram launch per split for the whole group; all bag draws happen
-  upfront in bag order, so the model does not depend on the grouping.
+  histogram launch per split for the whole group, over each bag's sampled
+  features alone; all bag draws happen upfront in bag order, so the model
+  does not depend on the grouping.
 * ``-rtype 6``: one LambdaMART fit per bag through the boosting round
   (``gbdt.boost``) with the bag's weights and feature mask; lambdas use
   every query, as in the reference.
@@ -59,6 +60,7 @@ from ranklib_tpu_torch.models.gbdt import (
     check_same_models, eval_ensemble_dataset, flatten_binned, labels_only,
     launch_counts, launches_since, pad_binned, shared,
 )
+from ranklib_tpu_torch.ops.histogram import feature_lists
 from ranklib_tpu_torch.utils.errors import RankLibError
 from ranklib_tpu_torch.utils.logging import is_silent, log, set_silent
 from ranklib_tpu_torch.utils.trace import span
@@ -93,16 +95,20 @@ def _bag_train_metric(ens: TreeEnsemble, sampled: Dataset, qidx, qptr,
 
 def group_step(scores: torch.Tensor, doc_w: torch.Tensor,
                fmask: torch.Tensor, binned_T: torch.Tensor,
-               labels: torch.Tensor, n_bins: int, n_leaves: int, lr: float):
+               labels: torch.Tensor, n_bins: int, n_leaves: int, lr: float,
+               flist: torch.Tensor | None = None):
     """One lockstep MART round for a group of bags (ref
     ``_rf_group_step``, rf.py:63): residuals → forest → mean-residual leaf
     outputs → score update. ``scores``/``doc_w`` [Cb, Npad], ``fmask``
-    [Cb, F] bool. Returns (scores, (feature, bin, left, right, is_leaf,
-    n_nodes, out)) as device tensors; nothing is read back."""
+    [Cb, F] bool, ``flist`` optional [Cb, Fs] int32, the features ``fmask``
+    holds (``ops.histogram.feature_lists``). Returns (scores, (feature,
+    bin, left, right, is_leaf, n_nodes, out)) as device tensors; nothing
+    is read back."""
     M = 2 * n_leaves - 1
     with span("step"):
         lam = labels[None, :] - scores                  # MART residuals
-        arr = grow_forest(binned_T, lam, n_bins, n_leaves, 1, doc_w, fmask)
+        arr = grow_forest(binned_T, lam, n_bins, n_leaves, 1, doc_w, fmask,
+                          flist)
         out = leaf_outputs_forest(arr.node_of_doc, lam, torch.ones_like(lam),
                                   M, False, doc_w)
         scores = scores + lr * out.gather(1, arr.node_of_doc.long())
@@ -265,15 +271,16 @@ class RFRanker(Ranker):
                     mult = np.zeros((len(group), Q + 1), np.float32)  # Q: pads
                     mult[:, :Q] = [m for _, _, m, _ in group]
                     doc_w = torch.from_numpy(mult).to(device)[:, query_of_doc]
-                    fmask = torch.from_numpy(
-                        np.stack([f for *_, f in group])).to(device)
+                    fm = np.stack([f for *_, f in group])
+                    fmask = torch.from_numpy(fm).to(device)
+                    flist = torch.from_numpy(feature_lists(fm)).to(device)
                     scores = torch.zeros((len(group), Npad),
                                          dtype=torch.float32, device=device)
                 rounds = []
                 for _ in range(self.n_trees):
                     scores, tree = group_step(scores, doc_w, fmask, binned_T,
                                               labels_dev, B, self.n_leaves,
-                                              lr)
+                                              lr, flist)
                     rounds.append(tree)
                 with span("rf.export"):
                     with span("host_read"):

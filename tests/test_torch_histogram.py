@@ -163,12 +163,13 @@ def _slices(p, N):
             for x in range(p.slices)]
 
 
-def emulate(binned, grads, w, B, p):
+def emulate(binned, grads, w, B, p, features=None):
     """numpy emulation of the column kernel's summation order under plan
     ``p``: per slice, each (bag, feature) column adds its weighted
     documents' (g·w, w) in document order (f32, ids outside [0, B)
     skipped); the slices' partials are added in slice order. ``grads`` and
-    ``w`` are [C, N]."""
+    ``w`` are [C, N]; ``features`` [C, Fs] (-1 pads) keeps bag c's columns
+    to those its row lists, the others zero."""
     F, N = binned.shape
     C = grads.shape[0]
     out = np.zeros((C, F, B, 2), np.float32)
@@ -178,7 +179,8 @@ def emulate(binned, grads, w, B, p):
             d = np.arange(lo, hi)
             d = d[w[c, lo:hi] != 0]
             gw = (grads[c, d] * w[c, d]).astype(np.float32)
-            for f in range(F):
+            for f in (range(F) if features is None
+                      else features[c][features[c] >= 0]):
                 ids = binned[f, d].astype(np.int64)
                 keep = (ids >= 0) & (ids < B)
                 # np.add.at adds in index order: the lane's document order

@@ -145,6 +145,56 @@ def test_leaf_outputs_forest_chunks_bags(monkeypatch):
                                                    w), whole, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("B,dtype", [(32, np.uint8), (300, np.int16)])
+def test_grow_forest_feature_lists_change_no_tree(B, dtype):
+    """-frate 0.3: the histograms of each bag's sampled features alone
+    (the rest zero) grow every bag's tree of the list-free growth."""
+    from ranklib_tpu_torch.ops.histogram import feature_lists
+
+    rng = np.random.default_rng(B)
+    F, N, L, Cb = 20, 600, 9, 4
+    binned = torch.from_numpy(rng.integers(0, B, (F, N)).astype(dtype))
+    grads = torch.from_numpy(rng.normal(size=(Cb, N)).astype(np.float32))
+    w = torch.from_numpy(rng.integers(0, 3, (Cb, N)).astype(np.float32))
+    fm = np.zeros((Cb, F), bool)
+    for c in range(Cb):
+        fm[c, [f - 1 for f in PS.sample_features(F, 0.3, rng)]] = True
+    lists = torch.from_numpy(feature_lists(fm))
+    assert lists.shape == (Cb, 6)
+    fmask = torch.from_numpy(fm)
+    want = grow_forest(binned, grads, B, L, 1, w, fmask)
+    got = grow_forest(binned, grads, B, L, 1, w, fmask, lists)
+    for f in GROW_FIELDS + ("impacts",):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      getattr(want, f).numpy(), err_msg=f)
+
+
+def test_rf_fit_passes_feature_lists_and_keeps_its_model(monkeypatch):
+    """A -rtype 0 fit at -frate 0.3 hands each group step its bags'
+    feature lists (int(0.3 F) entries each), and saves the model of the
+    same fit whose group steps drop them."""
+    ds = _port_ds(_data(seed=8))
+    scorer = create_scorer("NDCG@10")
+    hp = dict(n_bags=5, n_leaves=6, feature_sampling_rate=0.3, seed=3)
+    step = PRF.group_step
+    widths = []
+
+    def listless(*args):
+        widths.append(tuple(args[8].shape))
+        return step(*args[:8])
+
+    fits = []
+    for patch in (False, True):
+        if patch:
+            monkeypatch.setattr(PRF, "group_step", listless)
+        rf = PRF.RFRanker(**hp)
+        set_silent(True)
+        rf.fit(ds, scorer, device=CPU)
+        fits.append(rf.model_str())
+    assert widths == [(5, 2)]
+    assert fits[0] == fits[1]
+
+
 # ---- whole fits ---------------------------------------------------------------
 
 def _assert_same_bags(ref_rf, port_rf):
