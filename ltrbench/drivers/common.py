@@ -16,6 +16,19 @@ objects and warms them up in its constructor (set-up), then offers:
 Beside the class the module offers ``judge(ctx, outputs, cfg, seed)`` →
 {number: value}, and ``control(ctx, cfg, seed, dtype)``: the reference's
 own outputs in ``dtype``, in the form of ``outputs()``.
+
+A multi-card driver (a cell whose ``chips`` is n > 1) is built in each
+of n worker processes, one a card, with the environment ``torchrun``
+gives (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``, ``LOCAL_WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``); it joins the program's group itself
+(``ranklib_tpu_torch.parallel.dist.join()``) and leaves it in
+``close()``. Its ``Window.work`` counts the whole fit's work on every
+rank, not the rank's shard's: ``train_rate`` is rank 0's work over rank
+0's window. Its ranks run the same collectives, so they end the window
+at the same call: they decide it together (a "time is up" flag carried
+in a call's collective), never each by its own clock, as
+:func:`run_window` does. Only rank 0's ``outputs()`` is judged, so it
+holds every rank's part of what the judge reads.
 """
 
 from __future__ import annotations

@@ -1,12 +1,14 @@
 """The harness: parts found by name, the generator, the roofline counts,
-the plain reference on hand-worked cases, the result line, and what a
-run imports."""
+the plain reference on hand-worked cases, the result line, the launcher
+of multi-card cells, and what a run imports."""
 
+import argparse
 import json
 import math
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -15,7 +17,7 @@ import torch
 from ltrbench import gen, run
 from ltrbench.layer_metrics.roofline import share
 from ltrbench.reference import grid, lambdas, metric, tree
-from ltrbench_cells import tiny_cells, write
+from ltrbench_cells import tiny_cells, toy_cells, write
 
 BENCH = run.load_bench()
 
@@ -261,12 +263,120 @@ def test_result_line_keys(tmp_path):
         want = ["correct", "attempted", "failed", "metrics", "device"]
         want += ["breakdown"] if trace else []
         assert list(line) == want + ["build_s", "checks"]
-        assert set(line["device"]) >= {"platform", "kind", "count",
-                                       "memory_peak_bytes"}
+        # a one-card line: no by_rank, and the count is computed
+        assert list(line["device"]) == [
+            "platform", "kind", "count", "memory_peak_bytes"] + (
+            ["busy_s", "window_s"] if trace else [])
+        assert line["device"]["count"] == 1
         for v in line["checks"].values():
             assert set(v) == {"value", "limit"}
         json.dumps(line)
-    assert set(line["device"]) >= {"busy_s", "window_s"}
+
+
+def _execute(bench, roots, trace=0, seconds=0.5, seed=2 ** 31 + 17):
+    """``ltrbench.run``'s run of the cell ``toy.cards`` on the CPU: (exit
+    code, seconds it took)."""
+    args = argparse.Namespace(workload="toy.cards", seed=seed,
+                              seconds=seconds, trace=trace)
+    t0 = time.perf_counter()
+    rc = run.execute(bench, args, roots=roots, platform="cpu")
+    return rc, time.perf_counter() - t0
+
+
+@pytest.mark.parametrize("trace", [0, 1])
+def test_two_card_cell_prints_one_line(tmp_path, capfd, trace):
+    """A two-"card" cell on the CPU: two workers that join one gloo group
+    from the launcher's environment and all-reduce in their windows; one
+    line, rank 0's judge, one card counted, one entry a rank."""
+    bench, roots = toy_cells(tmp_path, 2)
+    rc, _ = _execute(bench, roots, trace)
+    out, err = capfd.readouterr()
+    assert rc == 0, err
+    lines = out.strip().splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert line["correct"] and line["failed"] == 0, line["checks"]
+    assert {k: v["value"] for k, v in line["checks"].items()} == {
+        "judged_on": 0, "outputs_of": 0, "env_gap": 0, "sum_gap": 0}
+    assert line["attempted"] > 0
+    dev = line["device"]
+    assert dev["count"] == 1 and dev["platform"] == "cpu"
+    assert [r["rank"] for r in dev["by_rank"]] == [0, 1]
+    if trace:
+        assert list(line["metrics"]) == []
+        assert {"busy_s", "window_s"} <= set(dev)
+        assert all({"busy_s", "window_s"} <= set(r)
+                   for r in dev["by_rank"])
+    else:
+        assert list(line["metrics"]) == ["setup_s", "train_rate"]
+    assert "check judged_on 0.0 limit 0" in err
+
+
+@pytest.mark.parametrize("fault_rank, correct", [(0, False), (1, True)])
+def test_correct_is_rank_zeros_judge(tmp_path, capfd, fault_rank, correct):
+    """A wrong output on rank 0 fails the run; on rank 1 it is never
+    judged: the judge reads rank 0's outputs alone."""
+    bench, roots = toy_cells(tmp_path, 2, "wrong", fault_rank)
+    rc, _ = _execute(bench, roots)
+    out, err = capfd.readouterr()
+    assert rc == 0, err
+    line = json.loads(out.strip().splitlines()[-1])
+    assert line["correct"] is correct
+    assert line["failed"] == (0 if correct else 1)
+
+
+@pytest.mark.parametrize("fault", ["raise_setup", "raise_window"])
+def test_a_worker_that_raises_fails_the_run(tmp_path, capfd, fault):
+    """Rank 1 raises; rank 0, left waiting at the barrier or in its
+    all-reduce, is ended: non-zero, no line, rank 1's traceback."""
+    bench, roots = toy_cells(tmp_path, 2, fault)
+    rc, took = _execute(bench, roots)
+    out, err = capfd.readouterr()
+    assert rc != 0 and out.strip() == ""
+    assert "rank 1 failed" in err and "toy fault in rank 1" in err
+    assert took < 60
+
+
+def test_a_stalled_worker_fails_at_the_bound(tmp_path, capfd, monkeypatch):
+    monkeypatch.setattr(run, "SETUP_WAIT_S", 8.0)
+    bench, roots = toy_cells(tmp_path, 2, "stall")
+    rc, took = _execute(bench, roots)
+    out, err = capfd.readouterr()
+    assert rc != 0 and out.strip() == ""
+    assert "rank 1 did not reach 'set up' within" in err
+    assert 8.0 <= took < 40
+
+
+def test_merge_counts_each_card_once_where_memory_was_allocated():
+    """The launcher's line: a card counts once, however many workers
+    allocated on it, and not at all where none did; the peak is the
+    fullest card's."""
+    def worker_line(cards, peak, index):
+        return {"metrics": {"setup_s": {"value": 1.0, "unit": "s"}},
+                "device": {"platform": "gpu", "kind": "card", "count": 1,
+                           "memory_peak_bytes": peak, "cards": cards,
+                           "index": index}}
+
+    line = run._merge([worker_line({"A": 5}, 5, 0),
+                       worker_line({"A": 7, "B": 3}, 7, 1),
+                       worker_line({}, 0, 2)], 12.5)
+    dev = line["device"]
+    assert list(dev) == ["platform", "kind", "count", "memory_peak_bytes",
+                         "by_rank"]
+    assert dev["count"] == 2 and dev["memory_peak_bytes"] == 7
+    assert dev["by_rank"] == [
+        {"rank": 0, "index": 0, "memory_peak_bytes": 5},
+        {"rank": 1, "index": 1, "memory_peak_bytes": 7},
+        {"rank": 2, "index": 2, "memory_peak_bytes": 0}]
+    assert line["metrics"]["setup_s"]["value"] == 12.5
+
+
+def test_a_worker_that_loads_jax_fails_the_run(tmp_path, capfd):
+    bench, roots = toy_cells(tmp_path, 2, "forbidden")
+    rc, _ = _execute(bench, roots)
+    out, err = capfd.readouterr()
+    assert rc == 3 and out.strip() == ""
+    assert "rank 1 loaded forbidden modules: jax" in err
 
 
 def test_no_card_no_result():
@@ -336,3 +446,52 @@ def test_tiny_cells_on_the_card(card, tmp_path):
         assert line["correct"], line["checks"]
         assert line["device"]["busy_s"] > 0
         assert line["breakdown"]["device_ops"]
+
+
+@pytest.mark.card
+def test_launcher_over_every_card(card, tmp_path):
+    """The launcher over every card of the machine, under NCCL: one
+    worker a card, every card counted."""
+    n = torch.cuda.device_count()
+    bench, roots = toy_cells(tmp_path, n)
+    line = run.launch(bench, "toy.cards", 2 ** 31 + 23, 2.0, True, n,
+                      "cuda", roots)
+    print(json.dumps({k: line[k] for k in ("correct", "attempted",
+                                           "device", "checks")}))
+    assert line["correct"], line["checks"]
+    assert line["device"]["count"] == n
+    assert [r["index"] for r in line["device"]["by_rank"]] == list(range(n))
+    assert line["device"]["memory_peak_bytes"] == max(
+        r["memory_peak_bytes"] for r in line["device"]["by_rank"])
+    assert all(r["busy_s"] > 0 for r in line["device"]["by_rank"])
+
+
+@pytest.mark.card
+def test_an_idle_card_is_not_counted(card, tmp_path):
+    """Rank 1 allocates nothing on its card and only waits out its
+    window: the line counts every card but that one."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards; this machine has one")
+    bench, roots = toy_cells(tmp_path, n, "idle", 1)
+    line = run.launch(bench, "toy.cards", 2 ** 31 + 29, 2.0, False, n,
+                      "cuda", roots)
+    print(json.dumps(line["device"]))
+    assert line["device"]["count"] == n - 1
+    assert [r["index"] for r in line["device"]["by_rank"]] == list(range(n))
+
+
+@pytest.mark.card
+def test_memory_held_before_the_reset_counts_no_card(card):
+    """A card counts where this process's peak rose above what it held
+    when the peaks were reset, not where it only still holds that."""
+    before = torch.ones(1 << 20, device=card)
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(i)
+    base = run._allocated(card)
+    assert torch.cuda.max_memory_allocated(card) >= before.numel() * 4
+    assert run._cards(card, base) == {}
+    after = torch.ones(1 << 20, device=card)
+    assert list(run._cards(card, base).values()) == [
+        torch.cuda.max_memory_allocated(card)]
+    del before, after
