@@ -29,6 +29,8 @@ The argument parser is the reference's, flag for flag. The ported flows::
     python -m ranklib_tpu_torch -train train.txt -ranker 6 -tree 200 \
         -dp 2 -ckpt 50 -resume m.ckpt -eventlog ev.jsonl -profile trace \
         -save m
+    torchrun --nproc-per-node 4 -m ranklib_tpu_torch -train train.txt \
+        -ranker 6 -dp 4 -save m      # one joined process a card
 
 Training takes all ten rankers: MART (``-ranker 0``), RankNet (``1``),
 RankBoost (``2``), AdaRank (``3``), Coordinate Ascent (``4``, the
@@ -203,6 +205,7 @@ def _has_flow(args) -> bool:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     set_silent(args.silent)
+    joined = False
     if not _has_flow(args):
         log(f"Error: {_NOTHING_TO_DO}")
         return 1
@@ -221,6 +224,7 @@ def main(argv=None) -> int:
             evaluate_kcv, evaluate_rank, evaluate_test_only, evaluate_train,
         )
 
+        joined = _join_launched(args)
         device = choose_device()
         if args.eventlog:
             set_event_log(args.eventlog)
@@ -242,7 +246,37 @@ def main(argv=None) -> int:
         return 1
     finally:
         set_event_log(None)
+        if joined:
+            from ranklib_tpu_torch.parallel.dist import leave
+
+            leave()
     return 0
+
+
+def _join_launched(args) -> bool:
+    """Under a launcher such as ``torchrun`` (``MASTER_ADDR``,
+    ``MASTER_PORT``, ``RANK`` and a ``WORLD_SIZE`` above 1 set), a training
+    run with ``-dp n > 1`` makes this process one rank of the launched
+    processes' group (``parallel.dist.join``, on ``cuda:LOCAL_RANK`` or
+    the CPU that ``RANKLIB_TPU_TORCH_DEVICE`` asks for), so that ``-dp``
+    takes every launched process: ``torchrun --nproc-per-node 4 -m
+    ranklib_tpu_torch -train t.txt -ranker 6 -dp 4``. True when it
+    joined; the run leaves the group at its end."""
+    import os
+
+    import torch
+
+    from ranklib_tpu_torch.parallel.dist import _LAUNCHER_ENV, join
+
+    if not (args.train and args.dp > 1) or (
+            torch.distributed.is_available()
+            and torch.distributed.is_initialized()):
+        return False
+    if any(k not in os.environ for k in _LAUNCHER_ENV) or \
+            int(os.environ["WORLD_SIZE"]) < 2:
+        return False
+    join()
+    return True
 
 
 if __name__ == "__main__":

@@ -44,12 +44,20 @@ from ranklib_tpu_torch.ops.split_scan import best_splits
 from ranklib_tpu_torch.utils.trace import span
 
 
+# this process's collectives under a group, and the bytes they reduced
+# (a ``-dp`` rank's ``launch_counts``)
+_COLLECTIVES = {"calls": 0, "bytes": 0}
+
+
 def sum_across(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` summed over ``group``'s ranks (the reference's ``psum``), or
-    ``x`` itself without a group."""
+    ``x`` itself without a group. Under a group the call counts in
+    ``_COLLECTIVES``."""
     if group is not None:
         with span("all_reduce"):
             torch.distributed.all_reduce(x, group=group)
+        _COLLECTIVES["calls"] += 1
+        _COLLECTIVES["bytes"] += x.numel() * x.element_size()
     return x
 
 

@@ -270,11 +270,29 @@ class LambdaMART(Ranker):
     def fit_shard(self, rank: int, device, group, train: Dataset, binned,
                   thresholds, scorer, validation=None, vbinned=None,
                   feature_mask=None, init=None, vinit=None, qstart=None):
-        """One rank's part of a data-parallel fit: its shard of ``train``
-        (whose docs' bins are ``binned``, at ``qstart`` rows) and of
-        ``validation``, the round loop with ``group``. ``init`` /
-        ``vinit``: the warm start's scores of every doc (flatten order).
-        Only rank 0 writes checkpoints."""
+        """One rank's part of a data-parallel fit: :meth:`prepare_shard`,
+        then the round loop with ``group``. Only rank 0 writes
+        checkpoints."""
+        step, state, data = self.prepare_shard(
+            rank, device, group, train, binned, thresholds, scorer,
+            validation, vbinned, feature_mask, init, vinit, qstart)
+        if rank != 0:
+            self.ckpt_every = 0
+        prior, rounds = self._prior()
+        self._boost_loop(step, state, data, scorer, validation is not None,
+                         thresholds, prior, rounds)
+
+    def prepare_shard(self, rank: int, device, group, train: Dataset,
+                      binned, thresholds, scorer, validation=None,
+                      vbinned=None, feature_mask=None, init=None,
+                      vinit=None, qstart=None):
+        """The ``-dp`` counterpart of :meth:`prepare_fit`: rank ``rank``'s
+        shard of ``train`` (whose docs' bins are ``binned``, at ``qstart``
+        rows) and of ``validation`` on ``device``, its round with
+        ``group`` and its state: (step, state, data); ``step(state, t,
+        data)`` runs round t on every rank together. ``init`` /
+        ``vinit``: the warm start's scores of every doc (flatten
+        order)."""
         from ranklib_tpu_torch.gbdt.boost_dist import (
             build_sharded_data, scatter_doc_values,
         )
@@ -284,7 +302,7 @@ class LambdaMART(Ranker):
             train, binned, n, rank, device, validation, vbinned,
             feature_mask, scorer=None if self._POINTWISE else scorer,
             qstart=qstart)
-        prior, rounds = self._prior()
+        _, rounds = self._prior()
         step = make_round_step(
             scorer, n_bins=thresholds.shape[1],
             n_leaves=self.n_leaves, min_leaf_support=self.min_leaf_support,
@@ -301,10 +319,7 @@ class LambdaMART(Ranker):
         if vinit is not None:
             state.vscores.copy_(torch.from_numpy(
                 scatter_doc_values(validation, vinit, n, rank, Nvpad)))
-        if rank != 0:
-            self.ckpt_every = 0
-        self._boost_loop(step, state, data, scorer, validation is not None,
-                         thresholds, prior, rounds)
+        return step, state, data
 
     def eval_dataset(self, ds: Dataset, device: torch.device):
         if not len(self.ensemble):
@@ -359,8 +374,10 @@ def _fit_rank(rank, device, group, ranker, train, binned, thresholds,
 
 
 def launch_counts() -> dict:
-    """This process's launch counts of the kernels a tree fit runs (a
-    ``-dp`` rank returns them with its model)."""
+    """This process's launch counts of the kernels a tree fit runs, and
+    its ``-dp`` collectives and the bytes they reduced (a ``-dp`` rank
+    returns them with its model)."""
+    from ranklib_tpu_torch.gbdt.grow import _COLLECTIVES
     from ranklib_tpu_torch.ops.forest_eval import forest_eval_frombins
     from ranklib_tpu_torch.ops.histogram import histogram, histogram_multi
     from ranklib_tpu_torch.ops.lambda_kernel import lambda_round
@@ -370,7 +387,9 @@ def launch_counts() -> dict:
             "histogram_multi": histogram_multi.launches,
             "split_scan": best_splits.launches,
             "lambda_pairs": lambda_round.launches,
-            "forest_eval_frombins": forest_eval_frombins.launches}
+            "forest_eval_frombins": forest_eval_frombins.launches,
+            "all_reduce": _COLLECTIVES["calls"],
+            "all_reduce_bytes": _COLLECTIVES["bytes"]}
 
 
 def launches_since(before: dict) -> dict:

@@ -52,8 +52,13 @@ rendezvous):
   rank 0 alone writes the event log. Every process must run the same
   flow with the same arguments: whether a process calls a collective
   depends on the data and the flags, never on its rank or its shard.
-* A process that raises raises :class:`RankLibError`; its peers fail in
-  their next collective, at the latest after ``TIMEOUT_S`` seconds.
+* A process whose ``fn`` raises, or whose gathering of the results
+  fails, leaves the group (``destroy_process_group``: its connections
+  close) and raises :class:`RankLibError`; its peers fail at their next
+  collective, the one they wait in included, and leave it in turn. Under
+  gloo that is at once. NCCL does not see a peer go, so there a peer
+  waiting in a collective fails after ``TIMEOUT_S`` seconds, unless its
+  launcher (``torchrun``) ends it first.
 """
 
 from __future__ import annotations
@@ -267,13 +272,16 @@ def _run_joined(mesh: Mesh, fn, args, profile_dir: str | None) -> list:
             with traced:
                 out = fn(rank, device, dist.group.WORLD, *args)
         except Exception:
+            tb = traceback.format_exc()
+            leave()
             raise RankLibError(
                 f"rank {rank} of the {mesh.size}-process -dp mesh failed:\n"
-                f"{traceback.format_exc()}") from None
+                f"{tb}") from None
         results = [None] * mesh.size
         try:
             dist.all_gather_object(results, out)
         except RuntimeError as e:
+            leave()
             raise RankLibError(f"rank {rank} of the {mesh.size}-process -dp "
                                f"mesh could not gather the results: {e}"
                                ) from None
@@ -281,6 +289,14 @@ def _run_joined(mesh: Mesh, fn, args, profile_dir: str | None) -> list:
         if rank != 0 and log_path:
             L.set_event_log(log_path)
     return results
+
+
+def leave() -> None:
+    """Leave the joined group, if this process is in one: its connections
+    close, so a peer still waiting for this process fails now (under
+    gloo), not at ``TIMEOUT_S``."""
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
 
 
 def run(mesh: Mesh, fn, *args, profile_dir: str | None = None) -> list:

@@ -24,6 +24,7 @@ import torch
 
 from ranklib_tpu_torch.cli import main as port_main
 from ranklib_tpu_torch.data.letor import read_letor
+from ranklib_tpu_torch.gbdt.ensemble import TreeEnsemble
 from ranklib_tpu_torch.gbdt.boost_dist import build_sharded_data
 from ranklib_tpu_torch.metrics.base import create_scorer, score_dataset
 from ranklib_tpu_torch.models import gbdt as PG
@@ -77,6 +78,11 @@ def _metric(ranker, ds, scorer):
     return score_dataset(scorer, ds, ranker.eval_dataset(ds, CPU), CPU)[0]
 
 
+def _kernels(counts: dict) -> dict:
+    """A rank's launch counts without its collectives."""
+    return {k: v for k, v in counts.items() if not k.startswith("all_reduce")}
+
+
 def _same_tree(a, b):
     for f in TREE_FIELDS:
         np.testing.assert_array_equal(getattr(b, f), getattr(a, f), f)
@@ -103,9 +109,18 @@ def test_mesh_fit_matches_single_device(tmp_path, rank_models, n):
     mesh = LambdaMART(**hp)
     mesh.fit(train, scorer, device=CPU, mesh=dist.make_mesh(n, CPU))
     assert len(mesh.ensemble) == 5 and mesh.fit_state is None
-    # each rank's kernel launches (none on the CPU: the plain versions)
-    assert mesh.rank_launches == [PG.launch_counts()] * n
+    # each rank's kernel launches (none on the CPU: the plain versions),
+    # and its collectives, the same on every rank: 8 a round (the root's
+    # histogram and sum, a histogram and a sum for each of the 2 splits
+    # that build children, the leaf sums, the train metric): three
+    # [F, B, 2] f32 histograms, four f32 scalars, the [2, 7] f32 leaf sums
+    assert [_kernels(c) for c in mesh.rank_launches] == [
+        _kernels(PG.launch_counts())] * n
     assert set(mesh.rank_launches[0]) >= {"histogram", "split_scan"}
+    hist = 6 * PG.flatten_binned(train, 256)[3].shape[1] * 2 * 4
+    assert {c["all_reduce"] for c in mesh.rank_launches} == {8 * 5}
+    assert {c["all_reduce_bytes"] for c in mesh.rank_launches} == {
+        5 * (3 * hist + 4 * 4 + 2 * 7 * 4)}
     _same_tree(single.ensemble.trees[0], mesh.ensemble.trees[0])
     assert len(rank_models) == 1 and len(rank_models[0]) == n
     assert len(set(rank_models[0])) == 1
@@ -118,6 +133,100 @@ def test_mesh_fit_matches_single_device(tmp_path, rank_models, n):
     assert abs(m_mesh - _metric(single, train, scorer)) < 0.03
     assert abs(m_mesh - m_ref) < 0.03
     assert m_mesh > 0.8
+
+
+def _rounds_rank(rank, device, group, ranker, train, binned, thresholds,
+                 validation, vbinned, feature_mask, scorer, init, vinit):
+    """One rank: ``fit_shard``'s round loop, then the step that
+    ``prepare_shard`` returns driven round by round; each one's records
+    (model text of every round's tree, validation metrics)."""
+    import copy
+
+    n = ranker.n_trees
+    b, vb = binned.numpy(), vbinned.numpy()
+
+    def records(state):
+        return (PG._export(state, n, thresholds,
+                           ranker.learning_rate).to_text(),
+                state.val_m[:n].tolist())
+
+    looped = copy.copy(ranker)
+    looped.fit_shard(rank, device, group, train, b, thresholds, scorer,
+                     validation, vb, feature_mask, init, vinit)
+    step, state, data = ranker.prepare_shard(
+        rank, device, group, train, b, thresholds, scorer, validation, vb,
+        feature_mask, init, vinit)
+    for t in range(n):
+        state = step(state, t, data)
+    return records(looped.fit_state), records(state)
+
+
+def test_prepare_shard_rounds_equal_fit_shard(tmp_path):
+    """Two ranks driving ``prepare_shard``'s step round by round (as the
+    benchmark does) record the trees and validation metrics of
+    ``fit_shard``'s loop, bit for bit on both ranks, and the one-process
+    fit's: every tree in structure and thresholds (leaf outputs to rtol
+    1e-5), the validation metrics to 1e-5."""
+    paths = _files(tmp_path)
+    train = read_letor(paths["train"])
+    vali = read_letor(paths["vali"], n_features=train.n_features)
+    scorer = create_scorer("NDCG@10")
+    hp = dict(n_trees=5, n_leaves=4, learning_rate=0.2)
+    mesh = dist.make_mesh(2, CPU)
+    set_silent(True)
+    out = dist.run(mesh, _rounds_rank, *LambdaMART(**hp).rank_args(
+        train, scorer, vali, CPU, mesh))
+    (looped, stepped), (looped1, stepped1) = out
+    assert looped == stepped == looped1 == stepped1
+    single = LambdaMART(**hp)
+    single.fit(train, scorer, vali, device=CPU)
+    want = TreeEnsemble.from_text(PG._export(
+        single.fit_state, 5, PG.flatten_binned(train, 256)[3],
+        0.2).to_text())
+    got = TreeEnsemble.from_text(stepped[0])
+    assert len(got.trees) == 5
+    for a, b in zip(want.trees, got.trees):
+        _same_tree(a, b)
+    np.testing.assert_allclose(stepped[1],
+                               single.fit_state.val_m[:5].numpy(),
+                               atol=1e-5)
+
+
+def _collective_rank(rank, device, group):
+    """``sum_across`` of an f32 [3, 4], a 0-d f32 and an int64 [5] under
+    ``group`` (the last through a wrapper standing in for the module's
+    name, as a profiler's does) and of one tensor without: the counters'
+    growth and the sums."""
+    from ranklib_tpu_torch.gbdt import grow
+    from ranklib_tpu_torch.gbdt.grow import sum_across
+
+    before = PG.launch_counts()
+    x = sum_across(torch.ones(3, 4), group)
+    y = sum_across(torch.tensor(2.0), group)
+    grow.sum_across = lambda t, g: sum_across(t, g)
+    try:
+        z = grow.sum_across(torch.arange(5), group)
+    finally:
+        grow.sum_across = sum_across
+    sum_across(torch.ones(7), None)
+    got = PG.launches_since(before)
+    return (got["all_reduce"], got["all_reduce_bytes"], _kernels(got),
+            x.tolist(), float(y), z.tolist())
+
+
+def test_sum_across_counts_each_collective_once():
+    """Each collective counts once, with the bytes it reduced (48 + 4 +
+    40), on every rank; a call without a group counts nothing, in a rank
+    and in this process."""
+    from ranklib_tpu_torch.gbdt.grow import sum_across
+
+    got = dist.run(dist.make_mesh(2, CPU), _collective_rank)
+    zeros = _kernels({k: 0 for k in PG.launch_counts()})
+    assert got == [(3, 92, zeros, [[2.0] * 4] * 3, 4.0,
+                    [0, 2, 4, 6, 8])] * 2
+    before = PG.launch_counts()
+    sum_across(torch.ones(7), None)
+    assert PG.launch_counts() == before
 
 
 def test_mesh_early_stop_with_validation(tmp_path):
@@ -207,7 +316,10 @@ def test_rf_mesh_matches_reference(tmp_path, rank_models, rtype):
     mesh.fit(train, scorer, device=CPU, mesh=dist.make_mesh(2, CPU))
     assert len(rank_models) == 3 and all(len(set(r)) == 1
                                          for r in rank_models)
-    assert mesh.rank_launches == [PG.launch_counts()] * 2
+    assert [_kernels(c) for c in mesh.rank_launches] == [
+        _kernels(PG.launch_counts())] * 2
+    assert mesh.rank_launches[0]["all_reduce"] == \
+        mesh.rank_launches[1]["all_reduce"] > 0
     if rtype == 0:
         ref = RefRF(**hp)
         ref.fit(ref_read(paths["train"], quiet=True), ref_scorer("NDCG@10"),

@@ -36,7 +36,14 @@ def test_rf_bags_smaller_than_the_mesh(rank_models, rtype):
              mesh=dist.make_mesh(4, CPU))
     _same_forest(_as_read(port.ensembles), _as_read(ref.ensembles))
     _every_rank_equal(rank_models, 3, 4)
-    assert port.rank_launches == [PG.launch_counts()] * 4
+    # no kernel on the CPU; the same collectives on every rank, the
+    # empty one included
+    kernels = [{k: v for k, v in c.items() if not k.startswith("all_reduce")}
+               for c in port.rank_launches + [PG.launch_counts()]]
+    assert kernels[:4] == kernels[4:] * 4
+    assert len({(c["all_reduce"], c["all_reduce_bytes"])
+                for c in port.rank_launches}) == 1
+    assert port.rank_launches[0]["all_reduce"] > 0
 
 
 @pytest.mark.parametrize("cls", ["LambdaMART", "MART"])

@@ -29,7 +29,7 @@ draws, which this process writes to a file for the others. Held:
 * the CLI's result lines are the spawned run's; rank 0 alone writes the
   event log; each process writes its own trace, named after its rank;
 * ``make_mesh(1)`` in a world of two raises, and a process that raises
-  fails its peer within the timeout;
+  leaves the group and fails its peer at once, not at the timeout;
 * no process imported JAX or the reference.
 
 This module is also the processes' program (``python
@@ -156,6 +156,7 @@ def _worker(rank: int, world: int, init: str, paths: dict, out_dir: str,
     try:
         r, w, device = dist.join(init_method=init, world_size=world,
                                  rank=rank)
+        t0 = time.perf_counter()
         found["join"] = [r, w, str(device), torch.get_num_threads()]
         from ranklib_tpu_torch.models import neural as PN
 
@@ -166,6 +167,7 @@ def _worker(rank: int, world: int, init: str, paths: dict, out_dir: str,
             except RankLibError as e:
                 found["error"] = str(e)
             found["seconds"] = time.perf_counter() - t0
+            found["left"] = not torch.distributed.is_initialized()
             return
         set_silent(True)
         fits = _fits(paths, dist.make_mesh(world, device))
@@ -474,11 +476,21 @@ def test_rankboost_weaks_equal_single_device(runs, n):
 
 
 def test_launch_counts_are_the_fits_own(runs):
-    """Each process's launch counts of the LambdaMART fit are that fit's
-    (none on the CPU: the plain versions), gathered from every rank."""
+    """Each process's launch counts of the LambdaMART fit are that fit's,
+    gathered from every rank: no kernel on the CPU (the plain versions),
+    and the same collectives on every rank, 8 a round (the root's
+    histogram and sum, a histogram and a sum for each of the 2 splits
+    that build children, the leaf sums and the validation metric)."""
     for f in runs["found"][2]:
-        assert len(f["rank_launches"]) == 2
-        assert all(set(c.values()) == {0} for c in f["rank_launches"])
+        ranks = f["rank_launches"]
+        assert len(ranks) == 2
+        for c in ranks:
+            assert {v for k, v in c.items()
+                    if not k.startswith("all_reduce")} == {0}
+        assert ranks[0]["all_reduce"] == ranks[1]["all_reduce"] == \
+            8 * LM_HP["n_trees"]
+        assert ranks[0]["all_reduce_bytes"] == \
+            ranks[1]["all_reduce_bytes"] > 0
 
 
 def test_cli_result_lines_equal_spawned(runs):
@@ -511,13 +523,71 @@ def test_make_mesh_below_the_world_raises(runs, n):
 
 
 def test_a_raising_process_fails_its_peer(runs):
-    """Rank 1 raises in its fit; rank 0, waiting in a collective, fails
-    too, within the 60 s timeout, each with a RankLibError."""
+    """Rank 1 raises in its fit and leaves the group; rank 0, waiting in a
+    collective, fails too, each with a RankLibError: at rank 1's leaving,
+    well inside the 60 s timeout (timed from the group's joining), and
+    neither is left in the group."""
     r0, r1 = runs["found"]["raise"]
     assert "rank 1 of the 2-process -dp mesh failed" in r1["error"]
     assert "ValueError: boom on rank 1" in r1["error"]
     assert "rank 0 of the 2-process -dp mesh failed" in r0["error"]
-    assert r0["seconds"] < 60 + 30 and r0["rc"] == r1["rc"] == 0
+    assert r0["seconds"] < 30 and r0["rc"] == r1["rc"] == 0
+    assert r0["left"] and r1["left"]
+
+
+def test_cli_joins_the_processes_a_launcher_started(tmp_path):
+    """``python -m ranklib_tpu_torch -train ... -dp 2`` in two processes
+    started with what ``torchrun`` sets (``MASTER_ADDR``, ``MASTER_PORT``,
+    ``WORLD_SIZE`` 2, ``RANK``, ``LOCAL_RANK``): each joins the group as
+    one rank (each writes its own rank's trace alone, where a process
+    that spawned its ranks would hold both), both save the same model,
+    and it is the spawned ``-dp 2`` run's, byte for byte."""
+    import socket
+
+    paths = _write_files(str(tmp_path), 32, None)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    argv = ["-train", paths["train"], "-ranker", "6", "-tree", "3", "-leaf",
+            "4", "-dp", "2", "-silent"]
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, PYTHONPATH=REPO, MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(r),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE="2",
+                   RANKLIB_TPU_TORCH_DEVICE="cpu")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "ranklib_tpu_torch", *argv, "-save",
+             str(tmp_path / f"m{r}.txt"), "-profile",
+             str(tmp_path / f"prof{r}")], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=WAIT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    spawned = tmp_path / "spawned.txt"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("RANKLIB_TPU_TORCH_DEVICE", "cpu")
+        for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+            mp.delenv(k, raising=False)
+        try:
+            assert port_main([*argv, "-save", str(spawned)]) == 0
+        finally:
+            set_silent(False)
+    for r in range(2):
+        traces = [n for n in os.listdir(tmp_path / f"prof{r}")
+                  if n.endswith(".pt.trace.json")]
+        assert [n.split(".")[0] for n in traces] == [f"rank{r}"]
+    texts = {(tmp_path / f"m{r}.txt").read_text() for r in range(2)}
+    assert texts == {spawned.read_text()}
+    assert not torch.distributed.is_initialized()
 
 
 def test_join_refusals(monkeypatch):

@@ -191,7 +191,12 @@ def test_rankboost_mesh_matches_reference(rank_models, n):
              mesh=dist.make_mesh(n, CPU))
     _same_weaks(port.weaks, ref.weaks)
     _all_equal(rank_models, 1, n)
-    assert port.rank_launches == [{k: 0 for k in port.rank_launches[0]}] * n
+    # no kernel on the CPU; the same collectives on every rank
+    assert all(v == 0 for c in port.rank_launches for k, v in c.items()
+               if not k.startswith("all_reduce"))
+    assert len({(c["all_reduce"], c["all_reduce_bytes"])
+                for c in port.rank_launches}) == 1
+    assert port.rank_launches[0]["all_reduce"] > 0
 
 
 @pytest.mark.parametrize("n", [2, 3])
