@@ -547,6 +547,40 @@ def pad_binned(feats, binned_real, thresholds, labels, N: int):
     return binned, labels_pad, Npad
 
 
+def bin_pad_T(feats, thresholds, labels, N: int):
+    """The Random Forests fit's upload matrix in one native pass
+    (``native_bin_pad_transposed``): dense ``feats`` binned, padded to
+    :func:`_pad_doc_count` docs (pad docs bin where 0.0 lands), narrowed
+    and laid out feature-major, id for id and at the width that
+    ``upload_bins(np.ascontiguousarray(pad_binned(...)[0].T))`` gives:
+    uint8 when every id is < 256, else int16 below 32767. The pass
+    reports its largest id; ids that uint8 cannot hold take a second pass
+    at int16. Returns (binned_T [F, Npad], labels_pad [Npad] f32, Npad),
+    or None for pre-binned data (``feats`` None), without the native
+    library, or with an id of 32767 or more: the caller then takes
+    :func:`pad_binned`, a host transpose and ``upload_bins``. Counts each
+    route in ``bin_pad_T.fused`` / ``bin_pad_T.fallback``."""
+    from ranklib_tpu_torch.native.loader import native_bin_pad_transposed
+
+    Npad = _pad_doc_count(N)
+    if feats is not None:
+        for dtype, clamp in ((np.uint8, 255), (np.int16, 32766)):
+            got = native_bin_pad_transposed(feats, thresholds, clamp, dtype,
+                                            Npad)
+            if got is None:
+                break
+            if got[1] <= clamp:
+                bin_pad_T.fused += 1
+                labels_pad = np.pad(labels, (0, Npad - N)).astype(np.float32)
+                return got[0], labels_pad, Npad
+    bin_pad_T.fallback += 1
+    return None
+
+
+bin_pad_T.fused = 0
+bin_pad_T.fallback = 0
+
+
 def _pad_doc_count(n: int) -> int:
     """The reference's quantized doc count (256, powers of two below 4096,
     then multiples of 4096): pad docs are inert, and the same count keeps

@@ -56,7 +56,7 @@ from ranklib_tpu_torch.models.base import (
     Ranker, model_header, parse_model_params, register_ranker,
 )
 from ranklib_tpu_torch.models.gbdt import (
-    MART, LambdaMART, _eval_binned, _export, _export_tree,
+    MART, LambdaMART, _eval_binned, _export, _export_tree, bin_pad_T,
     check_same_models, eval_ensemble_dataset, flatten_binned, labels_only,
     launch_counts, launches_since, pad_binned, shared,
 )
@@ -231,9 +231,11 @@ class RFRanker(Ranker):
     def _fit_bags_batched(self, train: Dataset, scorer,
                           device: torch.device, feature_mask=None) -> None:
         """``-rtype 0`` (the default): groups of bags grow their trees in
-        lockstep (:func:`group_step`). Bag draws happen upfront in bag
-        order, so every bag is the per-bag path's; the host reads the
-        trees once per group."""
+        lockstep (:func:`group_step`). Dense data bins straight into the
+        narrow feature-major matrix the kernels read (``bin_pad_T``); a
+        streamed bin matrix is padded, transposed and narrowed on the
+        host. Bag draws happen upfront in bag order, so every bag is the
+        per-bag path's; the host reads the trees once per group."""
         rng = np.random.default_rng(self.seed)
         log("Training starts...")
         with span("fit.setup"):
@@ -242,13 +244,19 @@ class RFRanker(Ranker):
                     flatten_binned(train, self.n_threshold)
             Q = len(train.queries)
             B = thresholds.shape[1]
-            with span("fit.pad"):
-                binned, labels_pad, Npad = pad_binned(
-                    feats, binned_real, thresholds, labels, N)
-            with span("fit.transpose"):
-                binned_t = np.ascontiguousarray(binned.T)
+            with span("fit.bin_T"):
+                fused = bin_pad_T(feats, thresholds, labels, N)
+            if fused is None:           # pre-binned, or no native pass
+                with span("fit.pad"):
+                    binned, labels_pad, Npad = pad_binned(
+                        feats, binned_real, thresholds, labels, N)
+                with span("fit.transpose"):
+                    binned_t = np.ascontiguousarray(binned.T)
+            else:
+                binned_t, labels_pad, Npad = fused
             with span("fit.upload"):
-                binned_T = upload_bins(binned_t, device)
+                binned_T = (upload_bins(binned_t, device) if fused is None
+                            else torch.from_numpy(binned_t).to(device))
                 labels_dev = torch.from_numpy(labels_pad).to(device)
             with span("fit.bag_draws"):
                 bags = [self._draw_bag(train, F, rng, feature_mask)

@@ -72,4 +72,21 @@ inline int64_t bin_of(const float* t, int64_t B, float v) {
   return lower_bound_count(t, B, v);
 }
 
+// bin_of of K values against one row, their searches interleaved step by
+// step so that the K dependent load chains overlap (the same steps, so
+// the same bins)
+template <int K>
+inline void bin_of_k(const float* t, int64_t B, const float* v,
+                     int64_t* bin) {
+  int64_t lo[K] = {};
+  for (int64_t len = B; len > 1;) {
+    const int64_t half = len >> 1;
+    for (int k = 0; k < K; ++k)
+      lo[k] += (t[lo[k] + half - 1] < v[k]) ? half : 0;
+    len -= half;
+  }
+  for (int k = 0; k < K; ++k)
+    bin[k] = (v[k] != v[k]) ? B : lo[k] + (t[lo[k]] < v[k] ? 1 : 0);
+}
+
 }  // namespace ranklib_native

@@ -1,7 +1,8 @@
 """ctypes bridge to the port's native LETOR parser and feature binner.
 
 The C++ lives beside this module (``letor_parser.cpp`` and ``binner.cpp``,
-which share ``common.h``; copies of the reference's sources). Each file is
+which share ``common.h``; copies of the reference's sources, the binner's
+transposed entries extended with pad docs and their largest id). Each file is
 compiled with ``g++`` at first use into the port's build directory
 (``ops._build``), under a name keyed by the source hash. When a compiler is
 missing every entry point returns ``None`` and the callers run their
@@ -12,7 +13,8 @@ re-parses in Python for the precise message.
 Entry points: :func:`native_parse_letor` (dense parse),
 :func:`native_feature_uniques` and :func:`native_bin_features` (the
 training grid and bin matrix), :func:`native_bin_features_transposed`
-(serving-upload binning), and the ``-sparse`` passes —
+(serving-upload binning) and :func:`native_bin_pad_transposed` (the
+Random Forests fit's padded upload matrix), and the ``-sparse`` passes —
 :func:`native_letor_stat`, :func:`native_letor_value_stats` and
 :func:`native_parse_letor_binned` (the streamed parse→bin loader),
 :func:`native_letor_descs` (the '#' side-array) and
@@ -111,7 +113,8 @@ def _binner_lib():
     if lib is None:
         return None
     for fn in (lib.bin_features_u8_T, lib.bin_features_i16_T):
-        fn.argtypes = [_vp, _vp, _vp, _i64, _i64, _i64, _i64, _i64]
+        fn.argtypes = [_vp, _vp, _vp, _i64, _i64, _i64, _i64, _i64, _i64,
+                       _vp]
         fn.restype = ctypes.c_int
     lib.bin_features_i32.argtypes = [_vp, _vp, _vp, _i64, _i64, _i64, _i64]
     lib.bin_features_i32.restype = ctypes.c_int
@@ -215,6 +218,17 @@ def native_bin_features_transposed(feats: np.ndarray, thresholds: np.ndarray,
     clamped to ``clamp`` (NaN included), narrowed to ``dtype`` (uint8 or
     int16) and transposed, in one multithreaded C++ pass. Returns [F, N]
     contiguous ``dtype``, or None when unavailable (caller runs numpy)."""
+    got = native_bin_pad_transposed(feats, thresholds, clamp, dtype,
+                                    len(feats))
+    return None if got is None else got[0]
+
+
+def native_bin_pad_transposed(feats: np.ndarray, thresholds: np.ndarray,
+                              clamp: int, dtype, n_out: int):
+    """:func:`native_bin_features_transposed` into ``n_out`` >= N columns,
+    the last ``n_out - N`` pad docs binned as 0.0 (the training matrix's
+    pad rows). Returns ([F, n_out] contiguous ``dtype``, the largest bin
+    before the clamp), or None when unavailable."""
     lib = _binner_lib()
     dtype = np.dtype(dtype)
     if lib is None or dtype not in (np.uint8, np.int16):
@@ -226,12 +240,13 @@ def native_bin_features_transposed(feats: np.ndarray, thresholds: np.ndarray,
     feats = np.ascontiguousarray(feats, dtype=np.float32)
     thr = np.ascontiguousarray(thresholds, dtype=np.float32)
     N, F = feats.shape
-    if thr.shape[0] != F:
+    if thr.shape[0] != F or n_out < N:
         return None
-    out = np.empty((F, N), dtype)
-    rc = fn(feats.ctypes.data, thr.ctypes.data, out.ctypes.data, N, F,
-            thr.shape[1], int(clamp), 0)
-    return out if rc == 0 else None
+    out = np.empty((F, n_out), dtype)
+    top = _i64(0)
+    rc = fn(feats.ctypes.data, thr.ctypes.data, out.ctypes.data, N, n_out,
+            F, thr.shape[1], int(clamp), 0, ctypes.addressof(top))
+    return (out, top.value) if rc == 0 else None
 
 
 # ---- the -sparse passes (letor_parser.cpp) ---------------------------------

@@ -31,9 +31,11 @@ Spans (``ranklib.`` + name), where they open, and what reads them:
   read-back, ``gbdt.boost`` ``run_silent_rounds``); their number a call
   is ``call.host_reads``.
 * ``fit.setup`` (``models.rf``: everything before the first group step),
-  with ``fit.bin``, ``fit.pad``, ``fit.transpose``, ``fit.upload``,
-  ``fit.bag_draws`` and ``fit.doc_map``: its seconds a fit are
-  ``fit.setup_s``.
+  with ``fit.bin``, ``fit.bin_T`` (``-rtype 0``: dense data binned,
+  padded, narrowed and laid out feature-major in one pass), ``fit.pad``
+  and ``fit.transpose`` (the route of pre-binned data, and of ``-rtype
+  6``'s padding), ``fit.upload``, ``fit.bag_draws`` and ``fit.doc_map``:
+  its seconds a fit are ``fit.setup_s``.
 * ``rf.group``, one a group of bags (``-rtype 0``) or a bag (``-rtype
   6``), with ``rf.doc_w`` (the group's doc weights, feature masks and
   scores) and ``rf.export`` (the trees read back and exported).

@@ -5,6 +5,10 @@ combiner) against the reference's on the CPU.
 * Bag sampling draws the same queries and features from the same seed.
 * ``grow_forest``: every array of every bag's tree equal to the
   reference's; leaf outputs to rtol 1e-5 (f32 sums in another order).
+* The ``-rtype 0`` fit's set-up: the fused pass (``bin_pad_T``) builds
+  the old route's upload matrix, id for id and at its width; a dense fit
+  takes it and a streamed ``-sparse`` fit the old route, each counted,
+  with the old route's model.
 * Whole fits, ``-rtype 0`` (lockstep groups) and ``-rtype 6`` (per-bag
   LambdaMART): trees bag for bag with the reference's structure and
   thresholds, outputs to rtol 1e-5; every bag also matches the float64
@@ -27,15 +31,22 @@ from ranklib_tpu.gbdt.grow import leaf_outputs_forest as ref_leaf_outputs
 from ranklib_tpu.metrics.base import create_scorer as ref_create_scorer
 from ranklib_tpu.models.base import load_ranker_file as ref_load
 from ranklib_tpu.models.rf import RFRanker as RefRF
+from ltrbench.layer_metrics.program import Program
+from ltrbench.trace import profiled
 from ranklib_tpu_torch.cli import main as port_main
 from ranklib_tpu_torch.convert import rf_from_reference
 from ranklib_tpu_torch.data import sampling as PS
+from ranklib_tpu_torch.data.binned import read_letor_binned
 from ranklib_tpu_torch.data.dataset import Dataset, Query
+from ranklib_tpu_torch.data.letor import read_letor
 from ranklib_tpu_torch.gbdt import grow as PG
+from ranklib_tpu_torch.gbdt.binning import compute_thresholds
+from ranklib_tpu_torch.gbdt.boost import upload_bins
 from ranklib_tpu_torch.gbdt.grow import grow_forest, leaf_outputs_forest
 from ranklib_tpu_torch.metrics.base import create_scorer
 from ranklib_tpu_torch.models import rf as PRF
 from ranklib_tpu_torch.models.base import load_ranker_file as port_load
+from ranklib_tpu_torch.models.gbdt import bin_pad_T, pad_binned
 from ranklib_tpu_torch.utils.logging import set_silent
 from tests.fixtures import synth_dataset, write_letor_text
 from tests.test_oracle_parity import _tree_equal
@@ -193,6 +204,71 @@ def test_rf_fit_passes_feature_lists_and_keeps_its_model(monkeypatch):
         fits.append(rf.model_str())
     assert widths == [(5, 2)]
     assert fits[0] == fits[1]
+
+
+# ---- the fit's set-up ---------------------------------------------------------
+
+def _setup_feats(case: str):
+    """(feats [N, F] f32, -tc, the width the old route uploads)."""
+    rng = np.random.default_rng(17)
+    if case == "u8":                            # B = 128
+        return rng.normal(size=(300, 5)).astype(np.float32), 16, np.uint8
+    x = rng.normal(size=(1000, 5)).astype(np.float32)  # B = 256
+    if case == "nan":
+        x[::7, 2] = np.nan                      # NaN bins to B
+        return x, 256, np.int16
+    x[:, 3] = -1 - rng.random(1000)             # 256 thresholds below 0
+    if case == "pad_256":
+        return x, 256, np.int16                 # a pad doc bins to 256
+    return x[:512], 256, np.uint8               # no pad docs
+
+
+@pytest.mark.parametrize("case", ["u8", "nan", "pad_256", "no_pad"])
+def test_bin_pad_T_builds_the_old_routes_matrix(case):
+    feats, tc, width = _setup_feats(case)
+    N = len(feats)
+    thr, _ = compute_thresholds(feats, tc)
+    labels = np.arange(N, dtype=np.float32) % 5
+    binned, labels_old, Npad_old = pad_binned(feats, None, thr, labels, N)
+    old = upload_bins(np.ascontiguousarray(binned.T), CPU).numpy()
+    ids, labels_pad, Npad = bin_pad_T(feats, thr, labels, N)
+    assert ids.dtype == old.dtype == width
+    assert ids.shape == (feats.shape[1], Npad) and ids.flags.c_contiguous
+    np.testing.assert_array_equal(ids, old)
+    np.testing.assert_array_equal(labels_pad, labels_old)
+    assert labels_pad.dtype == np.float32
+    assert Npad == Npad_old and (Npad > N) == (case != "no_pad")
+
+
+@pytest.mark.parametrize("route", ["dense", "streamed"])
+def test_rf_setup_route_is_counted_and_keeps_the_model(tmp_path, monkeypatch,
+                                                       route):
+    """A dense -rtype 0 fit takes the fused pass (``fit.bin_T``, no
+    ``fit.pad`` or ``fit.transpose``), a streamed -sparse fit the old
+    route; ``bin_pad_T`` counts each. Either model is byte-equal to the
+    old route's on the dense data."""
+    path = str(tmp_path / "train.txt")
+    write_letor_text(_data(), path)
+    dense = read_letor(path)
+    ds = dense if route == "dense" else read_letor_binned(path)
+    hp = dict(n_bags=4, n_leaves=5, feature_sampling_rate=0.5, seed=4)
+    scorer = create_scorer("NDCG@10")
+    set_silent(True)
+    before = bin_pad_T.fused, bin_pad_T.fallback
+    rf = PRF.RFRanker(**hp)
+    with profiled(cuda=False) as box:
+        rf.fit(ds, scorer, device=CPU)
+    fused = route == "dense"
+    assert (bin_pad_T.fused - before[0],
+            bin_pad_T.fallback - before[1]) == ((1, 0) if fused else (0, 1))
+    p = Program(box["trace"])
+    assert p.count("fit.bin_T") == 1
+    for name in ("fit.pad", "fit.transpose"):
+        assert p.count(name) == (0 if fused else 1), name
+    monkeypatch.setattr(PRF, "bin_pad_T", lambda *a: None)   # the old route
+    old = PRF.RFRanker(**hp)
+    old.fit(dense, scorer, device=CPU)
+    assert rf.model_str() == old.model_str()
 
 
 # ---- whole fits ---------------------------------------------------------------

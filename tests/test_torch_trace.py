@@ -5,8 +5,9 @@ metrics that read them (``ltrbench/layer_metrics``), on the CPU.
   builds a ``record_function``.
 * Under the profiler a LambdaMART round is one ``ranklib.step`` holding
   its phases, growth one ``grow.root`` and a ``grow.split`` a split, and
-  a silent round reads nothing back; a Random Forests fit opens one
-  ``fit.setup`` with its six phases and reads the trees back once a
+  a silent round reads nothing back; a dense Random Forests fit opens one
+  ``fit.setup`` with its five phases (the fused ``fit.bin_T``, no
+  ``fit.pad`` or ``fit.transpose``) and reads the trees back once a
   group of bags.
 * The four metrics read known values from a hand-made trace, leave out
   the harness's own launches and read nothing from a program without
@@ -36,8 +37,8 @@ CPU = torch.device("cpu")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROUND = ("round.lambdas", "round.grow", "round.leaf_outputs",
          "round.score_update", "round.validate", "round.record")
-SETUP = ("fit.bin", "fit.pad", "fit.transpose", "fit.upload",
-         "fit.bag_draws", "fit.doc_map")
+SETUP = ("fit.bin", "fit.bin_T", "fit.upload", "fit.bag_draws",
+         "fit.doc_map")
 
 
 @pytest.fixture(autouse=True)
@@ -167,6 +168,8 @@ def test_a_forest_fit_opens_one_setup_and_reads_a_group_once(
     for name in SETUP:
         assert p.count(name) == 1, name
         assert _within(p.spans[name][0], setup), name
+    for name in ("fit.pad", "fit.transpose"):       # the pre-binned route's
+        assert not p.count(name), name
     assert p.count("rf.group") == groups
     assert p.count("step") == groups
     for g in p.spans["rf.group"]:
